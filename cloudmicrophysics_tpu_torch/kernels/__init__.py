@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels for the fused hot paths.
+
+The physics lives in ``ops``/``models`` as eager PyTorch; each kernel here
+computes the same step in one pass and sits beside its plain version,
+which CPU tensors take. Nothing is compiled at import: a kernel is built
+with ``nvcc`` (see ``_build``) the first time it is launched.
+"""
+
+from .column1m import (
+    kernel_params,
+    pack_state,
+    step_column_1m_fused,
+    step_column_1m_fused_packed,
+    unpack_state,
+)
