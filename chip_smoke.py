@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the fused 1M column kernel from ``cloudmicrophysics_tpu_torch/
-kernels/csrc`` with ``nvcc`` (into the package's ignored ``build/``
-directory), then, failing at the first phase that does not hold:
+Builds the fused 1M and 2M column kernels from ``cloudmicrophysics_tpu_torch/
+kernels/csrc`` with ``nvcc`` (one compiler per source, started together,
+into the package's ignored ``build/`` directory), then, failing at the
+first phase that does not hold:
 
 1. prints the toolchain (GPU name and power limit, torch, CUDA, nvcc,
    whether triton imports);
-2. prints the build time and the compiler's register/spill report;
+2. prints each source's build time and the compiler's register/spill
+   report;
 3. compares both kernel entry points (packed and unpacked) with their plain
    PyTorch versions on the card at three cases, (4096, 128), a ragged
    (1000, 40) and the in-kernel ``q_tot`` affine, under rtol 2e-5 /
@@ -24,7 +26,21 @@ directory), then, failing at the first phase that does not hold:
    compares one full-size packed step with the plain version;
 6. times a plain streaming pass over the packed state (``torch.mul``, the
    memory roof the kernel is quoted against) and measures the device's idle
-   share over 10 fused steps with ``torch.profiler``.
+   share over 10 fused steps with ``torch.profiler``;
+7. compares both 2M warm-rain kernel entry points (packed, K3, and
+   unpacked, K4) with their plain versions at (4096, 128), a ragged
+   (1000, 40), the in-kernel ``q_tot`` affine, ``is_limited=False``,
+   ``rain_velocity="chen2022"`` and the benchmark's uniform 2M state, under
+   the same tolerance, with two tilings agreeing bit for bit;
+8. drives the 2M path at full width: ``Column2MStep`` over a packed
+   (7, 524288, 128) float32 2M state, one step on the unpacked state and
+   three timed 30-step rollouts with the same ``q_tot`` affine schedule,
+   with the same checks, holding the unpacked step against the plain
+   version;
+9. times K3 and K4 and their plain versions at that size, holds one
+   full-size packed step against the plain version, quotes K3 against
+   the streaming pass of phase 6, counts the plain step's device kernels
+   and measures the device's idle share over 10 K3 steps.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -35,6 +51,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -78,6 +95,33 @@ def _device_state(ncol, nlev, device, seed=0):
         for a in _state_recipe(ncol, nlev, seed)))
 
 
+def _state_recipe_2m(ncol, nlev, seed=0):
+    """The 2M state: the 1M recipe's rho and T profiles, random contents
+    and numbers, in numpy."""
+    rng = np.random.default_rng(seed)
+    shape = (ncol, nlev)
+    ones = np.ones((ncol, 1))
+    yield np.linspace(1.2, 0.4, nlev)[None, :] * ones
+    yield np.linspace(300.0, 220.0, nlev)[None, :] * ones
+    for scale in (1e-2, 1e-3, 1e8, 5e-4, 1e6):
+        yield scale * rng.random(shape)
+
+
+# the TPU benchmark's uniform 2M state (benchmarks/bench_suite.py:150-153)
+UNIFORM_2M = (1.1, 288.0, 6e-3, 1e-3, 9e7, 5e-4, 9e5)
+
+
+def _device_state_2m(ncol, nlev, device, seed=0, uniform=False):
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models.column import ColumnState2M
+
+    arrays = ([np.full((ncol, nlev), v) for v in UNIFORM_2M] if uniform
+              else _state_recipe_2m(ncol, nlev, seed))
+    return ColumnState2M(*(torch.from_numpy(a.astype(np.float32)).to(device)
+                           for a in arrays))
+
+
 def _compare(out, ref):
     """Per-field (max |abs err|, max rel err, passes) of two ColumnStates."""
     rows = {}
@@ -119,6 +163,65 @@ def _time_ms(fn, reps, warmup=1):
     return times
 
 
+def _drive(model, state, pack, unpack, fused, packed_fused, names):
+    """A path at full width: one step of ``model`` on the unpacked
+    ``state``, then ``N_ROLLOUTS`` timed rollouts of ``N_STEPS`` packed
+    steps with the benchmark's ``q_tot`` affine schedule, the launch
+    counters set to 0 just before and read just after. Checks that the
+    counters (``names``: packed, unpacked kernel) equal the steps driven
+    and that the results are finite and non-negative; prints ms/step and
+    grid-points/s. Returns the first step, the packed state and the
+    launch counts."""
+    import torch
+
+    torch.cuda.synchronize()
+    fused.launches = packed_fused.launches = 0
+    first = model(state)                      # one step on the unpacked state
+    packed = pack(state)
+    s = model(packed, q_tot_affine=(1.0, 1e-9))   # warm-up, schedule i = 0
+    steps_packed = 1
+    times, checksums = [], []
+    for rep in range(N_ROLLOUTS):
+        s = packed * (1.0 + 1e-5 * rep)       # rep-distinct start, untimed
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(N_STEPS):
+            s = model(s, q_tot_affine=(1.0 + 1e-4 * (i + 1),
+                                       1e-9 * (2.0 + i)))
+        end.record()
+        end.synchronize()
+        steps_packed += N_STEPS
+        times.append(start.elapsed_time(end))
+        checksums.append(float(s[5].double().sum()))
+    k_packed, k_unpacked = names
+    launches = {k_packed: packed_fused.launches, k_unpacked: fused.launches}
+    torch.cuda.synchronize()
+    if launches != {k_packed: steps_packed, k_unpacked: 1}:
+        raise AssertionError(f"launch counts {launches} != steps driven "
+                             f"({k_packed} {steps_packed}, {k_unpacked} 1)")
+    if not all(np.isfinite(checksums)):
+        raise AssertionError(f"non-finite checksum {checksums}")
+    for name, x in zip(("first step", "rollout end"), (first, unpack(s))):
+        for f, v in zip(x._fields, x):
+            if tuple(v.shape) != (NCOL, NLEV) or not bool(v.isfinite().all()):
+                raise AssertionError(f"{name}: {f} not finite or misshapen")
+            if f.startswith(("q_", "n_")) and bool((v < 0).any()):
+                raise AssertionError(f"{name}: {f} negative")
+    ms = [t / N_STEPS for t in times]
+    pts = [NCOL * NLEV / (m * 1e-3) for m in ms]
+    print(f"ms/step: best {min(ms):.6g}, median {float(np.median(ms)):.6g} "
+          f"(per rollout {[round(m, 6) for m in ms]})")
+    print(f"grid-points/s: best {max(pts):.6g}, median "
+          f"{float(np.median(pts)):.6g}")
+    print(f"checksum sum(q_rai) per rollout: {checksums}")
+    print(f"launches in this path: {k_packed} {launches[k_packed]} "
+          f"(= {steps_packed} packed steps), {k_unpacked} "
+          f"{launches[k_unpacked]} (= 1 unpacked step)")
+    return first, packed, launches
+
+
 def _idle_share(fn, calls):
     """Share of the span from the first device kernel's start to the last
     one's end in which no kernel ran, over ``calls`` calls of ``fn``, by
@@ -146,6 +249,24 @@ def _idle_share(fn, calls):
     return 1.0 - busy / (hi - spans[0][0])
 
 
+def _device_kernels(fn):
+    """Device kernels one call of ``fn`` launches, by ``torch.profiler``
+    (memory copies and sets not counted); None when the profiler records
+    no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(names) or None
+
+
 def main():
     import torch
 
@@ -154,10 +275,15 @@ def main():
         return 2
 
     from cloudmicrophysics_tpu_torch.kernels import column1m as K
-    from cloudmicrophysics_tpu_torch.models.column import Column1MStep
+    from cloudmicrophysics_tpu_torch.kernels import column2m as K2M
+    from cloudmicrophysics_tpu_torch.models.column import (
+        Column1MStep,
+        Column2MStep,
+    )
     from cloudmicrophysics_tpu_torch.parameters import (
         ThermodynamicsParameters,
         microphysics_1m_params,
+        microphysics_2m_params,
         terminal_velocity_params,
     )
 
@@ -188,13 +314,21 @@ def main():
 
     # ---- 2. build ----------------------------------------------------------
     print("== build")
-    t0 = time.perf_counter()
-    K._library()
-    print(f"column1m.cu built and loaded in {time.perf_counter() - t0:.1f} s")
-    for log in _build.BUILD_DIR.glob("column1m-*/build.log"):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+
+    def timed_build(lib):
+        t0 = time.perf_counter()
+        lib()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        builds = dict(zip(("column1m", "column2m"), pool.map(
+            timed_build, (K._library, K2M._library))))
+    for stem, seconds in builds.items():
+        print(f"{stem}.cu built and loaded in {seconds:.1f} s")
+        for log in _build.BUILD_DIR.glob(f"{stem}-*/build.log"):
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas: {line.strip()}")
 
     # ---- 3. kernel parity on the card --------------------------------------
     print(f"== kernel vs plain version (rtol {RTOL}, atol {ATOL})")
@@ -241,55 +375,13 @@ def main():
           f"{N_ROLLOUTS} x {N_STEPS} steps")
     state = _device_state(NCOL, NLEV, device)
     model = Column1MStep(mp, tps, tv, DT, DZ).to(device)
-    torch.cuda.synchronize()
-    fused.launches = packed_fused.launches = 0
-    first = model(state)                      # one step on the unpacked state
-    packed = K.pack_state(state)
-    s = model(packed, q_tot_affine=(1.0, 1e-9))   # warm-up, schedule i = 0
-    steps_packed = 1
-    times, checksums = [], []
-    for rep in range(N_ROLLOUTS):
-        s = packed * (1.0 + 1e-5 * rep)       # rep-distinct start, untimed
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(N_STEPS):
-            s = model(s, q_tot_affine=(1.0 + 1e-4 * (i + 1),
-                                       1e-9 * (2.0 + i)))
-        end.record()
-        end.synchronize()
-        steps_packed += N_STEPS
-        times.append(start.elapsed_time(end))
-        checksums.append(float(s[5].double().sum()))
-    launches = {"K1": packed_fused.launches, "K2": fused.launches}
-    torch.cuda.synchronize()
-    if launches != {"K1": steps_packed, "K2": 1}:
-        raise AssertionError(f"launch counts {launches} != steps driven "
-                             f"(K1 {steps_packed}, K2 1)")
-    if not all(np.isfinite(checksums)):
-        raise AssertionError(f"non-finite checksum {checksums}")
-    for name, x in zip(("first step", "rollout end"),
-                       (first, K.unpack_state(s))):
-        for f, v in zip(x._fields, x):
-            if tuple(v.shape) != (NCOL, NLEV) or not bool(v.isfinite().all()):
-                raise AssertionError(f"{name}: {f} not finite or misshapen")
-            if f.startswith("q_") and bool((v < 0).any()):
-                raise AssertionError(f"{name}: {f} negative")
-    ms = [t / N_STEPS for t in times]
-    pts = [NCOL * NLEV / (m * 1e-3) for m in ms]
-    print(f"ms/step: best {min(ms):.6g}, median {float(np.median(ms)):.6g} "
-          f"(per rollout {[round(m, 6) for m in ms]})")
-    print(f"grid-points/s: best {max(pts):.6g}, median "
-          f"{float(np.median(pts)):.6g}")
-    print(f"checksum sum(q_rai) per rollout: {checksums}")
-    print(f"launches in the main path: K1 {launches['K1']} "
-          f"(= {steps_packed} packed steps), K2 {launches['K2']} "
-          f"(= 1 unpacked step)")
+    first, packed, launches = _drive(model, state, K.pack_state,
+                                     K.unpack_state, fused, packed_fused,
+                                     ("K1", "K2"))
     max_err["K2"] = max(max_err["K2"], _report(
         "K2 main path's full-size step vs plain",
         _compare(first, K.step_column_1m_plain(state, mp, tps, tv, DT, DZ))))
-    del first, s
+    del first
 
     # ---- 5. kernels and plain versions at full size ------------------------
     print(f"== kernel vs plain version at ({NCOL}, {NLEV}), CUDA events")
@@ -330,25 +422,132 @@ def main():
     print("  device idle share over 10 K1 steps (torch.profiler): "
           + ("not measured, the profiler saw no device time" if idle is None
              else f"{idle:.6g}"))
-    del buf
+    del buf, state, packed, model
 
-    src = "cloudmicrophysics_tpu_torch/kernels/csrc/column1m.cu"
-    kernels = [
-        {"name": "column1m_step_packed (K1)", "route": "cuda", "source": src,
-         "replaces": "cloudmicrophysics_tpu/kernels/column1m.py:149",
-         "launches": launches["K1"], "max_abs_err": max_err["K1"],
-         "ms": timing["K1"][0], "plain_ms": timing["K1"][1]},
-        {"name": "column1m_step_unpacked (K2)", "route": "cuda", "source": src,
-         "replaces": "cloudmicrophysics_tpu/kernels/column1m.py:80",
-         "launches": launches["K2"], "max_abs_err": max_err["K2"],
-         "ms": timing["K2"][0], "plain_ms": timing["K2"][1]},
+    launches2, max_err2, timing2 = _run_2m(
+        device, K2M, Column2MStep, microphysics_2m_params, tps, copy_ms)
+    launches.update(launches2)
+    max_err.update(max_err2)
+    timing.update(timing2)
+
+    csrc = "cloudmicrophysics_tpu_torch/kernels/csrc/"
+    entries = [
+        ("K1", "column1m_step_packed", "column1m", "column1m.py:149"),
+        ("K2", "column1m_step_unpacked", "column1m", "column1m.py:80"),
+        ("K3", "column2m_step_packed", "column2m", "column2m.py:105"),
+        ("K4", "column2m_step_unpacked", "column2m", "column2m.py:43"),
     ]
+    kernels = [
+        {"name": f"{fn} ({k})", "route": "cuda", "source": f"{csrc}{src}.cu",
+         "replaces": f"cloudmicrophysics_tpu/kernels/{tpu}",
+         "launches": launches[k], "max_abs_err": max_err[k],
+         "ms": timing[k][0], "plain_ms": timing[k][1]}
+        for k, fn, src, tpu in entries]
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _run_2m(device, K, Column2MStep, microphysics_2m_params, tps, copy_ms):
+    """Phases 7-9: the 2M warm-rain kernels K3 (packed) and K4 (unpacked)
+    against their plain versions, and the 2M path at full width. Returns
+    the launch counts of the main path, the largest errors and the
+    (kernel, plain) times."""
+    import torch
+
+    mp = microphysics_2m_params()
+    fused, packed_fused = K.step_column_2m_fused, K.step_column_2m_fused_packed
+
+    # ---- 7. kernel parity on the card --------------------------------------
+    print(f"== 2M kernels vs plain version (rtol {RTOL}, atol {ATOL})")
+    max_err = {"K3": 0.0, "K4": 0.0}
+    cases = [
+        ("(4096, 128)", {}, 4096, 128, (256, 128), None, False),
+        ("ragged (1000, 40)", {}, 1000, 40, (8, 40), None, False),
+        ("affine (4096, 128)", {}, 4096, 128, (128, 64), AFFINE, False),
+        ("is_limited=False", {"is_limited": False}, 4096, 128, (256, 64),
+         None, False),
+        ("rain_velocity=chen2022", {"rain_velocity": "chen2022"}, 4096, 128,
+         (256, 64), None, False),
+        ("uniform bench state", {}, 4096, 128, (256, 128), None, True),
+    ]
+    for label, opts, ncol, nlev, tilings, affine, uniform in cases:
+        mpc = microphysics_2m_params(**opts)
+        params = K.kernel_params_2m(mpc, tps, device=device)
+        st = _device_state_2m(ncol, nlev, device, seed=7, uniform=uniform)
+        if affine is None:   # K4 has no affine, as the Pallas kernel
+            ref = K.step_column_2m_plain(st, mpc, tps, DT, DZ)
+            outs = [fused(st, mpc, tps, DT, DZ, block_cols=bc, params=params)
+                    for bc in tilings]
+            max_err["K4"] = max(max_err["K4"], _report(
+                f"K4 {label} block_cols={tilings[0]}", _compare(outs[0], ref)))
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise AssertionError(f"K4 {label}: block_cols {tilings} differ")
+            print(f"  K4 {label}: block_cols {tilings} agree bit for bit")
+        pk = K.pack_state_2m(st)
+        pref = K.unpack_state_2m(K.step_column_2m_packed_plain(
+            pk, mpc, tps, DT, DZ, q_tot_affine=affine))
+        pouts = [packed_fused(pk, mpc, tps, DT, DZ, block_cols=bc,
+                              q_tot_affine=affine, params=params)
+                 for bc in tilings]
+        max_err["K3"] = max(max_err["K3"], _report(
+            f"K3 {label} block_cols={tilings[0]}",
+            _compare(K.unpack_state_2m(pouts[0]), pref)))
+        if not torch.equal(pouts[0], pouts[1]):
+            raise AssertionError(f"K3 {label}: block_cols {tilings} differ")
+        print(f"  K3 {label}: block_cols {tilings} agree bit for bit")
+    del st, pk, pref, pouts
+
+    # ---- 8. the 2M path at full width --------------------------------------
+    print(f"== 2M path: Column2MStep on ({NCOL}, {NLEV}) float32, "
+          f"{N_ROLLOUTS} x {N_STEPS} steps")
+    state = _device_state_2m(NCOL, NLEV, device)
+    model = Column2MStep(mp, tps, DT, DZ).to(device)
+    first, packed, launches = _drive(model, state, K.pack_state_2m,
+                                     K.unpack_state_2m, fused, packed_fused,
+                                     ("K3", "K4"))
+    max_err["K4"] = max(max_err["K4"], _report(
+        "K4 2M path's full-size step vs plain",
+        _compare(first, K.step_column_2m_plain(state, mp, tps, DT, DZ))))
+    del first
+
+    # ---- 9. kernels and plain versions at full size ------------------------
+    print(f"== 2M kernels vs plain version at ({NCOL}, {NLEV}), CUDA events")
+    torch.cuda.reset_peak_memory_stats(device)
+    plain4 = _time_ms(lambda: K.step_column_2m_plain(
+        state, mp, tps, DT, DZ), reps=3)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    kern4 = _time_ms(lambda: fused(state, mp, tps, DT, DZ,
+                                   params=model.params), reps=10)
+    kern3 = _time_ms(lambda: model(packed, q_tot_affine=AFFINE), reps=10)
+    plain3 = _time_ms(lambda: K.step_column_2m_packed_plain(
+        packed, mp, tps, DT, DZ, q_tot_affine=AFFINE), reps=3)
+    timing = {"K3": (min(kern3), min(plain3)), "K4": (min(kern4), min(plain4))}
+    for k, (t_kern, t_plain) in timing.items():
+        print(f"  {k}: kernel {t_kern:.6g} ms/step, plain {t_plain:.6g} "
+              f"ms/step, plain/kernel {t_plain / t_kern:.4g}")
+    print(f"  plain version peak device memory {peak_gb:.4g} GB")
+    max_err["K3"] = max(max_err["K3"], _report(
+        "K3 one full-size step vs plain", _compare(
+            K.unpack_state_2m(model(packed, q_tot_affine=AFFINE)),
+            K.unpack_state_2m(K.step_column_2m_packed_plain(
+                packed, mp, tps, DT, DZ, q_tot_affine=AFFINE)))))
+    nbytes = 2 * packed.numel() * packed.element_size()   # read + write
+    print(f"  K3: {timing['K3'][0]:.6g} ms/step, "
+          f"{nbytes / timing['K3'][0] / 1e6:.6g} GB/s, "
+          f"{copy_ms / timing['K3'][0]:.4g} of the streaming pass's rate")
+    n_plain = _device_kernels(lambda: K.step_column_2m_packed_plain(
+        packed, mp, tps, DT, DZ, q_tot_affine=AFFINE))
+    print(f"  plain packed step: {n_plain} device kernels per step "
+          f"(torch.profiler)")
+    idle = _idle_share(lambda: model(packed, q_tot_affine=AFFINE), calls=10)
+    print("  device idle share over 10 K3 steps (torch.profiler): "
+          + ("not measured, the profiler saw no device time" if idle is None
+             else f"{idle:.6g}"))
+    return launches, max_err, timing
 
 
 if __name__ == "__main__":

@@ -13,3 +13,10 @@ from .column1m import (
     step_column_1m_fused_packed,
     unpack_state,
 )
+from .column2m import (
+    kernel_params_2m,
+    pack_state_2m,
+    step_column_2m_fused,
+    step_column_2m_fused_packed,
+    unpack_state_2m,
+)

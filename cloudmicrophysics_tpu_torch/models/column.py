@@ -1,11 +1,12 @@
 """Column model driver (L6): ``(ncol, nlev)`` tensors + sedimentation.
 
-Port of ``cloudmicrophysics_tpu/models/column.py:1-169``. The reference
+Port of ``cloudmicrophysics_tpu/models/column.py:1-260``. The reference
 library is pointwise; the host model applies terminal velocities in an
 upwind vertical flux. This module supplies that host-model role:
 
 * the state is a NamedTuple of ``(ncol, nlev)`` tensors;
-* all process rates are one elementwise pass (the 1M bulk tendencies);
+* all process rates are one elementwise pass (the 1M bulk tendencies, or
+  the 2M SB2006 warm-rain tendencies);
 * sedimentation is a first-order upwind donor-cell flux, a per-column
   shift: level k receives the flux from level k+1 above. Columns are
   independent.
@@ -14,9 +15,10 @@ Convention: level index k increases upward (k = 0 is the surface);
 hydrometeors fall toward k = 0. The flux through the bottom interface is
 the surface precipitation rate diagnostic.
 
-:class:`Column1MStep` is the module a caller drives: it holds the
-parameters and the kernel's parameter buffer, and steps the state through
-the fused CUDA kernel (or its plain version on the CPU).
+:class:`Column1MStep` and :class:`Column2MStep` are the modules a caller
+drives: each holds the parameters and its kernel's parameter buffer, and
+steps the state through its fused CUDA kernel (or the plain version on the
+CPU).
 """
 
 from __future__ import annotations
@@ -36,8 +38,9 @@ from ..parameters.thermodynamics import ThermodynamicsParameters
 from ..utils.special import clamp_to_nonneg
 from . import tendencies as BMT
 
-__all__ = ["Column1MStep", "ColumnState", "sedimentation_tendency",
-           "step_column_1m", "surface_precip_rate"]
+__all__ = ["Column1MStep", "Column2MStep", "ColumnState", "ColumnState2M",
+           "sedimentation_tendency", "step_column_1m", "step_column_2m",
+           "surface_precip_rate"]
 
 
 class ColumnState(NamedTuple):
@@ -189,7 +192,139 @@ class Column1MStep(nn.Module):
             step, ncol = K.step_column_1m_fused, state.rho.shape[0]
         else:
             step, ncol = K.step_column_1m_fused_packed, state.shape[1]
-        block_cols = ncol & -ncol if ncol % 128 else 128
         return step(state, self.mp, self.tps, self.tv, self.dt, self.dz,
-                    block_cols=block_cols, q_tot_affine=q_tot_affine,
+                    block_cols=_block_cols(ncol), q_tot_affine=q_tot_affine,
                     params=self.params)
+
+
+def _block_cols(ncol: int) -> int:
+    """Columns a thread block steps: 128, or the largest power of two that
+    divides ``ncol`` when 128 does not."""
+    return ncol & -ncol if ncol % 128 else 128
+
+
+class ColumnState2M(NamedTuple):
+    """2-moment prognostic column; every field is ``(ncol, nlev)``."""
+
+    rho: torch.Tensor
+    T: torch.Tensor
+    q_tot: torch.Tensor
+    q_lcl: torch.Tensor
+    n_lcl: torch.Tensor   # specific droplet number [1/kg]
+    q_rai: torch.Tensor
+    n_rai: torch.Tensor
+
+
+def step_column_2m(state: ColumnState2M, mp, tps: ThermodynamicsParameters,
+                   dt, dz, impl: str = "eager",
+                   block_cols: int = 128) -> ColumnState2M:
+    """One explicit Euler step of the SB2006 warm-rain column: process rates
+    + number- and mass-weighted rain sedimentation (the 2M analog of
+    :func:`step_column_1m`; velocities per reference
+    src/Microphysics2M.jl:685-739, applied in the upwind flux).
+
+    ``impl`` selects the form (identical math):
+
+    * ``"eager"`` (default) — eager PyTorch on any device, the JAX
+      package's ``"xla"``;
+    * ``"fused"`` — the packed-state fused kernel
+      (:func:`..kernels.column2m.step_column_2m_fused_packed`), the JAX
+      package's ``"pallas"``: one CUDA launch per step on CUDA tensors, the
+      plain version on CPU tensors. ``block_cols`` is halved until it
+      divides ``ncol``.
+    """
+    from ..ops import m2 as CM2
+
+    if impl == "fused":
+        from ..kernels.column2m import (
+            pack_state_2m,
+            step_column_2m_fused_packed,
+            unpack_state_2m,
+        )
+
+        ncol = state.rho.shape[0]
+        bc = max(block_cols, 1)
+        while ncol % bc:
+            bc //= 2
+        return unpack_state_2m(step_column_2m_fused_packed(
+            pack_state_2m(state), mp, tps, dt, dz, block_cols=bc))
+    if impl != "eager":
+        raise ValueError(f"unknown impl {impl!r} (expected 'eager'|'fused')")
+
+    sb = mp.warm_rain.seifert_beheng
+    rates = BMT.bulk_tendencies_2m(
+        mp, tps, state.rho, state.T, state.q_tot, state.q_lcl, state.n_lcl,
+        state.q_rai, state.n_rai)
+
+    N_rai = state.n_rai * state.rho
+    vt_n, vt_m = CM2.rain_terminal_velocity(sb, _chen_or_sb(mp),
+                                            state.q_rai, state.rho, N_rai)
+    sed_q_rai = sedimentation_tendency(state.rho, state.q_rai, vt_m, dz)
+    sed_n_rai = sedimentation_tendency(state.rho, state.n_rai, vt_n, dz)
+
+    Lv = TDI.latent_heat_vapor(tps, state.T)
+    cp = TDI.cp_m(tps, state.q_tot, state.q_lcl + state.q_rai,
+                  torch.zeros_like(state.q_lcl))
+    T_new = state.T + dt * Lv / cp * (rates.dq_lcl_dt + rates.dq_rai_dt)
+    return ColumnState2M(
+        rho=state.rho, T=T_new,
+        q_tot=clamp_to_nonneg(state.q_tot + dt * sed_q_rai),
+        q_lcl=clamp_to_nonneg(state.q_lcl + dt * rates.dq_lcl_dt),
+        n_lcl=clamp_to_nonneg(state.n_lcl + dt * rates.dn_lcl_dt),
+        q_rai=clamp_to_nonneg(state.q_rai + dt * (rates.dq_rai_dt
+                                                  + sed_q_rai)),
+        n_rai=clamp_to_nonneg(state.n_rai + dt * (rates.dn_rai_dt
+                                                  + sed_n_rai)),
+    )
+
+
+def _chen_or_sb(mp):
+    """Rain fall-speed parameterization of the 2M column, from
+    ``mp.warm_rain.terminal_velocity``: SB2006 Rogers-type (also when
+    unset) or Chen2022, as ``microphysics_2m_params(rain_velocity=...)``
+    selects it."""
+    from ..parameters.terminal_velocity import SB2006VelType
+
+    vel = getattr(mp.warm_rain, "terminal_velocity", None)
+    return SB2006VelType() if vel is None else vel
+
+
+class Column2MStep(nn.Module):
+    """One fused 2M warm-rain column step (SB2006, explicit Euler).
+
+    Holds the parameters, ``dt``, ``dz`` and the kernel's float32 parameter
+    buffer (built once, on the host in float64; it follows the module
+    through ``.to(device)``). ``forward(state, q_tot_affine=None)`` advances
+    either a packed ``(7, ncol, nlev)`` tensor (see
+    :func:`..kernels.column2m.pack_state_2m`) or a :class:`ColumnState2M` by
+    one step and returns the same kind; ``q_tot_affine`` applies to the
+    packed state only, as in the JAX package. On CUDA tensors it launches
+    the fused kernel; on CPU tensors it runs the plain version. A thread
+    block steps the largest power of two of columns, up to 128, that
+    divides ``ncol``.
+    """
+
+    def __init__(self, mp, tps: ThermodynamicsParameters, dt: float,
+                 dz: float):
+        super().__init__()
+        from ..kernels.column2m import kernel_params_2m
+
+        self.mp, self.tps = mp, tps
+        self.dt, self.dz = float(dt), float(dz)
+        self.register_buffer("params", kernel_params_2m(mp, tps),
+                             persistent=False)
+
+    def forward(self, state, q_tot_affine=None):
+        from ..kernels import column2m as K
+
+        if isinstance(state, ColumnState2M):
+            if q_tot_affine is not None:
+                raise ValueError("q_tot_affine needs the packed state")
+            return K.step_column_2m_fused(
+                state, self.mp, self.tps, self.dt, self.dz,
+                block_cols=_block_cols(state.rho.shape[0]),
+                params=self.params)
+        return K.step_column_2m_fused_packed(
+            state, self.mp, self.tps, self.dt, self.dz,
+            block_cols=_block_cols(state.shape[1]),
+            q_tot_affine=q_tot_affine, params=self.params)

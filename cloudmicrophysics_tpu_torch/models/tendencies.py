@@ -1,8 +1,10 @@
-"""Fused bulk microphysics tendencies (L5): the 0M and 1M entry points.
+"""Fused bulk microphysics tendencies (L5): the 0M, 1M and 2M warm-rain
+entry points and the scheme dispatcher.
 
-Port of ``cloudmicrophysics_tpu/models/tendencies.py:49-422`` (reference
+Port of ``cloudmicrophysics_tpu/models/tendencies.py:49-567`` (reference
 ``src/BulkMicrophysicsTendencies.jl``): all process rates for a scheme in
-one elementwise pass over local state.
+one elementwise pass over local state. The 2M tendencies with P3 ice
+(``mp.ice`` set) are not ported yet and raise ``NotImplementedError``.
 
 Output modes (reference ``src/BulkMicrophysicsTendencies.jl:85-115``):
 
@@ -26,6 +28,7 @@ from ..ops import thermo as TDI
 from ..ops.states import MicroState, ThermoState
 from ..parameters.common import Microphysics0MParams
 from ..parameters.m1 import Microphysics1MParams
+from ..parameters.m2 import Microphysics2MParams
 from ..parameters.thermodynamics import ThermodynamicsParameters
 from ..utils.special import clamp_to_nonneg, float_dtype, machine_eps
 
@@ -34,10 +37,14 @@ TPS = ThermodynamicsParameters
 __all__ = [
     "SourceTerms1M",
     "Tendencies1M",
+    "Tendencies2M",
     "microphysics_source_terms_1m",
     "aggregate_tendencies_1m",
     "bulk_tendencies_0m",
     "bulk_tendencies_1m",
+    "bulk_tendencies_2m",
+    "bulk_microphysics_tendencies",
+    "warm_rain_tendencies_2m",
 ]
 
 
@@ -405,3 +412,134 @@ def bulk_tendencies_1m(
         (q_rai_c - q_rai) / dt,
         (q_sno_c - q_sno) / dt,
     )
+
+
+# ---------------------------------------------------------------------------
+# 2-moment warm rain (Seifert-Beheng 2006)
+# (reference src/BulkMicrophysicsTendencies.jl:707-861)
+# ---------------------------------------------------------------------------
+
+class Tendencies2M(NamedTuple):
+    """Warm + (optional) P3 ice tendencies. Ice fields are zero for the
+    warm-only configuration."""
+
+    dq_lcl_dt: torch.Tensor
+    dn_lcl_dt: torch.Tensor
+    dq_rai_dt: torch.Tensor
+    dn_rai_dt: torch.Tensor
+    dq_ice_dt: torch.Tensor
+    dn_ice_dt: torch.Tensor
+    dq_rim_dt: torch.Tensor
+    db_rim_dt: torch.Tensor
+
+
+def warm_rain_tendencies_2m(warm_rain, tps: TPS, T, q_tot, q_lcl, q_rai,
+                            q_ice, rho, n_lcl, n_rai):
+    """All SB2006 warm-rain processes in one pass
+    (reference src/BulkMicrophysicsTendencies.jl:707-782).
+
+    ``n_lcl``/``n_rai`` are specific numbers [1/kg]; the ops/m2 functions
+    take number densities ``N = rho n`` [1/m^3]. Returns
+    ``(dq_lcl_dt, dq_rai_dt, dn_lcl_dt, dn_rai_dt)``.
+    """
+    from ..ops import m2 as CM2
+
+    sb = warm_rain.seifert_beheng
+    aps = warm_rain.air_properties
+
+    N_lcl = rho * n_lcl
+    N_rai = rho * n_rai
+    zero = torch.zeros_like(rho)
+
+    # condensation/evaporation of cloud liquid (constant-tau relaxation)
+    tau = warm_rain.condevap.tau_relax
+    Rv = tps.R_v
+    Lv = TDI.latent_heat_vapor(tps, T)
+    cp_air = TDI.cp_m(tps, q_tot, q_lcl + q_rai, q_ice)
+    qv = TDI.q_vap(q_tot, q_lcl + q_rai, q_ice)
+    qv_sat = TDI.saturation_vapor_specific_content_over_liquid(tps, T, rho)
+    Gamma_l = CMNonEq.gamma_helper(Lv, cp_air,
+                                   CMNonEq.dqcld_dT(qv_sat, Lv, Rv, T))
+    timescale = tau * Gamma_l
+    dq_lcl_cond = CMNonEq._relaxation_tendency(qv - qv_sat, q_lcl, timescale,
+                                               timescale)
+
+    # rain evaporation
+    dn_evap, dq_evap = CM2.rain_evaporation(
+        sb, aps, tps, q_tot, q_lcl, q_ice, q_rai, zero, rho, N_rai, T)
+
+    # autoconversion + cloud self-collection
+    acnv = CM2.autoconversion(sb.acnv, sb.pdf_c, q_lcl, q_rai, rho, N_lcl)
+    sc_lcl = CM2.cloud_liquid_self_collection(sb.acnv, sb.pdf_c, q_lcl, rho,
+                                              acnv.dN_lcl_dt)
+
+    # accretion
+    accr = CM2.accretion(sb, q_lcl, q_rai, rho, N_lcl)
+
+    # rain self-collection + breakup
+    sc_rai = CM2.rain_self_collection(sb.pdf_r, sb.self_col, q_rai, rho,
+                                      N_rai)
+    br_rai = CM2.rain_breakup(sb.pdf_r, sb.brek, q_rai, rho, N_rai, sc_rai)
+
+    # number adjustment from mass limits (Horn 2012)
+    numadj_lcl = CM2.number_tendency_from_mass_limits(
+        sb.pdf_c.xc_min, sb.pdf_c.xc_max, sb.numadj.tau, q_lcl, n_lcl)
+    numadj_rai = CM2.number_tendency_from_mass_limits(
+        sb.pdf_r.xr_min, sb.pdf_r.xr_max, sb.numadj.tau, q_rai, n_rai)
+
+    dq_lcl_dt = dq_lcl_cond + acnv.dq_lcl_dt + accr.dq_lcl_dt
+    dq_rai_dt = dq_evap + acnv.dq_rai_dt + accr.dq_rai_dt
+    dn_lcl_dt = (acnv.dN_lcl_dt + sc_lcl + accr.dN_lcl_dt) / rho + numadj_lcl
+    dn_rai_dt = (dn_evap + acnv.dN_rai_dt + sc_rai + br_rai) / rho \
+        + numadj_rai
+    return dq_lcl_dt, dq_rai_dt, dn_lcl_dt, dn_rai_dt
+
+
+def bulk_tendencies_2m(mp: Microphysics2MParams, tps: TPS, rho, T, q_tot,
+                       q_lcl, n_lcl, q_rai, n_rai, q_ice=None, n_ice=None,
+                       q_rim=None, b_rim=None, log_lambda=None,
+                       inpc_log_shift=None, p3_aux=None) -> Tendencies2M:
+    """2-moment fused tendencies: SB2006 warm rain
+    (reference src/BulkMicrophysicsTendencies.jl:824-1083).
+
+    The P3 ice arguments keep the JAX package's signature; with ``mp.ice``
+    set this raises ``NotImplementedError`` (P3 is not ported yet) rather
+    than drop the ice.
+    """
+    if getattr(mp, "ice", None) is not None:
+        raise NotImplementedError("P3 ice: slice 3")
+    rho = clamp_to_nonneg(rho)
+    q_tot = clamp_to_nonneg(q_tot)
+    q_lcl = clamp_to_nonneg(q_lcl)
+    q_rai = clamp_to_nonneg(q_rai)
+    n_lcl = clamp_to_nonneg(n_lcl)
+    n_rai = clamp_to_nonneg(n_rai)
+    zero = torch.zeros_like(torch.as_tensor(rho) * torch.as_tensor(T))
+    q_ice = zero if q_ice is None else clamp_to_nonneg(q_ice)
+
+    dq_lcl_dt, dq_rai_dt, dn_lcl_dt, dn_rai_dt = warm_rain_tendencies_2m(
+        mp.warm_rain, tps, T, q_tot, q_lcl, q_rai, q_ice, rho, n_lcl, n_rai)
+    return Tendencies2M(dq_lcl_dt, dn_lcl_dt, dq_rai_dt, dn_rai_dt,
+                        zero, zero, zero, zero)
+
+
+# ---------------------------------------------------------------------------
+# Single-entry dispatch (reference src/BulkMicrophysicsTendencies.jl:38-46):
+# the parameter container's type selects the scheme
+# ---------------------------------------------------------------------------
+
+def bulk_microphysics_tendencies(mp, tps, *args, **kwargs):
+    """Scheme-dispatching fused tendency entry point.
+
+    ``mp`` selects the scheme: ``Microphysics0MParams`` -> 0M,
+    ``Microphysics1MParams`` -> 1M (kwargs: mode/dt/nsub),
+    ``Microphysics2MParams`` -> 2M warm rain.
+    """
+    if isinstance(mp, Microphysics0MParams):
+        return bulk_tendencies_0m(mp, tps, *args, **kwargs)
+    if isinstance(mp, Microphysics1MParams):
+        return bulk_tendencies_1m(mp, tps, *args, **kwargs)
+    if isinstance(mp, Microphysics2MParams):
+        return bulk_tendencies_2m(mp, tps, *args, **kwargs)
+    raise TypeError(
+        f"no microphysics scheme for parameter type {type(mp).__name__}")

@@ -29,3 +29,14 @@ class ThermoState(NamedTuple):
 
     rho: torch.Tensor
     T: torch.Tensor
+
+
+class MicroState2M(NamedTuple):
+    """2-moment prognostics: specific contents [kg/kg] + number
+    concentrations [1/kg]."""
+
+    q_tot: torch.Tensor
+    q_lcl: torch.Tensor
+    q_rai: torch.Tensor
+    n_lcl: torch.Tensor
+    n_rai: torch.Tensor

@@ -1,6 +1,14 @@
 """Parameter layer (L1): frozen dataclasses with host-side precompute."""
 
-from . import common, convert, ice_nucleation, m1, terminal_velocity, thermodynamics
+from . import (
+    common,
+    convert,
+    ice_nucleation,
+    m1,
+    m2,
+    terminal_velocity,
+    thermodynamics,
+)
 from .common import (
     AirProperties,
     Microphysics0MParams,
@@ -8,9 +16,10 @@ from .common import (
     WaterProperties,
     microphysics_0m_params,
 )
-from .convert import column_state_from_numpy, from_tree
+from .convert import column_state_2m_from_numpy, column_state_from_numpy, from_tree
 from .ice_nucleation import Frostenberg2023
 from .m1 import Microphysics1MParams, microphysics_1m_params
+from .m2 import Microphysics2MParams, microphysics_2m_params, sb2006
 from .terminal_velocity import (
     Blk1MVelType,
     Blk1MVelTypeRain,

@@ -5,7 +5,8 @@ strings, tuples and numpy arrays (what ``dataclasses.asdict`` yields for
 the JAX package's parameter structs, or for this package's own) and
 returns the port's struct of the given class, so that both packages
 compute with the same numbers. The classes of option-dependent fields
-(``ProcessParams1M``) follow from the option selection in the tree.
+follow from the tree: ``ProcessParams1M`` from the 1M option selection,
+and the 2M rain velocity type (a field typed ``object``) from its keys.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from .common import Microphysics0MParams, microphysics_0m_params
 from .m1 import Microphysics1MParams, microphysics_1m_params
+from .m2 import Microphysics2MParams, microphysics_2m_params
 from .terminal_velocity import (
     Blk1MVelType,
     TerminalVelocityParams,
@@ -25,7 +27,8 @@ from .terminal_velocity import (
     terminal_velocity_params,
 )
 
-__all__ = ["from_tree", "column_state_from_numpy"]
+__all__ = ["from_tree", "column_state_from_numpy",
+           "column_state_2m_from_numpy"]
 
 # Factories of the classes whose nested fields have no defaults; any other
 # class is built with ``cls()``. The default instance is the template whose
@@ -41,11 +44,28 @@ def from_tree(cls: type, tree: Mapping[str, Any]):
     """The port's ``cls`` with every field taken from ``tree``."""
     if cls is Microphysics1MParams:
         template = microphysics_1m_params(**tree["processes"])
+    elif cls is Microphysics2MParams:
+        warm = tree["warm_rain"]
+        template = microphysics_2m_params(
+            is_limited=bool(warm["seifert_beheng"]["pdf_r"]["is_limited"]),
+            with_ice=tree["ice"] is not None,
+            rain_velocity=_rain_velocity(warm["terminal_velocity"]))
     elif cls in _TEMPLATES:
         template = _TEMPLATES[cls]()
     else:
         template = cls()
     return _fill(template, tree)
+
+
+def _rain_velocity(tree: Mapping[str, Any]) -> str:
+    """The ``rain_velocity`` option whose class has the tree's fields."""
+    from .terminal_velocity import Chen2022VelTypeRain, SB2006VelType
+
+    for name, vel_cls in (("sb2006", SB2006VelType),
+                          ("chen2022", Chen2022VelTypeRain)):
+        if set(tree) == {f.name for f in dataclasses.fields(vel_cls)}:
+            return name
+    raise ValueError(f"no rain velocity type has the fields {sorted(tree)}")
 
 
 def _fill(obj, tree: Mapping[str, Any]):
@@ -81,3 +101,15 @@ def column_state_from_numpy(arrays: Mapping[str, np.ndarray],
     return ColumnState(*(
         torch.as_tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
         for name in ColumnState._fields))
+
+
+def column_state_2m_from_numpy(arrays: Mapping[str, np.ndarray],
+                               device: torch.device | str = "cpu",
+                               dtype: torch.dtype | None = None):
+    """A :class:`models.column.ColumnState2M` of tensors on ``device`` from a
+    dict of numpy arrays keyed by field name (dtype kept unless given)."""
+    from ..models.column import ColumnState2M
+
+    return ColumnState2M(*(
+        torch.as_tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
+        for name in ColumnState2M._fields))

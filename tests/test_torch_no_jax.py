@@ -1,5 +1,6 @@
 """The port runs without JAX: importing it and stepping a column on the CPU
-loads no ``jax`` module, and no module of the package imports one."""
+loads no ``jax`` module, every module of the package imports with JAX
+blocked, and no module of the package imports one."""
 
 import os
 import re
@@ -47,6 +48,62 @@ def test_import_and_cpu_step_load_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "JAX_MODULES []" in proc.stdout
+
+
+_BLOCKED_SCRIPT = """
+import importlib
+import pkgutil
+import sys
+
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "cloudmicrophysics_tpu"):
+            raise ImportError("blocked: " + name)
+
+
+sys.meta_path.insert(0, _Block())
+import cloudmicrophysics_tpu_torch as cmt
+names = [m.name for m in pkgutil.walk_packages(cmt.__path__,
+                                                "cloudmicrophysics_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import torch
+from cloudmicrophysics_tpu_torch.kernels import pack_state_2m
+from cloudmicrophysics_tpu_torch.models.column import (
+    Column2MStep, ColumnState2M)
+from cloudmicrophysics_tpu_torch.parameters import (
+    ThermodynamicsParameters, microphysics_2m_params)
+n, k = 8, 6
+st = ColumnState2M(
+    rho=torch.linspace(1.2, 0.5, k).expand(n, k).contiguous(),
+    T=torch.linspace(295.0, 260.0, k).expand(n, k).contiguous(),
+    q_tot=torch.full((n, k), 1e-2), q_lcl=torch.full((n, k), 5e-4),
+    n_lcl=torch.full((n, k), 5e7), q_rai=torch.full((n, k), 3e-4),
+    n_rai=torch.full((n, k), 5e5))
+model = Column2MStep(microphysics_2m_params(rain_velocity="chen2022"),
+                     ThermodynamicsParameters(), 1.0, 100.0)
+out = model(pack_state_2m(st))
+assert out.shape == (7, n, k) and bool(torch.isfinite(out).all())
+print("IMPORTED", len(names))
+"""
+
+
+def test_every_module_imports_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(PKG.parent)] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_SCRIPT], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    # walk_packages lists every module and every subpackage
+    modules = {p.relative_to(PKG).with_suffix("").as_posix()
+               for p in PKG.rglob("*.py") if p.parent != PKG
+               or p.name != "__init__.py"}
+    assert {"utils/distributions", "parameters/m2", "ops/m2",
+            "kernels/column2m"} <= modules
+    assert f"IMPORTED {len(modules)}" in proc.stdout, proc.stdout
 
 
 def test_no_module_imports_jax_or_the_jax_package():

@@ -12,7 +12,7 @@ import torch
 
 import cloudmicrophysics_tpu.parameters as JP
 import cloudmicrophysics_tpu_torch.parameters as TP
-from cloudmicrophysics_tpu_torch.models.column import ColumnState
+from cloudmicrophysics_tpu_torch.models.column import ColumnState, ColumnState2M
 
 
 def _assert_same_tree(port, ref, path="root"):
@@ -40,7 +40,7 @@ def _assert_same_tree(port, ref, path="root"):
     "microphysics_1m_params", "terminal_velocity_params",
     "microphysics_0m_params", "chen2022_vel_type", "blk1m_vel_type",
     "ThermodynamicsParameters", "AirProperties", "WaterProperties",
-    "Frostenberg2023",
+    "Frostenberg2023", "microphysics_2m_params", "sb2006",
 ])
 def test_defaults_match_field_by_field(name):
     _assert_same_tree(getattr(TP, name)(), getattr(JP, name)())
@@ -110,3 +110,69 @@ def test_column_state_from_numpy(dtype):
         assert t.dtype == dtype and t.shape == (4, 5) and t.device.type == "cpu"
         np.testing.assert_array_equal(t.numpy(), arrays[name].astype(
             t.numpy().dtype))
+
+
+M2_OPTIONS = [dict(is_limited=lim, rain_velocity=vel)
+              for lim in (True, False) for vel in ("sb2006", "chen2022")]
+
+
+@pytest.mark.parametrize("options", M2_OPTIONS)
+def test_m2_params_match_field_by_field(options):
+    ref = JP.microphysics_2m_params(**options)
+    port = TP.microphysics_2m_params(**options)
+    _assert_same_tree(port, ref)
+    assert type(port.warm_rain.terminal_velocity).__name__ == \
+        type(ref.warm_rain.terminal_velocity).__name__
+
+
+@pytest.mark.parametrize("options", M2_OPTIONS)
+def test_m2_from_tree_matches_own_construction(options):
+    ref = JP.microphysics_2m_params(**options)
+    port = TP.from_tree(TP.Microphysics2MParams, dataclasses.asdict(ref))
+    assert port == TP.microphysics_2m_params(**options)
+    _assert_same_tree(port, ref)
+
+
+def test_m2_from_tree_takes_every_float():
+    ref = JP.microphysics_2m_params(rain_velocity="chen2022")
+    tree = dataclasses.asdict(ref)
+    tree["warm_rain"]["seifert_beheng"]["accr"]["kcr"] = 6.5
+    tree["warm_rain"]["seifert_beheng"]["pdf_r"]["xr_max"] = np.float32(4e-6)
+    tree["warm_rain"]["condevap"]["tau_relax"] = np.array(12.0)
+    tree["warm_rain"]["terminal_velocity"]["b_rho"] = 0.04
+    port = TP.from_tree(TP.Microphysics2MParams, tree)
+    sb = port.warm_rain.seifert_beheng
+    assert sb.accr.kcr == 6.5 and sb.pdf_r.xr_max == float(np.float32(4e-6))
+    assert port.warm_rain.condevap.tau_relax == 12.0
+    assert port.warm_rain.terminal_velocity.b_rho == 0.04
+    bad = dataclasses.asdict(ref)
+    bad["warm_rain"]["terminal_velocity"] = {"v": 1.0}
+    with pytest.raises(ValueError, match="no rain velocity type"):
+        TP.from_tree(TP.Microphysics2MParams, bad)
+
+
+def test_m2_factories_match():
+    for name in ("kk2000", "b1994", "tc1980", "evaporation_sb2006",
+                 "cloud_pdf_sb2006"):
+        _assert_same_tree(getattr(TP.m2, name)(), getattr(JP.m2, name)())
+    _assert_same_tree(TP.m2.LD2004(), JP.m2.LD2004())
+    _assert_same_tree(TP.sb2006(is_limited=False, accr={"kcr": 4.0}),
+                      JP.sb2006(is_limited=False, accr={"kcr": 4.0}))
+
+
+def test_m2_with_ice_waits_for_p3():
+    with pytest.raises(NotImplementedError, match="P3"):
+        TP.microphysics_2m_params(with_ice=True)
+    with pytest.raises(ValueError, match="rain_velocity"):
+        TP.microphysics_2m_params(rain_velocity="stokes")
+
+
+def test_column_state_2m_from_numpy():
+    rng = np.random.default_rng(4)
+    arrays = {name: rng.random((3, 6)) for name in ColumnState2M._fields}
+    st = TP.column_state_2m_from_numpy(arrays, dtype=torch.float32)
+    assert isinstance(st, ColumnState2M)
+    for name, t in zip(ColumnState2M._fields, st):
+        assert t.dtype == torch.float32 and t.shape == (3, 6)
+        np.testing.assert_array_equal(t.numpy(),
+                                      arrays[name].astype(np.float32))

@@ -1,4 +1,5 @@
-"""Float64 parity of the port's fused 0M/1M tendencies with the JAX package.
+"""Float64 parity of the port's fused 0M/1M/2M tendencies and the scheme
+dispatcher with the JAX package.
 
 Tolerance: rtol 1e-9 with an absolute floor of 1e-12 of the largest
 reference value, as in test_torch_ops_1m.py. The linearized implicit
@@ -131,3 +132,86 @@ def test_bulk_tendencies_0m(with_qsat):
     out = TT.bulk_tendencies_0m(mp_t, TPS_T, torch.as_tensor(S["T"]),
                                 t["q_lcl"], t["q_icl"], qsat_t)
     _assert_close([out], [ref], "0m")
+
+
+# ---------------------------------------------------------------------------
+# 2M warm rain (SB2006) and the scheme dispatcher
+# ---------------------------------------------------------------------------
+
+def _state_2m(n=80, seed=9):
+    """Random cells with zero, tiny and negative contents and numbers, and
+    mean masses beyond the SB2006 limits."""
+    rng = np.random.default_rng(seed)
+    s = dict(rho=rng.uniform(0.5, 1.3, n), T=rng.uniform(255.0, 305.0, n),
+             q_tot=rng.uniform(2e-3, 2e-2, n),
+             q_lcl=rng.uniform(0.0, 2e-3, n), q_rai=rng.uniform(0.0, 2e-3, n),
+             n_lcl=10 ** rng.uniform(5.0, 9.5, n),
+             n_rai=10 ** rng.uniform(0.0, 7.0, n))
+    for name in ("q_lcl", "q_rai", "n_lcl", "n_rai"):
+        s[name][rng.random(n) < 0.12] = 0.0
+        s[name][rng.random(n) < 0.05] = -1e-7 * s[name].max()
+    return s
+
+
+S2 = _state_2m()
+FIELDS_2M = ("rho", "T", "q_tot", "q_lcl", "n_lcl", "q_rai", "n_rai")
+J2 = [jnp.asarray(S2[k]) for k in FIELDS_2M]
+T2 = [torch.as_tensor(S2[k]) for k in FIELDS_2M]
+
+
+def _mps_2m(**options):
+    mp_j = JP.microphysics_2m_params(**options)
+    return mp_j, TP.from_tree(TP.Microphysics2MParams,
+                              dataclasses.asdict(mp_j))
+
+
+@pytest.mark.parametrize("is_limited", [True, False])
+def test_bulk_tendencies_2m(is_limited):
+    mp_j, mp_t = _mps_2m(is_limited=is_limited)
+    ref = JT.bulk_tendencies_2m(mp_j, TPS_J, *J2)
+    out = TT.bulk_tendencies_2m(mp_t, TPS_T, *T2)
+    assert type(out).__name__ == "Tendencies2M"
+    assert out._fields == ref._fields
+    _assert_close(out, ref, f"bulk_tendencies_2m is_limited={is_limited}")
+
+
+def test_warm_rain_tendencies_2m():
+    mp_j, mp_t = _mps_2m()
+    rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai = (np.abs(S2[k]) for k in
+                                                 FIELDS_2M)
+    q_ice = np.zeros_like(rho)
+    args = (T, q_tot, q_lcl, q_rai, q_ice, rho, n_lcl, n_rai)
+    ref = JT.warm_rain_tendencies_2m(mp_j.warm_rain, TPS_J,
+                                     *(jnp.asarray(a) for a in args))
+    out = TT.warm_rain_tendencies_2m(mp_t.warm_rain, TPS_T,
+                                     *(torch.as_tensor(a) for a in args))
+    _assert_close(out, ref, "warm_rain_tendencies_2m")
+
+
+def test_dispatcher_matches_each_scheme():
+    mp_j, mp_t = _mps_2m(rain_velocity="chen2022")
+    _assert_close(TT.bulk_microphysics_tendencies(mp_t, TPS_T, *T2),
+                  JT.bulk_microphysics_tendencies(mp_j, TPS_J, *J2), "2M")
+    mp_j, mp_t = _mps()
+    _assert_close(TT.bulk_microphysics_tendencies(mp_t, TPS_T, *T_ARGS),
+                  JT.bulk_microphysics_tendencies(mp_j, TPS_J, *J_ARGS), "1M")
+    mp0_j = JP.microphysics_0m_params()
+    mp0_t = TP.from_tree(TP.Microphysics0MParams, dataclasses.asdict(mp0_j))
+    ref = JT.bulk_microphysics_tendencies(mp0_j, TPS_J, jnp.asarray(S["T"]),
+                                          jnp.asarray(S["q_lcl"]),
+                                          jnp.asarray(S["q_icl"]))
+    out = TT.bulk_microphysics_tendencies(mp0_t, TPS_T,
+                                          torch.as_tensor(S["T"]),
+                                          torch.as_tensor(S["q_lcl"]),
+                                          torch.as_tensor(S["q_icl"]))
+    _assert_close([out], [ref], "0M")
+    with pytest.raises(TypeError, match="no microphysics scheme"):
+        TT.bulk_microphysics_tendencies(TPS_T, TPS_T, *T2)
+
+
+def test_bulk_tendencies_2m_with_ice_raises():
+    mp_t = dataclasses.replace(TP.microphysics_2m_params(), ice=object())
+    with pytest.raises(NotImplementedError, match="P3"):
+        TT.bulk_tendencies_2m(mp_t, TPS_T, *T2)
+    with pytest.raises(NotImplementedError, match="P3"):
+        TP.microphysics_2m_params(with_ice=True)
