@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the fused 1M and 2M column kernels from ``cloudmicrophysics_tpu_torch/
-kernels/csrc`` with ``nvcc`` (one compiler per source, started together,
-into the package's ignored ``build/`` directory), then, failing at the
-first phase that does not hold:
+Builds the fused 1M, 2M and 2M + P3 column kernels from
+``cloudmicrophysics_tpu_torch/kernels/csrc`` with ``nvcc`` (one compiler per
+source, started together, into the package's ignored ``build/`` directory),
+then, failing at the first phase that does not hold:
 
 1. prints the toolchain (GPU name and power limit, torch, CUDA, nvcc,
    whether triton imports);
@@ -40,7 +40,26 @@ first phase that does not hold:
 9. times K3 and K4 and their plain versions at that size, holds one
    full-size packed step against the plain version, quotes K3 against
    the streaming pass of phase 6, counts the plain step's device kernels
-   and measures the device's idle share over 10 K3 steps.
+   and measures the device's idle share over 10 K3 steps;
+10. compares the 2M + P3 kernel (K5) with its plain version at quadrature
+    orders 4, 8 and 16 on the 10 curated ladder states tiled over
+    (640, 16), a seeded mixed-regime (4096, 64) state and a ragged
+    (1000, 40) one, each cold and warm-started from the plain step's log
+    lambda, under log lambda rtol 2e-5 and fields rtol 3e-5 / atol 1e-10
+    (the Pallas P3 kernel's contract), with two tilings agreeing bit for
+    bit, also with ``is_limited=False`` and Chen 2022 rain; then prints the
+    kernel's float32 per-field error against the JAX package's float64 step
+    on the ladder states (the record in the package's ``data/``);
+11. drives the P3 path at full width: ``ColumnP3Step`` on a (16384, 128)
+    float32 state (the TPU benchmark's P3 state with rho and T profiles and
+    seeded jitter) at GL-16, one cold step and three 10-step rollouts
+    carrying log lambda as the next step's guess, checking finiteness,
+    non-negativity, ``q_rim <= q_ice`` and the launch counter, holding the
+    cold step against the plain version, then one 10-step rollout at GL-8;
+12. times K5 and the plain step (run in 16 column chunks) at that size,
+    measures the device's idle share over 10 K5 steps, prints the plain
+    step's peak device memory and device kernels (counted on one column
+    chunk) and quotes K5 against the streaming pass of phase 6.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -276,9 +295,11 @@ def main():
 
     from cloudmicrophysics_tpu_torch.kernels import column1m as K
     from cloudmicrophysics_tpu_torch.kernels import column2m as K2M
+    from cloudmicrophysics_tpu_torch.kernels import column_p3 as K5
     from cloudmicrophysics_tpu_torch.models.column import (
         Column1MStep,
         Column2MStep,
+        ColumnP3Step,
     )
     from cloudmicrophysics_tpu_torch.parameters import (
         ThermodynamicsParameters,
@@ -320,9 +341,9 @@ def main():
         lib()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
-        builds = dict(zip(("column1m", "column2m"), pool.map(
-            timed_build, (K._library, K2M._library))))
+    with ThreadPoolExecutor(3) as pool:
+        builds = dict(zip(("column1m", "column2m", "column_p3"), pool.map(
+            timed_build, (K._library, K2M._library, K5._library))))
     for stem, seconds in builds.items():
         print(f"{stem}.cu built and loaded in {seconds:.1f} s")
         for log in _build.BUILD_DIR.glob(f"{stem}-*/build.log"):
@@ -430,12 +451,20 @@ def main():
     max_err.update(max_err2)
     timing.update(timing2)
 
+    launches5, max_err5, timing5 = _run_p3(
+        device, K5, ColumnP3Step, microphysics_2m_params, tps,
+        nbytes / copy_ms / 1e6)
+    launches.update(launches5)
+    max_err.update(max_err5)
+    timing.update(timing5)
+
     csrc = "cloudmicrophysics_tpu_torch/kernels/csrc/"
     entries = [
         ("K1", "column1m_step_packed", "column1m", "column1m.py:149"),
         ("K2", "column1m_step_unpacked", "column1m", "column1m.py:80"),
         ("K3", "column2m_step_packed", "column2m", "column2m.py:105"),
         ("K4", "column2m_step_unpacked", "column2m", "column2m.py:43"),
+        ("K5", "column_p3_step", "column_p3", "column_p3.py:106"),
     ]
     kernels = [
         {"name": f"{fn} ({k})", "route": "cuda", "source": f"{csrc}{src}.cu",
@@ -548,6 +577,309 @@ def _run_2m(device, K, Column2MStep, microphysics_2m_params, tps, copy_ms):
           + ("not measured, the profiler saw no device time" if idle is None
              else f"{idle:.6g}"))
     return launches, max_err, timing
+
+
+# ---------------------------------------------------------------------------
+# The 2M + P3 path (phases 10-12)
+# ---------------------------------------------------------------------------
+
+P3_NCOL, P3_NLEV = 16384, 128   # the repo's P3 size (BENCH_SUITE.json batch)
+P3_STEPS, P3_ROLLOUTS = 10, 3   # the P3 bench's n_iter, and three rollouts
+P3_LL_RTOL, P3_RTOL, P3_ATOL = 2e-5, 3e-5, 1e-10   # tests/test_kernels.py:192
+P3_CHUNKS = 16                  # column chunks of the plain full-size step
+# the TPU benchmark's P3 column state (benchmarks/bench_suite.py:220-223)
+BENCH_P3 = (1.1, 263.0, 6e-3, 1e-3, 9e7, 5e-4, 9e5, 5e-4, 1e5, 1e-4, 2e-7)
+RECORD = "cloudmicrophysics_tpu_torch/data/p3_ladder_gl16.json"
+
+
+def _p3_state(arrays, device):
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models.column import ColumnStateP3
+
+    return ColumnStateP3(*(torch.from_numpy(np.asarray(a, np.float32)).to(device)
+                           for a in arrays))
+
+
+def _p3_bench_state(ncol, nlev, device, seed=0):
+    """The P3 bench state with rho 1.2 -> 0.5 and T 270 -> 250 K over the
+    levels and a seeded +-50 % jitter of every content and number."""
+    rng = np.random.default_rng(seed)
+    ones = np.ones((ncol, 1))
+    arrays = [np.linspace(1.2, 0.5, nlev)[None] * ones,
+              np.linspace(270.0, 250.0, nlev)[None] * ones]
+    arrays += [v * (1 + 0.5 * (2 * rng.random((ncol, nlev)) - 1))
+               for v in BENCH_P3[2:]]
+    return _p3_state(arrays, device)
+
+
+def _p3_mixed_state(ncol, nlev, device, seed=0):
+    """Cells without ice, with unrimed, rimed, heavily rimed and tiny ice,
+    warm and cold (290 -> 225 K): ice below freezing only, cloud above
+    245 K, rain above 263 K (where the Bigg freezing rate stays moderate)."""
+    rng = np.random.default_rng(seed)
+    sh = (ncol, nlev)
+    ones = np.ones((ncol, 1))
+    rho = np.linspace(1.2, 0.4, nlev)[None] * ones
+    T = np.linspace(290.0, 225.0, nlev)[None] * ones \
+        + rng.uniform(-2.0, 2.0, (ncol, 1))
+    kind = rng.integers(0, 5, sh)
+    cold = T < 273.15
+    q_ice = np.where(cold & (kind > 0), 10 ** rng.uniform(-6, -3, sh), 0.0)
+    q_ice = np.where(cold & (kind == 4), 10 ** rng.uniform(-8, -6, sh), q_ice)
+    n_ice = np.where(q_ice > 0, q_ice / 10 ** rng.uniform(-11, -7.5, sh), 0.0)
+    frac = np.select([kind == 2, kind == 3, kind == 4],
+                     [rng.uniform(0.05, 0.6, sh), rng.uniform(0.8, 0.99, sh),
+                      rng.uniform(0.0, 0.5, sh)], 0.0)
+    q_rim = q_ice * frac
+    b_rim = q_rim / rng.uniform(100.0, 900.0, sh)
+    q_lcl = np.where((T > 245.0) & (rng.random(sh) < 0.7),
+                     1e-3 * rng.random(sh), 0.0)
+    n_lcl = np.where(q_lcl > 0, 1e8 * (0.1 + rng.random(sh)), 0.0)
+    q_rai = np.where((T > 263.0) & (rng.random(sh) < 0.7),
+                     5e-4 * rng.random(sh), 0.0)
+    n_rai = np.where(q_rai > 0, 1e6 * (0.05 + rng.random(sh)), 0.0)
+    q_tot = q_lcl + q_rai + q_ice \
+        + 8e-3 * rng.random(sh) * np.clip((T - 215.0) / 75.0, 0.05, 1.0)
+    return _p3_state([rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai, q_ice,
+                      n_ice, q_rim, b_rim], device)
+
+
+def _p3_ladder_state(states, nrep, nlev, device):
+    """The curated states, each repeated over ``nrep`` columns of ``nlev``
+    levels, with a +-5 % rho and +-2 K T profile over the levels."""
+    rows = np.asarray(states, dtype=np.float64)
+    arr = np.repeat(rows[:, None, :], nrep, axis=1).reshape(-1, 11)
+    arr = np.repeat(arr[:, None, :], nlev, axis=1)
+    arr[..., 0] *= np.linspace(1.05, 0.95, nlev)[None, :]
+    arr[..., 1] += np.linspace(2.0, -2.0, nlev)[None, :]
+    return _p3_state([arr[..., i] for i in range(11)], device)
+
+
+def _compare_p3(label, out, loglam, ref, ref_loglam):
+    """Hold a K5 result against the plain version: log lambda rtol 2e-5
+    (infinities where the plain step has them), every field rtol 3e-5 /
+    atol 1e-10 and finite. Prints per-field errors; returns the largest
+    absolute error."""
+    import torch
+
+    fin = torch.isfinite(ref_loglam)
+    ll_ok = bool(torch.equal(torch.isinf(loglam), torch.isinf(ref_loglam))) \
+        and not bool(torch.isnan(loglam).any())
+    d = (loglam - ref_loglam).abs()[fin]
+    ll_rel = float((d / ref_loglam.abs()[fin]).max()) if d.numel() else 0.0
+    ll_ok = ll_ok and ll_rel <= P3_LL_RTOL
+    rows, bad = [], ["loglam"] if not ll_ok else []
+    worst = float(d.max()) if d.numel() else 0.0
+    for name, a, b in zip(ref._fields, out, ref):
+        e = (a - b).abs()
+        ok = bool((e <= P3_ATOL + P3_RTOL * b.abs()).all()) \
+            and bool(a.isfinite().all())
+        rel = float((e / b.abs().clamp(min=1e-30)).max())
+        rows.append(f"{name} {float(e.max()):.2e}/{rel:.2e}")
+        worst = max(worst, float(e.max()))
+        if not ok:
+            bad.append(name)
+    print(f"  {label}: loglam rel {ll_rel:.2e}, " + ", ".join(rows))
+    if bad:
+        raise AssertionError(f"{label}: K5 disagrees with the plain version "
+                             f"in {bad}")
+    return worst
+
+
+def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs):
+    """Phases 10-12: the 2M + P3 kernel K5 against its plain version, the P3
+    path at full width, and the timings. Returns the launch counts of the
+    main path, the largest error and the (kernel, plain) times."""
+    import json
+    from pathlib import Path
+
+    import torch
+
+    fused = K.step_column_p3_fused
+    record = json.loads(
+        (Path(__file__).resolve().parent / RECORD).read_text())
+
+    # ---- 10. kernel parity on the card -------------------------------------
+    print(f"== 2M + P3 kernel vs plain version (log lambda rtol "
+          f"{P3_LL_RTOL}, fields rtol {P3_RTOL}, atol {P3_ATOL})")
+    max_err = 0.0
+    cases = [
+        ("ladder (640, 16)", _p3_ladder_state(record["states"], 64, 16,
+                                              device), (128, 64)),
+        ("mixed (4096, 64)", _p3_mixed_state(4096, 64, device, seed=3),
+         (128, 256)),
+        ("ragged (1000, 40)", _p3_mixed_state(1000, 40, device, seed=5),
+         (8, 40)),
+    ]
+    runs = [(order, {}) for order in K.ORDERS] + [
+        (8, {"is_limited": False, "rain_velocity": "chen2022"})]
+    for order, opts in runs:
+        mp = microphysics_2m_params(with_ice=True, quadrature_order=order,
+                                    **opts)
+        params = K.kernel_params_p3(mp, tps, device=device)
+        tag = f"GL-{order}" + (f" {opts}" if opts else "")
+        for label, st, tilings in cases:
+            ref, ref_ll = K.step_column_p3_plain(st, mp, tps, DT, DZ)
+            for start, guess, ref_out in (("cold", None, (ref, ref_ll)),
+                                          ("warm", ref_ll, None)):
+                st_in = st if guess is None else ref
+                if ref_out is None:
+                    ref_out = K.step_column_p3_plain(st_in, mp, tps, DT, DZ,
+                                                     guess)
+                outs = [fused(st_in, mp, tps, DT, DZ, guess, block_cols=bc,
+                              params=params) for bc in tilings]
+                max_err = max(max_err, _compare_p3(
+                    f"K5 {tag} {label} {start}", outs[0][0], outs[0][1],
+                    ref_out[0], ref_out[1]))
+                (a, la), (b, lb) = outs
+                if not (all(torch.equal(x, y) for x, y in zip(a, b))
+                        and torch.equal(la, lb)):
+                    raise AssertionError(f"K5 {tag} {label} {start}: "
+                                         f"block_cols {tilings} differ")
+        print(f"  K5 {tag}: every case's tilings agree bit for bit")
+    del cases, outs, ref, ref_out
+
+    print("== K5 float32 against the JAX package's float64 step "
+          f"({RECORD})")
+    mp16 = microphysics_2m_params(with_ice=True,
+                                  quadrature_order=record["quadrature_order"])
+    cols = np.asarray(record["states"], dtype=np.float64).T
+    st = _p3_state([c[:, None] for c in cols], device)
+    out, ll = fused(st, mp16, tps, record["dt"], record["dz"], block_cols=10)
+    n_nan = 0
+    for name, x in zip(out._fields, out):
+        want = np.asarray(record["step"][name])
+        got = x[:, 0].double().cpu().numpy()
+        n_nan += int(np.isnan(got).sum())
+        rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+        print(f"  {name}: max rel err {float(rel.max()):.3e}, "
+              f"NaN {int(np.isnan(got).sum())}")
+    want = np.asarray(record["loglambda"])
+    got = ll[:, 0].double().cpu().numpy()
+    fin = np.isfinite(want)
+    n_nan += int(np.isnan(got).sum())
+    print(f"  loglam: max rel err "
+          f"{float((np.abs(got[fin] - want[fin]) / np.abs(want[fin])).max()):.3e},"
+          f" NaN {int(np.isnan(got).sum())}, -inf where the reference has it:"
+          f" {bool((np.isneginf(got) == np.isneginf(want)).all())}")
+    if n_nan:
+        raise AssertionError(f"K5 float32 step on the ladder states: {n_nan} "
+                             f"NaN")
+
+    # ---- 11. the P3 path at full width -------------------------------------
+    print(f"== P3 path: ColumnP3Step on ({P3_NCOL}, {P3_NLEV}) float32 "
+          f"GL-16, 1 cold step + {P3_ROLLOUTS} x {P3_STEPS} warm-started "
+          f"steps")
+    state = _p3_bench_state(P3_NCOL, P3_NLEV, device)
+    model = ColumnP3Step(mp16, tps, DT, DZ).to(device)
+    first, first_ll, launches, ms = _drive_p3(model, state, fused, "GL-16")
+    ref, ref_ll = K.step_column_p3_plain(state, mp16, tps, DT, DZ,
+                                         col_chunks=P3_CHUNKS)
+    max_err = max(max_err, _compare_p3("K5 P3 path's full-size cold step "
+                                       "vs plain", first, first_ll, ref,
+                                       ref_ll))
+    del ref, ref_ll
+    mp8 = microphysics_2m_params(with_ice=True, quadrature_order=8)
+    model8 = ColumnP3Step(mp8, tps, DT, DZ).to(device)
+    _drive_p3(model8, state, fused, "GL-8", rollouts=1)
+
+    # ---- 12. kernel and plain version at full size -------------------------
+    print(f"== K5 vs plain version at ({P3_NCOL}, {P3_NLEV}) GL-16, CUDA "
+          f"events")
+    kern = _time_ms(lambda: model(state, first_ll), reps=5)
+    idle = _idle_share(lambda: model(state, first_ll), calls=10)
+    torch.cuda.reset_peak_memory_stats(device)
+    plain = _time_ms(lambda: K.step_column_p3_plain(
+        state, mp16, tps, DT, DZ, first_ll, col_chunks=P3_CHUNKS), reps=1,
+        warmup=0)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    timing = {"K5": (min(kern), min(plain))}
+    print(f"  K5: kernel {min(kern):.6g} ms/step (per call "
+          f"{[round(t, 6) for t in kern]}), plain {min(plain):.6g} ms/step "
+          f"(one call, {P3_CHUNKS} column chunks), plain/kernel "
+          f"{min(plain) / min(kern):.4g}")
+    print(f"  plain version peak device memory {peak_gb:.4g} GB")
+    # every chunk runs the same program: count one chunk's device kernels
+    rows = P3_NCOL // P3_CHUNKS
+    chunk = type(state)(*(t[:rows] for t in state))
+    n_chunk = _device_kernels(lambda: K.step_column_p3_plain(
+        chunk, mp16, tps, DT, DZ, first_ll[:rows]))
+    print(f"  plain step: {n_chunk} device kernels per column chunk "
+          f"(torch.profiler), "
+          + ("not measured" if n_chunk is None
+             else f"{n_chunk * P3_CHUNKS} per step"))
+    nbytes = 24 * 4 * P3_NCOL * P3_NLEV   # 12 fields read, 12 written
+    rate = nbytes / min(kern) / 1e6
+    print(f"  K5: {min(kern):.6g} ms/step, {rate:.6g} GB/s, "
+          f"{rate / copy_gbs:.4g} of the streaming pass's rate "
+          f"({copy_gbs:.6g} GB/s)")
+    print("  device idle share over 10 K5 steps (torch.profiler): "
+          + ("not measured, the profiler saw no device time" if idle is None
+             else f"{idle:.6g}"))
+    return {"K5": launches}, {"K5": max_err}, timing
+
+
+def _drive_p3(model, state, fused, tag, rollouts=P3_ROLLOUTS):
+    """A P3 path at full width: one cold step of ``model`` on ``state``,
+    then ``rollouts`` timed rollouts of ``P3_STEPS`` steps, each starting
+    from a rollout-distinct copy of ``state`` and the cold step's log
+    lambda, carrying log lambda as the next step's guess. The launch counter
+    is set to 0 just before and read just after; checks that it equals the
+    steps driven, that the results are finite and non-negative, and that
+    q_rim <= q_ice. Returns the cold step, its log lambda, the launch count
+    and the ms/step of each rollout."""
+    import torch
+
+    torch.cuda.synchronize()
+    fused.launches = 0
+    first, first_ll = model(state)
+    steps = 1
+    times, checksums, ends = [], [], []
+    for rep in range(rollouts):
+        s = type(state)(*(t * (1.0 + 1e-5 * rep) for t in state))
+        ll = first_ll
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(P3_STEPS):
+            s, ll = model(s, ll)
+        end.record()
+        end.synchronize()
+        steps += P3_STEPS
+        times.append(start.elapsed_time(end))
+        checksums.append(float(s.q_ice.double().sum()))
+        ends.append((s, ll))
+    launches = fused.launches
+    torch.cuda.synchronize()
+    if launches != steps:
+        raise AssertionError(f"{tag}: launch count {launches} != steps "
+                             f"driven ({steps})")
+    for name, (x, ll) in zip(["cold step"] + [f"rollout {r} end" for r in
+                                             range(rollouts)],
+                             [(first, first_ll)] + ends):
+        for f, v in zip(x._fields, x):
+            if tuple(v.shape) != (P3_NCOL, P3_NLEV) or not bool(
+                    v.isfinite().all()):
+                raise AssertionError(f"{tag} {name}: {f} not finite or "
+                                     f"misshapen")
+            if f.startswith(("q_", "n_", "b_")) and bool((v < 0).any()):
+                raise AssertionError(f"{tag} {name}: {f} negative")
+        if bool((x.q_rim > x.q_ice).any()):
+            raise AssertionError(f"{tag} {name}: q_rim > q_ice")
+        if bool(torch.isnan(ll).any()) or bool(torch.isposinf(ll).any()):
+            raise AssertionError(f"{tag} {name}: log lambda NaN or +inf")
+    ms = [t / P3_STEPS for t in times]
+    pts = [P3_NCOL * P3_NLEV / (m * 1e-3) for m in ms]
+    print(f"  {tag} ms/step: best {min(ms):.6g}, median "
+          f"{float(np.median(ms)):.6g} (per rollout {[round(m, 6) for m in ms]})")
+    print(f"  {tag} grid-points/s: best {max(pts):.6g}, median "
+          f"{float(np.median(pts)):.6g}")
+    print(f"  {tag} checksum sum(q_ice) per rollout: {checksums}")
+    print(f"  {tag} launches in this path: {launches} (= {steps} steps: 1 "
+          f"cold + {rollouts} x {P3_STEPS})")
+    return first, first_ll, launches, ms
 
 
 if __name__ == "__main__":

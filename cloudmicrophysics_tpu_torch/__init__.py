@@ -6,8 +6,9 @@ package (which stays the reference it is tested against), with
 
 * ``utils/``      — small-number utilities, special functions, param structs
 * ``parameters/`` — frozen parameter dataclasses (same fields and defaults)
-* ``ops/``        — elementwise process rates (thermo, common, 0M, 1M, NonEq)
-* ``models/``     — fused 1M tendencies and the column step
+* ``ops/``        — process rates (thermo, common, 0M, 1M, NonEq, 2M, P3,
+                    ice nucleation)
+* ``models/``     — fused tendencies and the 1M, 2M and 2M + P3 column steps
 * ``kernels/``    — hand-written CUDA kernels for the fused hot path, each
                     beside its plain PyTorch version
 

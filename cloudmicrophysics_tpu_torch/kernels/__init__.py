@@ -20,3 +20,4 @@ from .column2m import (
     step_column_2m_fused_packed,
     unpack_state_2m,
 )
+from .column_p3 import kernel_params_p3, step_column_p3_fused

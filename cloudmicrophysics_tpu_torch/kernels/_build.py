@@ -4,8 +4,9 @@ Each kernel source under ``csrc/`` is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
 ``ctypes``. Nothing is built when this module is imported: the build
 happens at the first launch, into ``build/`` beside this file (listed in
-``.gitignore``), keyed by a hash of the source, the generated header and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+``.gitignore``), keyed by a hash of the source, the shared headers of
+``csrc/`` (``*.cuh``), the generated header and the flags, so an edited
+source is rebuilt and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -67,9 +68,10 @@ def build(source: str, header_name: str, header_text: str) -> Path:
     """Compile ``csrc/<source>`` (with the generated header) and return
     the path of the shared library; reuse it when it already exists."""
     src = CSRC_DIR / source
+    shared = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     key = hashlib.sha256(
-        src.read_bytes() + header_text.encode() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+        src.read_bytes() + shared + header_text.encode()
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = BUILD_DIR / f"{src.stem}-{key}"
     lib = out_dir / f"lib{src.stem}.so"
     if lib.is_file():

@@ -2,7 +2,8 @@
 its plain PyTorch version.
 
 Port of ``cloudmicrophysics_tpu/kernels/column2m.py``. The CUDA source
-``csrc/column2m.cu`` computes, per ``(column, level)`` cell and in one pass
+``csrc/column2m.cu`` (with the warm-rain device code of ``csrc/warm2m.cuh``,
+which the 2M + P3 kernel shares) computes, per ``(column, level)`` cell and in one pass
 over the seven prognostic fields (rho, T, q_tot, q_lcl, n_lcl, q_rai,
 n_rai), everything :func:`..models.column.step_column_2m` computes: the
 constant-tau condensation/evaporation, rain evaporation, autoconversion and
@@ -67,7 +68,7 @@ PARAM_NAMES = (
     # float32 thresholds
     "EM", "EN", "EPS_MACH", "TINY", "EPS_PSAT",
     # thermodynamics
-    "T_0", "LH_V0", "DCP_VL", "CP_D", "CPVD", "CPLV", "R_V", "INV_R_V",
+    "T_0", "LH_V0", "DCP_VL", "CP_D", "CPVD", "CPLV", "CPIV", "R_V", "INV_R_V",
     "PRESS_TRIPLE", "INV_T_TRIPLE", "KV_L", "CL_L",
     # air: G function and ventilation
     "INV_K_THERM", "INV_D_VAPOR", "INV_NU_AIR", "CBRT_SC",
@@ -126,7 +127,8 @@ def _param_values(mp, tps: ThermodynamicsParameters) -> dict:
         EM=machine_eps(f32), EN=machine_eps(f32), EPS_MACH=machine_eps(f32),
         TINY=float(torch.finfo(f32).tiny), EPS_PSAT=eps,
         T_0=tps.T_0, LH_V0=tps.LH_v0, DCP_VL=dcp_vl, CP_D=tps.cp_d,
-        CPVD=tps.cp_v - tps.cp_d, CPLV=tps.cp_l - tps.cp_v, R_V=tps.R_v,
+        CPVD=tps.cp_v - tps.cp_d, CPLV=tps.cp_l - tps.cp_v,
+        CPIV=tps.cp_i - tps.cp_v, R_V=tps.R_v,
         INV_R_V=1 / tps.R_v, PRESS_TRIPLE=tps.press_triple,
         INV_T_TRIPLE=1 / tps.T_triple, KV_L=dcp_vl / tps.R_v,
         CL_L=(tps.LH_v0 - dcp_vl * tps.T_0) / tps.R_v,
@@ -134,9 +136,6 @@ def _param_values(mp, tps: ThermodynamicsParameters) -> dict:
         INV_D_VAPOR=1 / max(aps.D_vapor, eps), INV_NU_AIR=1 / aps.nu_air,
         CBRT_SC=(aps.nu_air / max(aps.D_vapor, eps)) ** (1 / 3),
         TAU_CE=wr.condevap.tau_relax,
-        XR_MIN=pdf_r.xr_min, XR_MAX=pdf_r.xr_max, N0_MIN=pdf_r.N0_min,
-        N0_MAX=pdf_r.N0_max, LAM_MIN=pdf_r.lambda_min,
-        LAM_MAX=pdf_r.lambda_max, PI_RHO_W=pi * pdf_r.rho_w,
         INV_PI_RHO_W=1 / (pi * pdf_r.rho_w), PDF_RHO0=pdf_r.rho0,
         INV_XR_MIN=1 / pdf_r.xr_min, INV_XR_MAX=1 / pdf_r.xr_max,
         INV_XC_MIN=1 / pdf_c.xc_min, INV_XC_MAX=1 / pdf_c.xc_max,
@@ -160,15 +159,34 @@ def _param_values(mp, tps: ThermodynamicsParameters) -> dict:
         INV_NUMADJ_TAU=1 / sb.numadj.tau,
         VEL_RHO0=sbv.rho0, AR=sbv.aR, BR=sbv.bR, CR=sbv.cR,
         TWO_RC=2 * (-1 / (2 * sbv.cR) * math.log(sbv.aR / sbv.bR)),
-        CH_RHO0=chen.rho0, CH_BRHO=chen.b_rho, LOG1000=math.log(1000.0),
-        CH_A3POW=chen.a3_pow,
+        **rain_pdf_values(pdf_r), **chen_rain_values(chen),
     )
     for tag, a in (("A", -1.0), ("B", evap.beta_vent_0)):
         for name, c in zip(("C0", "E0", "C1", "E1"), _gamma_incl_consts(a)):
             v[f"GIA_{name}_{tag}"] = c
+    return v
+
+
+def rain_pdf_values(pdf_r) -> dict:
+    """The rain PSD block of the parameter list (``XR_MIN`` ...
+    ``PI_RHO_W``, the order ``pdf_rain`` in ``csrc/warm2m.cuh`` reads)."""
+    return dict(XR_MIN=pdf_r.xr_min, XR_MAX=pdf_r.xr_max,
+                N0_MIN=pdf_r.N0_min, N0_MAX=pdf_r.N0_max,
+                LAM_MIN=pdf_r.lambda_min, LAM_MAX=pdf_r.lambda_max,
+                PI_RHO_W=math.pi * pdf_r.rho_w)
+
+
+def chen_rain_values(chen: Chen2022VelTypeRain) -> dict:
+    """The Chen 2022 rain block of the parameter list (``CH_RHO0`` ...
+    ``CH_C3U``, the order ``chen_rain_coeffs`` in ``csrc/warm2m.cuh``
+    reads)."""
+    v = dict(CH_RHO0=chen.rho0, CH_BRHO=chen.b_rho, LOG1000=math.log(1000.0))
     for i in range(3):
         v[f"CH_A{i + 1}U"] = chen.a[i] * 1000.0 ** chen.b[i]
+    v["CH_A3POW"] = chen.a3_pow
+    for i in range(3):
         v[f"CH_B{i + 1}"] = chen.b[i]
+    for i in range(3):
         v[f"CH_C{i + 1}U"] = chen.c[i] * 1000.0
     return v
 

@@ -1,12 +1,12 @@
 """Column model driver (L6): ``(ncol, nlev)`` tensors + sedimentation.
 
-Port of ``cloudmicrophysics_tpu/models/column.py:1-260``. The reference
+Port of ``cloudmicrophysics_tpu/models/column.py``. The reference
 library is pointwise; the host model applies terminal velocities in an
 upwind vertical flux. This module supplies that host-model role:
 
 * the state is a NamedTuple of ``(ncol, nlev)`` tensors;
-* all process rates are one elementwise pass (the 1M bulk tendencies, or
-  the 2M SB2006 warm-rain tendencies);
+* all process rates are one elementwise pass (the 1M bulk tendencies, the
+  2M SB2006 warm-rain tendencies, or the 2M + P3 ice tendencies);
 * sedimentation is a first-order upwind donor-cell flux, a per-column
   shift: level k receives the flux from level k+1 above. Columns are
   independent.
@@ -15,10 +15,10 @@ Convention: level index k increases upward (k = 0 is the surface);
 hydrometeors fall toward k = 0. The flux through the bottom interface is
 the surface precipitation rate diagnostic.
 
-:class:`Column1MStep` and :class:`Column2MStep` are the modules a caller
-drives: each holds the parameters and its kernel's parameter buffer, and
-steps the state through its fused CUDA kernel (or the plain version on the
-CPU).
+:class:`Column1MStep`, :class:`Column2MStep` and :class:`ColumnP3Step` are
+the modules a caller drives: each holds the parameters and its kernel's
+parameter buffer, and steps the state through its fused CUDA kernel (or
+the plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -38,8 +38,9 @@ from ..parameters.thermodynamics import ThermodynamicsParameters
 from ..utils.special import clamp_to_nonneg
 from . import tendencies as BMT
 
-__all__ = ["Column1MStep", "Column2MStep", "ColumnState", "ColumnState2M",
-           "sedimentation_tendency", "step_column_1m", "step_column_2m",
+__all__ = ["Column1MStep", "Column2MStep", "ColumnP3Step", "ColumnState",
+           "ColumnState2M", "ColumnStateP3", "sedimentation_tendency",
+           "step_column_1m", "step_column_2m", "step_column_p3",
            "surface_precip_rate"]
 
 
@@ -328,3 +329,178 @@ class Column2MStep(nn.Module):
             state, self.mp, self.tps, self.dt, self.dz,
             block_cols=_block_cols(state.shape[1]),
             q_tot_affine=q_tot_affine, params=self.params)
+
+
+class ColumnStateP3(NamedTuple):
+    """2M warm rain + P3 ice prognostic column; fields are ``(ncol, nlev)``.
+
+    SB2006 cloud/rain mass and number plus the four P3 ice variables (ice
+    mass, ice number, rime mass, rime volume), all specific (per kg of air)
+    (reference ``src/BulkMicrophysicsTendencies.jl:898-930``).
+    """
+
+    rho: torch.Tensor
+    T: torch.Tensor
+    q_tot: torch.Tensor
+    q_lcl: torch.Tensor
+    n_lcl: torch.Tensor
+    q_rai: torch.Tensor
+    n_rai: torch.Tensor
+    q_ice: torch.Tensor   # total ice specific content [kg/kg]
+    n_ice: torch.Tensor   # ice specific number [1/kg]
+    q_rim: torch.Tensor   # rime mass [kg/kg]
+    b_rim: torch.Tensor   # rime volume [m^3/kg]
+
+
+def step_column_p3(state: ColumnStateP3, mp, tps: ThermodynamicsParameters,
+                   dt, dz, loglambda_guess=None, col_chunks: int = None,
+                   impl: str = "eager"):
+    """One explicit Euler step of the full 2M warm rain + P3 ice column.
+
+    Per step: (1) solve the P3 PSD slope ``log lambda`` per cell
+    (fixed-iteration Brent, warm-startable from the previous step, the
+    substepping semantics of reference ``src/P3_size_distribution.jl:284``);
+    (2) the 2M+P3 process rates; (3) upwind sedimentation with number- and
+    mass-weighted fall speeds for rain (SB2006 or Chen 2022) and ice (P3
+    quadrature, Chen 2022 + aspect ratio). Returns ``(new_state,
+    loglambda)`` so the caller can warm-start the next step's shape solve.
+
+    ``col_chunks``: evaluate the eager step over that many equal chunks of
+    columns, one after the other (identical math; bounds the memory of the
+    node and pair-space tensors). It must divide ``ncol``.
+
+    ``impl`` selects the form (identical math): ``"eager"`` (default),
+    eager PyTorch on any device, the JAX package's XLA path; ``"fused"``,
+    the fused kernel (:func:`..kernels.column_p3.step_column_p3_fused`),
+    the JAX package's Pallas kernel: one CUDA launch per step on CUDA
+    tensors, the plain version on CPU tensors (a thread block steps the
+    columns :class:`ColumnP3Step` gives it).
+    """
+    ncol = state.rho.shape[0]
+    if col_chunks and ncol % col_chunks:
+        raise ValueError(f"col_chunks={col_chunks} does not divide "
+                         f"ncol={ncol}")
+    if impl == "fused":
+        from ..kernels.column_p3 import step_column_p3_fused
+
+        return step_column_p3_fused(state, mp, tps, dt, dz, loglambda_guess,
+                                    block_cols=_block_cols(ncol))
+    if impl != "eager":
+        raise ValueError(f"unknown impl {impl!r} (expected 'eager'|'fused')")
+    if col_chunks and col_chunks > 1:
+        size = ncol // col_chunks
+        parts = []
+        for i in range(col_chunks):
+            rows = slice(i * size, (i + 1) * size)
+            guess = (None if loglambda_guess is None
+                     else loglambda_guess[rows])
+            parts.append(step_column_p3(
+                ColumnStateP3(*(t[rows] for t in state)), mp, tps, dt, dz,
+                guess))
+        new = ColumnStateP3(*(torch.cat(f, dim=0)
+                              for f in zip(*(p[0] for p in parts))))
+        return new, torch.cat([p[1] for p in parts], dim=0)
+
+    from ..ops import m2 as CM2
+    from ..ops import p3 as P3
+    from .p3_tendencies import p3_step_aux
+
+    ice = mp.ice
+    sb = mp.warm_rain.seifert_beheng
+    rho = state.rho
+
+    L_ice = state.q_ice * rho
+    N_ice = state.n_ice * rho
+    L_rim = state.q_rim * rho
+    B_rim = state.b_rim * rho
+    pstate = P3.state_from_prognostic(ice.scheme, L_ice, N_ice, L_rim, B_rim)
+    with torch.no_grad():
+        loglam = P3.get_distribution_loglambda(pstate, loglambda_guess)
+
+    # ONE sanitized state + ice node table for the whole step: the tendency
+    # assembly and the sedimentation velocities contract the same
+    # bounds/velocity/PSD tables. Cells without real ice get placeholder
+    # velocities, but their fluxes are exactly zero (rho w q with q = 0).
+    aux = p3_step_aux(mp, rho, state.q_ice, state.n_ice, state.q_rim,
+                      state.b_rim, loglam)
+
+    rates = BMT.bulk_tendencies_2m(
+        mp, tps, rho, state.T, state.q_tot, state.q_lcl, state.n_lcl,
+        state.q_rai, state.n_rai, state.q_ice, state.n_ice,
+        state.q_rim, state.b_rim, loglam, p3_aux=aux)
+
+    # rain sedimentation (SB2006 or Chen 2022 number/mass-weighted speeds)
+    vt_n_rai, vt_m_rai = CM2.rain_terminal_velocity(
+        sb, _chen_or_sb(mp), state.q_rai, rho, state.n_rai * rho)
+    sed_q_rai = sedimentation_tendency(rho, state.q_rai, vt_m_rai, dz)
+    sed_n_rai = sedimentation_tendency(rho, state.n_rai, vt_n_rai, dz)
+
+    # ice sedimentation: P3 bulk fall speeds; rime advects with the bulk
+    # ice mass flux (single category: all ice falls together)
+    vt_n_ice = P3.ice_terminal_velocity_number_weighted(
+        ice.terminal_velocity, rho, aux.state, aux.loglam, nodes=aux.nodes)
+    vt_m_ice = P3.ice_terminal_velocity_mass_weighted(
+        ice.terminal_velocity, rho, aux.state, aux.loglam, nodes=aux.nodes)
+    sed_q_ice = sedimentation_tendency(rho, state.q_ice, vt_m_ice, dz)
+    sed_n_ice = sedimentation_tendency(rho, state.n_ice, vt_n_ice, dz)
+    sed_q_rim = sedimentation_tendency(rho, state.q_rim, vt_m_ice, dz)
+    sed_b_rim = sedimentation_tendency(rho, state.b_rim, vt_m_ice, dz)
+
+    Lv = TDI.latent_heat_vapor(tps, state.T)
+    Lf = TDI.latent_heat_fusion(tps, state.T)
+    cp = TDI.cp_m(tps, state.q_tot, state.q_lcl + state.q_rai, state.q_ice)
+    T_new = state.T + dt * (
+        Lv * (rates.dq_lcl_dt + rates.dq_rai_dt + rates.dq_ice_dt)
+        + Lf * rates.dq_ice_dt) / cp
+
+    q_ice = clamp_to_nonneg(state.q_ice + dt * (rates.dq_ice_dt + sed_q_ice))
+    q_rim = clamp_to_nonneg(state.q_rim + dt * (rates.dq_rim_dt + sed_q_rim))
+    new = ColumnStateP3(
+        rho=rho, T=T_new,
+        q_tot=clamp_to_nonneg(state.q_tot + dt * (sed_q_rai + sed_q_ice)),
+        q_lcl=clamp_to_nonneg(state.q_lcl + dt * rates.dq_lcl_dt),
+        n_lcl=clamp_to_nonneg(state.n_lcl + dt * rates.dn_lcl_dt),
+        q_rai=clamp_to_nonneg(state.q_rai + dt * (rates.dq_rai_dt
+                                                  + sed_q_rai)),
+        n_rai=clamp_to_nonneg(state.n_rai + dt * (rates.dn_rai_dt
+                                                  + sed_n_rai)),
+        q_ice=q_ice,
+        n_ice=clamp_to_nonneg(state.n_ice + dt * (rates.dn_ice_dt
+                                                  + sed_n_ice)),
+        # rime invariant: q_rim <= q_ice
+        q_rim=torch.minimum(q_rim, q_ice),
+        b_rim=clamp_to_nonneg(state.b_rim + dt * (rates.db_rim_dt
+                                                  + sed_b_rim)),
+    )
+    return new, loglam
+
+
+class ColumnP3Step(nn.Module):
+    """One fused 2M warm-rain + P3 ice column step (explicit Euler).
+
+    Holds the parameters, ``dt``, ``dz`` and the kernel's float32 parameter
+    buffer (built once, on the host in float64; it follows the module
+    through ``.to(device)``). ``forward(state, loglambda_guess=None)``
+    advances a :class:`ColumnStateP3` by one step and returns ``(state,
+    loglambda)``; pass the returned ``loglambda`` as the next step's guess
+    to warm-start the shape solve. On CUDA tensors it launches the fused
+    kernel; on CPU tensors it runs the plain version. A thread block steps
+    the largest power of two of columns, up to 128, that divides ``ncol``.
+    """
+
+    def __init__(self, mp, tps: ThermodynamicsParameters, dt: float,
+                 dz: float):
+        super().__init__()
+        from ..kernels.column_p3 import kernel_params_p3
+
+        self.mp, self.tps = mp, tps
+        self.dt, self.dz = float(dt), float(dz)
+        self.register_buffer("params", kernel_params_p3(mp, tps),
+                             persistent=False)
+
+    def forward(self, state: ColumnStateP3, loglambda_guess=None):
+        from ..kernels.column_p3 import step_column_p3_fused
+
+        return step_column_p3_fused(
+            state, self.mp, self.tps, self.dt, self.dz, loglambda_guess,
+            block_cols=_block_cols(state.rho.shape[0]), params=self.params)

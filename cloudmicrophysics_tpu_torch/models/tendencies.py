@@ -1,10 +1,10 @@
-"""Fused bulk microphysics tendencies (L5): the 0M, 1M and 2M warm-rain
-entry points and the scheme dispatcher.
+"""Fused bulk microphysics tendencies (L5): the 0M, 1M and 2M (warm rain,
+and P3 ice when ``mp.ice`` is set) entry points and the scheme dispatcher.
 
 Port of ``cloudmicrophysics_tpu/models/tendencies.py:49-567`` (reference
 ``src/BulkMicrophysicsTendencies.jl``): all process rates for a scheme in
-one elementwise pass over local state. The 2M tendencies with P3 ice
-(``mp.ice`` set) are not ported yet and raise ``NotImplementedError``.
+one elementwise pass over local state; the P3 ice processes live in
+:mod:`.p3_tendencies`.
 
 Output modes (reference ``src/BulkMicrophysicsTendencies.jl:85-115``):
 
@@ -499,15 +499,14 @@ def bulk_tendencies_2m(mp: Microphysics2MParams, tps: TPS, rho, T, q_tot,
                        q_lcl, n_lcl, q_rai, n_rai, q_ice=None, n_ice=None,
                        q_rim=None, b_rim=None, log_lambda=None,
                        inpc_log_shift=None, p3_aux=None) -> Tendencies2M:
-    """2-moment fused tendencies: SB2006 warm rain
-    (reference src/BulkMicrophysicsTendencies.jl:824-1083).
+    """2-moment fused tendencies: SB2006 warm rain, plus P3 ice when
+    ``mp.ice`` is set (reference src/BulkMicrophysicsTendencies.jl:824-1083).
 
-    The P3 ice arguments keep the JAX package's signature; with ``mp.ice``
-    set this raises ``NotImplementedError`` (P3 is not ported yet) rather
-    than drop the ice.
+    ``p3_aux`` optionally passes a step-shared
+    :class:`.p3_tendencies.P3StepAux` (sanitized state + ice quadrature
+    nodes) so a column step can reuse the same node tables for its
+    sedimentation velocities.
     """
-    if getattr(mp, "ice", None) is not None:
-        raise NotImplementedError("P3 ice: slice 3")
     rho = clamp_to_nonneg(rho)
     q_tot = clamp_to_nonneg(q_tot)
     q_lcl = clamp_to_nonneg(q_lcl)
@@ -519,8 +518,19 @@ def bulk_tendencies_2m(mp: Microphysics2MParams, tps: TPS, rho, T, q_tot,
 
     dq_lcl_dt, dq_rai_dt, dn_lcl_dt, dn_rai_dt = warm_rain_tendencies_2m(
         mp.warm_rain, tps, T, q_tot, q_lcl, q_rai, q_ice, rho, n_lcl, n_rai)
-    return Tendencies2M(dq_lcl_dt, dn_lcl_dt, dq_rai_dt, dn_rai_dt,
-                        zero, zero, zero, zero)
+
+    if getattr(mp, "ice", None) is None:
+        return Tendencies2M(dq_lcl_dt, dn_lcl_dt, dq_rai_dt, dn_rai_dt,
+                            zero, zero, zero, zero)
+
+    from .p3_tendencies import ice_tendencies_2m_p3
+
+    return ice_tendencies_2m_p3(
+        mp, tps, rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai,
+        q_ice, n_ice, q_rim, b_rim, log_lambda, inpc_log_shift,
+        warm=(dq_lcl_dt, dn_lcl_dt, dq_rai_dt, dn_rai_dt),
+        aux=p3_aux,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -533,7 +543,7 @@ def bulk_microphysics_tendencies(mp, tps, *args, **kwargs):
 
     ``mp`` selects the scheme: ``Microphysics0MParams`` -> 0M,
     ``Microphysics1MParams`` -> 1M (kwargs: mode/dt/nsub),
-    ``Microphysics2MParams`` -> 2M warm rain.
+    ``Microphysics2MParams`` -> 2M warm rain (+P3 when ``mp.ice`` set).
     """
     if isinstance(mp, Microphysics0MParams):
         return bulk_tendencies_0m(mp, tps, *args, **kwargs)

@@ -197,10 +197,9 @@ def chen2022_vel_coeffs_rain(coeffs: Chen2022VelTypeRain, rho_a):
     return ai_unit, bi, ciu
 
 
-def chen2022_vel_coeffs_small_ice(coeffs: Chen2022VelTypeSmallIce, rho_a,
-                                  rho_i):
-    """Table B2/B3 coefficients (reference src/Common.jl:304-325)."""
-    rho_a = torch.clamp(rho_a, min=0.0)
+def chen2022_small_ice_consts(coeffs: Chen2022VelTypeSmallIce, rho_i):
+    """The ice-density-only factors ``(As, Bs, Cs, Es, Fs, Gs)`` of Table
+    B2/B3; Python floats for a Python-float ``rho_i``."""
     A, B, C, E, F, G = coeffs.A, coeffs.B, coeffs.C, coeffs.E, coeffs.F, coeffs.G
     log_r = _log(rho_i)
     sqrt_r = _sqrt(rho_i)
@@ -210,6 +209,14 @@ def chen2022_vel_coeffs_small_ice(coeffs: Chen2022VelTypeSmallIce, rho_a,
     Es = E[0] - E[1] * log_r**2 + E[2] * sqrt_r
     Fs = -_exp(F[0] - F[1] * log_r**2 + F[2] * log_r)
     Gs = 1 / (G[0] + G[1] / log_r - G[2] * log_r / rho_i)
+    return As, Bs, Cs, Es, Fs, Gs
+
+
+def chen2022_vel_coeffs_small_ice(coeffs: Chen2022VelTypeSmallIce, rho_a,
+                                  rho_i):
+    """Table B2/B3 coefficients (reference src/Common.jl:304-325)."""
+    rho_a = torch.clamp(rho_a, min=0.0)
+    As, Bs, Cs, Es, Fs, Gs = chen2022_small_ice_consts(coeffs, rho_i)
     # rho_a^As shared by both a_i; both b_i are identical so the unit
     # conversion 1000^b shares one exp
     bi_common = Bs + rho_a * Cs
@@ -221,10 +228,9 @@ def chen2022_vel_coeffs_small_ice(coeffs: Chen2022VelTypeSmallIce, rho_a,
     return aiu, bi, ciu
 
 
-def chen2022_vel_coeffs_large_ice(coeffs: Chen2022VelTypeLargeIce, rho_a,
-                                  rho_i):
-    """Table B4/B5 coefficients (reference src/Common.jl:327-349)."""
-    rho_a = torch.clamp(rho_a, min=0.0)
+def chen2022_large_ice_consts(coeffs: Chen2022VelTypeLargeIce, rho_i):
+    """The ice-density-only factors ``(Al, Bl, Cl, El, Fl, Gl, Hl)`` of
+    Table B4/B5; Python floats for a Python-float ``rho_i``."""
     A, B, C = coeffs.A, coeffs.B, coeffs.C
     E, F, G, H = coeffs.E, coeffs.F, coeffs.G, coeffs.H
     log_r = _log(rho_i)
@@ -238,6 +244,14 @@ def chen2022_vel_coeffs_large_ice(coeffs: Chen2022VelTypeLargeIce, rho_a,
     Fl = F[0] + F[1] * log_r - _exp(math.log(-F[2]) - rho_i)
     Gl = 1 / (G[0] + G[1] * log_r * sqrt_r + G[2] / sqrt_r)
     Hl = H[0] + H[1] * rho_i**2 * sqrt_r + _exp(math.log(-H[2]) - rho_i)
+    return Al, Bl, Cl, El, Fl, Gl, Hl
+
+
+def chen2022_vel_coeffs_large_ice(coeffs: Chen2022VelTypeLargeIce, rho_a,
+                                  rho_i):
+    """Table B4/B5 coefficients (reference src/Common.jl:327-349)."""
+    rho_a = torch.clamp(rho_a, min=0.0)
+    Al, Bl, Cl, El, Fl, Gl, Hl = chen2022_large_ice_consts(coeffs, rho_i)
     rho_pow = torch.exp(Al * torch.log(rho_a))
     ai = (Bl * rho_pow, El * rho_pow * torch.exp(Hl * rho_a))
     bi = (Cl, Fl)

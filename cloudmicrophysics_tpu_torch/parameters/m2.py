@@ -6,8 +6,8 @@ and factories. Gamma-function coefficients are precomputed on the host in
 float64 at construction, as the reference does
 (``src/parameters/Microphysics2M.jl:430-431``, ``:590-610``).
 
-``microphysics_2m_params(with_ice=True)`` raises ``NotImplementedError``
-until the P3 ice parameters are ported.
+``microphysics_2m_params(with_ice=True, **p3_kwargs)`` adds the P3 ice
+container of :func:`.p3.p3_ice_params`.
 """
 
 from __future__ import annotations
@@ -307,9 +307,11 @@ def microphysics_2m_params(is_limited: bool = True,
                            with_ice: bool = False,
                            rain_velocity: str = "sb2006",
                            **kwargs) -> Microphysics2MParams:
-    if with_ice or kwargs:
-        raise NotImplementedError("P3 ice: slice 3")
     ice = None
+    if with_ice:
+        from .p3 import p3_ice_params
+
+        ice = p3_ice_params(**kwargs)
     from .common import AirProperties
     from .terminal_velocity import Chen2022VelTypeRain, SB2006VelType
 

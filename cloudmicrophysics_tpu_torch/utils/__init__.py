@@ -1,6 +1,6 @@
 """Numerics utilities (L0): special functions and parameter-struct machinery."""
 
-from . import distributions, param, special
+from . import distributions, param, quadrature, special
 from .param import paramclass, replace, static_field
 from .special import (
     clamp_to_nonneg,

@@ -9,6 +9,9 @@ inverse (reference ``src/Utilities.jl:33-252``). The JAX package builds
 here they are PyTorch's own, except the Lanczos ``_lgamma_pos`` that
 :func:`gamma_inc` uses, as the JAX package's does.
 
+The module ends with ``logsumexp`` and the regularised ratios the P3 state
+reads (``cloudmicrophysics_tpu/utils/special.py:569-633``).
+
 Forward only: the JAX package's ``custom_jvp`` rules of :func:`gamma_inc`
 and :func:`gamma_inc_inv` (closed-form derivative in ``x``/``p``, NaN for
 a tangent in ``a``) are not ported yet.
@@ -39,7 +42,12 @@ __all__ = [
     "gamma_inc_lower",
     "gamma_inc_upper",
     "lgamma",
+    "logsumexp",
     "machine_eps",
+    "regularised_ratio",
+    "rime_density",
+    "rime_mass_fraction",
+    "sgs_weight_function",
 ]
 
 
@@ -356,3 +364,71 @@ def gamma_inc_inv(a, p, q, n_iters: int = _HALLEY_ITERS):
     x = torch.where(q <= 0, torch.full_like(x, math.inf), x)
     isnan = torch.isnan(a) | torch.isnan(p) | torch.isnan(q)
     return torch.where(isnan, torch.full_like(x, math.nan), x)
+
+
+# ---------------------------------------------------------------------------
+# logsumexp over one axis (reference: unrolled_logsumexp over tuples)
+# ---------------------------------------------------------------------------
+
+def logsumexp(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Shift-by-max ``log(sum(exp(x)))`` along ``axis``.
+
+    Non-finite maxima pass through directly (avoids Inf - Inf; reference
+    ``src/Utilities.jl:399-412``). The sum runs over the axis in order, one
+    addition at a time, so a kernel that adds the same terms in the same
+    order rounds alike.
+    """
+    xmax = torch.amax(x, dim=axis)
+    finite = torch.isfinite(xmax)
+    shift = torch.where(finite, xmax, torch.zeros_like(xmax))
+    terms = torch.exp(x - shift.unsqueeze(axis)).unbind(axis)
+    s = terms[0]
+    for t in terms[1:]:
+        s = s + t
+    return torch.where(finite, shift + torch.log(s), xmax)
+
+
+# ---------------------------------------------------------------------------
+# SGS weight function + regularised ratios (reference src/Utilities.jl:415-509)
+# ---------------------------------------------------------------------------
+
+def sgs_weight_function(a: torch.Tensor, a_half: float) -> torch.Tensor:
+    """Smooth monotone weight ``w(a)`` in [0, 1] with ``w(a_half) = 1/2``:
+    a ``tanh`` of ``atanh`` sigmoid with midpoint control (reference
+    ``src/Utilities.jl:445-457``). ``a_half`` is a Python float, so the
+    exponent ``k`` is folded on the host in float64."""
+    eps = machine_eps(a.dtype)
+    upper = min(1.0 - eps, 42.0 * a_half)
+    a_s = torch.clamp(a, eps, upper)
+    k = -1.0 / math.log2(1.0 - a_half)
+    inner = 1 - 2 * (1 - a_s) ** k
+    inner = torch.clamp(inner, -1.0 + eps, 1.0 - eps)
+    w = (1 + torch.tanh(2 * torch.atanh(inner))) / 2
+    w = torch.where(a < 0, torch.zeros_like(w), w)
+    w = torch.where(4 * a < eps, torch.zeros_like(w), w)
+    return torch.where(a > min(1.0, 42.0 * a_half), torch.ones_like(w), w)
+
+
+def regularised_ratio(numerator, denominator, half=None, eps=None):
+    """``numerator / denominator`` blended smoothly to 0 for small
+    denominators (reference ``src/Utilities.jl:469-479``)."""
+    dt = float_dtype(numerator, denominator)
+    if half is None:
+        half = machine_eps(dt)
+    if eps is None:
+        eps = machine_eps(dt) ** 2
+    w = sgs_weight_function(denominator, half)
+    small = denominator < eps
+    denom_safe = torch.where(small, torch.ones_like(denominator), denominator)
+    out = w * numerator / denom_safe
+    return torch.where(small, torch.zeros_like(out), out)
+
+
+def rime_mass_fraction(q_rim, q_ice, half=None, eps=None):
+    """Regularised ``F_rim = q_rim / q_ice`` clamped to [0, 1]."""
+    return regularised_ratio(torch.minimum(q_rim, q_ice), q_ice, half, eps)
+
+
+def rime_density(q_rim, b_rim, half=None, eps=None):
+    """Regularised ``rho_rim = q_rim / b_rim``."""
+    return regularised_ratio(q_rim, b_rim, half, eps)

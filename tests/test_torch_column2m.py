@@ -242,14 +242,17 @@ def test_kernel_params_buffer():
 
 def test_cuda_source_reads_exactly_the_parameter_list():
     # the header the build generates is the only link between the list and
-    # csrc/column2m.cu: every name the source reads must be in it
+    # csrc/column2m.cu with the warm-rain device code it includes
+    # (csrc/warm2m.cuh, shared with the P3 kernel): every name they read
+    # must be in it
     src = (_build.CSRC_DIR / "column2m.cu").read_text()
-    used = set(re.findall(r"PV\((\w+)\)", src)) - {"name"}
+    shared = (_build.CSRC_DIR / "warm2m.cuh").read_text()
+    used = set(re.findall(r"PVO?\((\w+)\)", src + shared)) - {"name"}
     assert used == set(TK.PARAM_NAMES)
     assert '#include "column2m_params.h"' in src
-    # self-contained: the source includes no other file of csrc/
+    # the only other file of csrc/ it includes is the shared header
     local = set(re.findall(r'#include "([^"]+)"', src))
-    assert local == {"column2m_params.h"}
+    assert local == {"column2m_params.h", "warm2m.cuh"}
     header = _build.index_header(TK.PARAM_NAMES, "G")
     for i, name in enumerate(TK.PARAM_NAMES):
         assert f"#define P_{name} {i}\n" in header

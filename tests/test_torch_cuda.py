@@ -1,5 +1,5 @@
-"""The fused 1M and 2M column kernels on an NVIDIA GPU, against their plain
-versions.
+"""The fused 1M, 2M and 2M + P3 column kernels on an NVIDIA GPU, against
+their plain versions.
 
 Needs a CUDA device (marker ``cuda``); without one every test skips. This
 file imports neither JAX nor the JAX package, so it also runs where JAX
@@ -8,8 +8,10 @@ is not installed:
     python -m pytest tests/test_torch_cuda.py -o addopts='' --noconftest -q
 
 Tolerance: rtol 2e-5, atol 2e-9, the contract tests/test_kernels.py holds
-the Pallas kernels to; tilings must agree bit for bit (each cell is
-computed by the same code whatever block steps it).
+the Pallas kernels to (for the P3 kernel: log lambda rtol 2e-5, fields
+rtol 3e-5 / atol 1e-10, tests/test_kernels.py:192-198); tilings must agree
+bit for bit (each cell is computed by the same code whatever block steps
+it).
 """
 
 import numpy as np
@@ -18,11 +20,14 @@ import torch
 
 from cloudmicrophysics_tpu_torch.kernels import column1m as K
 from cloudmicrophysics_tpu_torch.kernels import column2m as K2
+from cloudmicrophysics_tpu_torch.kernels import column_p3 as K5
 from cloudmicrophysics_tpu_torch.models.column import (
     Column1MStep,
     Column2MStep,
+    ColumnP3Step,
     ColumnState,
     ColumnState2M,
+    ColumnStateP3,
 )
 from cloudmicrophysics_tpu_torch.parameters import (
     ThermodynamicsParameters,
@@ -168,3 +173,100 @@ def test_2m_cuda_rejections(device):
         K2.step_column_2m_fused(
             st._replace(T=st.T.t().contiguous().t()), mp, TPS, DT, DZ,
             block_cols=16)
+
+
+def _state_p3(ncol, nlev, device, dtype=torch.float32, seed=7):
+    """Ice below freezing (unrimed to heavily rimed), cloud and rain where
+    their freezing stays moderate, warm cells without ice."""
+    rng = np.random.default_rng(seed)
+    sh = (ncol, nlev)
+    ones = np.ones((ncol, 1))
+    T = np.linspace(285.0, 230.0, nlev)[None, :] * ones
+    q_ice = np.where(T < 273.15, 10 ** rng.uniform(-6, -3, sh), 0.0)
+    q_rim = q_ice * rng.uniform(0.0, 0.95, sh)
+    q_lcl = np.where(T > 245.0, 1e-3 * rng.random(sh), 0.0)
+    q_rai = np.where(T > 263.0, 5e-4 * rng.random(sh), 0.0)
+    arrays = (np.linspace(1.2, 0.4, nlev)[None, :] * ones, T,
+              q_lcl + q_rai + q_ice + 6e-3 * rng.random(sh), q_lcl,
+              np.where(q_lcl > 0, 1e8 * rng.random(sh), 0.0), q_rai,
+              np.where(q_rai > 0, 1e6 * rng.random(sh), 0.0), q_ice,
+              np.where(q_ice > 0, q_ice / 10 ** rng.uniform(-11, -8, sh), 0),
+              q_rim, q_rim / rng.uniform(100.0, 900.0, sh))
+    return ColumnStateP3(*(torch.as_tensor(a, dtype=dtype, device=device)
+                           for a in arrays))
+
+
+def _assert_close_p3(out, ref):
+    (st, ll), (st_ref, ll_ref) = out, ref
+    assert torch.equal(torch.isinf(ll), torch.isinf(ll_ref))
+    fin = torch.isfinite(ll_ref)
+    torch.testing.assert_close(ll[fin], ll_ref[fin], rtol=2e-5, atol=0)
+    for a, b in zip(st, st_ref):
+        torch.testing.assert_close(a, b, rtol=3e-5, atol=1e-10)
+
+
+@pytest.mark.parametrize("order", K5.ORDERS)
+@pytest.mark.parametrize("ncol,nlev,tilings", [(256, 64, (64, 32)),
+                                               (250, 40, (10, 25))])
+def test_p3_kernel_matches_plain(device, order, ncol, nlev, tilings):
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=order)
+    st = _state_p3(ncol, nlev, device)
+    ref = K5.step_column_p3_plain(st, mp, TPS, DT, DZ)
+    before = K5.step_column_p3_fused.launches
+    outs = [K5.step_column_p3_fused(st, mp, TPS, DT, DZ, block_cols=bc)
+            for bc in tilings]
+    assert K5.step_column_p3_fused.launches == before + len(tilings)
+    _assert_close_p3(outs[0], ref)
+    for x, y in zip(outs[0][0] + (outs[0][1],), outs[1][0] + (outs[1][1],)):
+        assert torch.equal(x, y)
+    # warm start from the plain step's log lambda
+    warm = K5.step_column_p3_fused(ref[0], mp, TPS, DT, DZ, ref[1],
+                                   block_cols=tilings[0])
+    _assert_close_p3(warm, K5.step_column_p3_plain(ref[0], mp, TPS, DT, DZ,
+                                                   ref[1]))
+
+
+def test_p3_kernel_options(device):
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=8,
+                                is_limited=False, rain_velocity="chen2022")
+    st = _state_p3(128, 32, device)
+    _assert_close_p3(K5.step_column_p3_fused(st, mp, TPS, DT, DZ,
+                                             block_cols=32),
+                     K5.step_column_p3_plain(st, mp, TPS, DT, DZ))
+
+
+def test_column_p3_step_module(device):
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=8)
+    model = ColumnP3Step(mp, TPS, DT, DZ).to(device)
+    assert model.params.device == device
+    st = _state_p3(256, 48, device)
+    out = model(st)
+    _assert_close_p3(out, K5.step_column_p3_plain(st, mp, TPS, DT, DZ))
+    out2 = model(*out)
+    _assert_close_p3(out2, K5.step_column_p3_plain(out[0], mp, TPS, DT, DZ,
+                                                   out[1]))
+
+
+def test_p3_cuda_rejections(device):
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=8)
+    st = _state_p3(64, 16, device)
+    with pytest.raises(ValueError, match="not a multiple"):
+        K5.step_column_p3_fused(st, mp, TPS, DT, DZ, block_cols=48)
+    with pytest.raises(NotImplementedError, match="float32"):
+        K5.step_column_p3_fused(_state_p3(64, 16, device, torch.float64), mp,
+                                TPS, DT, DZ, block_cols=16)
+    with pytest.raises(NotImplementedError, match="nlev"):
+        K5.step_column_p3_fused(_state_p3(4, K5.MAX_NLEV + 1, device), mp,
+                                TPS, DT, DZ, block_cols=4)
+    with pytest.raises(NotImplementedError, match="aspect_ratio"):
+        K5.step_column_p3_fused(
+            st, microphysics_2m_params(with_ice=True, quadrature_order=8,
+                                       aspect_ratio="NoAspectRatio"),
+            TPS, DT, DZ, block_cols=16)
+    with pytest.raises(NotImplementedError, match="quadrature orders"):
+        K5.step_column_p3_fused(
+            st, microphysics_2m_params(with_ice=True, quadrature_order=32),
+            TPS, DT, DZ, block_cols=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        K5.step_column_p3_fused(st._replace(T=st.T.t().contiguous().t()),
+                                mp, TPS, DT, DZ, block_cols=16)

@@ -1,6 +1,7 @@
 """The port runs without JAX: importing it and stepping a column on the CPU
 loads no ``jax`` module, every module of the package imports with JAX
-blocked, and no module of the package imports one."""
+blocked, the 2M + P3 column step runs with JAX blocked, and no module of
+the package imports one."""
 
 import os
 import re
@@ -39,20 +40,23 @@ sys.exit(1 if bad else 0)
 """
 
 
-def test_import_and_cpu_step_load_no_jax():
+def _run(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(PKG.parent)] + [p for p in env.get("PYTHONPATH", "").split(
             os.pathsep) if p])
-    proc = subprocess.run([sys.executable, "-c", _SCRIPT], env=env,
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    return proc
+
+
+def test_import_and_cpu_step_load_no_jax():
+    proc = _run(_SCRIPT)
     assert "JAX_MODULES []" in proc.stdout
 
 
-_BLOCKED_SCRIPT = """
-import importlib
-import pkgutil
+_BLOCK = """
 import sys
 
 
@@ -63,6 +67,11 @@ class _Block:
 
 
 sys.meta_path.insert(0, _Block())
+"""
+
+_BLOCKED_SCRIPT = _BLOCK + """
+import importlib
+import pkgutil
 import cloudmicrophysics_tpu_torch as cmt
 names = [m.name for m in pkgutil.walk_packages(cmt.__path__,
                                                 "cloudmicrophysics_tpu_torch.")]
@@ -90,20 +99,48 @@ print("IMPORTED", len(names))
 
 
 def test_every_module_imports_with_jax_blocked():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(PKG.parent)] + [p for p in env.get("PYTHONPATH", "").split(
-            os.pathsep) if p])
-    proc = subprocess.run([sys.executable, "-c", _BLOCKED_SCRIPT], env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+    proc = _run(_BLOCKED_SCRIPT)
     # walk_packages lists every module and every subpackage
     modules = {p.relative_to(PKG).with_suffix("").as_posix()
                for p in PKG.rglob("*.py") if p.parent != PKG
                or p.name != "__init__.py"}
     assert {"utils/distributions", "parameters/m2", "ops/m2",
-            "kernels/column2m"} <= modules
+            "kernels/column2m", "utils/quadrature", "parameters/p3",
+            "parameters/ice_nucleation", "ops/p3", "ops/p3_processes",
+            "ops/ice_nucleation", "models/p3_tendencies",
+            "kernels/column_p3"} <= modules
     assert f"IMPORTED {len(modules)}" in proc.stdout, proc.stdout
+
+
+_P3_SCRIPT = _BLOCK + """
+import torch
+from cloudmicrophysics_tpu_torch.models.column import (
+    ColumnP3Step, ColumnStateP3)
+from cloudmicrophysics_tpu_torch.parameters import (
+    ThermodynamicsParameters, microphysics_2m_params)
+n, k = 4, 5
+full = lambda v: torch.full((n, k), v, dtype=torch.float64)
+st = ColumnStateP3(
+    rho=torch.linspace(1.2, 0.6, k, dtype=torch.float64).expand(n, k),
+    T=torch.linspace(268.0, 250.0, k, dtype=torch.float64).expand(n, k),
+    q_tot=full(8e-3), q_lcl=full(5e-4), n_lcl=full(5e7), q_rai=full(1e-4),
+    n_rai=full(1e5), q_ice=full(5e-4), n_ice=full(1e5), q_rim=full(1e-4),
+    b_rim=full(2e-7))
+model = ColumnP3Step(microphysics_2m_params(with_ice=True, quadrature_order=4),
+                     ThermodynamicsParameters(), 1.0, 100.0)
+out, loglam = model(st)
+out, loglam = model(out, loglam)
+assert all(bool(torch.isfinite(t).all()) for t in out)
+assert bool(torch.isfinite(loglam).all()) and bool((out.q_rim <= out.q_ice).all())
+mods = sorted(m for m in sys.modules if m.split(".")[0] in
+              ("jax", "jaxlib", "cloudmicrophysics_tpu"))
+print("JAX_MODULES", mods)
+"""
+
+
+def test_p3_step_runs_with_jax_blocked():
+    proc = _run(_P3_SCRIPT)
+    assert "JAX_MODULES []" in proc.stdout, proc.stdout
 
 
 def test_no_module_imports_jax_or_the_jax_package():

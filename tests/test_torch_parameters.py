@@ -17,7 +17,12 @@ from cloudmicrophysics_tpu_torch.models.column import ColumnState, ColumnState2M
 
 def _assert_same_tree(port, ref, path="root"):
     """Walk two parameter structs and require identical values."""
-    if dataclasses.is_dataclass(ref):
+    if type(ref).__name__ == "Tabulated":
+        assert type(port).__name__ == "Tabulated" and port.n == ref.n, path
+        for a, b in zip(port.nodes_weights(), ref.nodes_weights()):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                          err_msg=path)
+    elif dataclasses.is_dataclass(ref):
         assert dataclasses.is_dataclass(port), path
         assert type(port).__name__ == type(ref).__name__, path
         ref_names = [f.name for f in dataclasses.fields(ref)]
@@ -161,10 +166,98 @@ def test_m2_factories_match():
 
 
 def test_m2_with_ice_waits_for_p3():
-    with pytest.raises(NotImplementedError, match="P3"):
-        TP.microphysics_2m_params(with_ice=True)
+    # the P3 ice container is ported: with_ice=True builds it, as in JAX
+    port = TP.microphysics_2m_params(with_ice=True)
+    assert isinstance(port.ice, TP.P3IceParams)
+    _assert_same_tree(port, JP.microphysics_2m_params(with_ice=True))
     with pytest.raises(ValueError, match="rain_velocity"):
         TP.microphysics_2m_params(rain_velocity="stokes")
+
+
+P3_OPTIONS = [dict(quadrature_order=o) for o in (4, 8, 16)] + [
+    dict(quadrature_order=8, slope_law="constant"),
+    dict(quadrature_order=10, aspect_ratio="NoAspectRatio"),
+]
+
+
+@pytest.mark.parametrize("options", P3_OPTIONS)
+def test_p3_params_match_field_by_field(options):
+    ref = JP.microphysics_2m_params(with_ice=True, **options)
+    port = TP.microphysics_2m_params(with_ice=True, **options)
+    _assert_same_tree(port, ref)
+    assert type(port.ice.scheme.slope).__name__ == \
+        type(ref.ice.scheme.slope).__name__
+    # the tables of the order's rule, as the JAX package tabulates them
+    assert port.ice.quad.y.shape == (options["quadrature_order"], 1, 1)
+
+
+@pytest.mark.parametrize("options", P3_OPTIONS)
+def test_p3_from_tree_round_trip(options):
+    ref = JP.microphysics_2m_params(with_ice=True, is_limited=False,
+                                    rain_velocity="chen2022", **options)
+    port = TP.from_tree(TP.Microphysics2MParams, dataclasses.asdict(ref))
+    assert port == TP.microphysics_2m_params(
+        with_ice=True, is_limited=False, rain_velocity="chen2022", **options)
+    _assert_same_tree(port, ref)
+    # the port's own tree round-trips as well
+    assert TP.from_tree(TP.Microphysics2MParams,
+                        dataclasses.asdict(port)) == port
+
+
+def test_p3_from_tree_takes_every_float():
+    ref = JP.microphysics_2m_params(with_ice=True, quadrature_order=8)
+    tree = dataclasses.asdict(ref)
+    tree["ice"]["scheme"]["tau_wet"] = 50.0
+    tree["ice"]["scheme"]["slope"]["mu_max"] = np.float32(5.0)
+    tree["ice"]["numadj"]["x_max"] = np.array(2e-5)
+    tree["ice"]["ice_nucleation"]["sigma"] = 1.5
+    port = TP.from_tree(TP.Microphysics2MParams, tree)
+    assert port.ice.scheme.tau_wet == 50.0
+    assert port.ice.scheme.slope.mu_max == 5.0
+    assert port.ice.numadj.x_max == 2e-5
+    assert port.ice.ice_nucleation.sigma == 1.5
+    bad = dataclasses.asdict(ref)
+    bad["ice"]["scheme"]["slope"] = {"k": 1.0}
+    with pytest.raises(ValueError, match="no slope law"):
+        TP.from_tree(TP.Microphysics2MParams, bad)
+
+
+def test_p3_ice_params_direct_construction_fills_derived_fields():
+    ice = TP.P3IceParams(
+        scheme=TP.parameters_p3(), terminal_velocity=TP.chen2022_vel_type(),
+        cloud_pdf=TP.m2.cloud_pdf_sb2006(),
+        rain_pdf=TP.m2.RainParticlePDF_SB2006(),
+        ice_nucleation=TP.Frostenberg2023(), rain_freezing=TP.RainFreezing(),
+        inp_depletion_model=TP.NIceProxyDepletion(), quadrature_order=8)
+    assert ice.numadj == TP.IceNumberAdjustment() and ice.quad.n == 8
+    _assert_same_tree(ice, JP.p3.P3IceParams(
+        scheme=JP.parameters_p3(), terminal_velocity=JP.chen2022_vel_type(),
+        cloud_pdf=JP.m2.cloud_pdf_sb2006(),
+        rain_pdf=JP.m2.RainParticlePDF_SB2006(),
+        ice_nucleation=JP.Frostenberg2023(),
+        rain_freezing=JP.ice_nucleation.RainFreezing(),
+        inp_depletion_model=JP.ice_nucleation.NIceProxyDepletion(),
+        quadrature_order=8))
+
+
+def test_ice_nucleation_params_match_field_by_field():
+    _assert_same_tree(TP.ice_nucleation_parameters(),
+                      JP.ice_nucleation_parameters())
+    for name in ("RainFreezing", "NIceProxyDepletion", "Mohler2006",
+                 "Koop2000", "MorrisonMilbrandt2014"):
+        _assert_same_tree(getattr(TP, name)(),
+                          getattr(JP.ice_nucleation, name)())
+
+
+def test_column_state_p3_from_numpy():
+    from cloudmicrophysics_tpu_torch.models.column import ColumnStateP3
+
+    rng = np.random.default_rng(5)
+    arrays = {name: rng.random((2, 7)) for name in ColumnStateP3._fields}
+    st = TP.column_state_p3_from_numpy(arrays, dtype=torch.float64)
+    assert isinstance(st, ColumnStateP3) and len(st) == 11
+    for name, t in zip(ColumnStateP3._fields, st):
+        np.testing.assert_array_equal(t.numpy(), arrays[name])
 
 
 def test_column_state_2m_from_numpy():

@@ -9,6 +9,7 @@ ULP-level differences of small terms, but stay far inside that.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -210,8 +211,11 @@ def test_dispatcher_matches_each_scheme():
 
 
 def test_bulk_tendencies_2m_with_ice_raises():
-    mp_t = dataclasses.replace(TP.microphysics_2m_params(), ice=object())
-    with pytest.raises(NotImplementedError, match="P3"):
-        TT.bulk_tendencies_2m(mp_t, TPS_T, *T2)
-    with pytest.raises(NotImplementedError, match="P3"):
-        TP.microphysics_2m_params(with_ice=True)
+    # P3 ice is ported: with mp.ice set the 2M tendencies add the P3 ice
+    # processes instead of raising. Without ice arguments only nucleation
+    # and freezing act; tests/test_torch_p3_ladder.py covers icy states.
+    mp_j = JP.microphysics_2m_params(with_ice=True, quadrature_order=4)
+    mp_t = TP.from_tree(TP.Microphysics2MParams, dataclasses.asdict(mp_j))
+    ref = jax.jit(lambda *a: JT.bulk_tendencies_2m(mp_j, TPS_J, *a))(*J2)
+    out = TT.bulk_tendencies_2m(mp_t, TPS_T, *T2)
+    _assert_close(out, ref, "bulk_tendencies_2m with mp.ice")
