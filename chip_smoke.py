@@ -10,7 +10,10 @@ then, failing at the first phase that does not hold:
 1. prints the toolchain (GPU name and power limit, torch, CUDA, nvcc,
    whether triton imports);
 2. prints each source's build time and the compiler's register/spill
-   report;
+   report, and for K5's three kernels (K5a solve, K5b node pass at each
+   order, K5c epilogue) their registers, spills, stack frame and local
+   memory per thread (``column_p3.cu`` is built twice, the kernel and its
+   operation-count probe: ``BUILDS`` in ``kernels/column_p3.py``);
 3. compares both kernel entry points (packed and unpacked) with their plain
    PyTorch versions on the card at three cases, (4096, 128), a ragged
    (1000, 40) and the in-kernel ``q_tot`` affine, under rtol 2e-5 /
@@ -41,29 +44,45 @@ then, failing at the first phase that does not hold:
    full-size packed step against the plain version, quotes K3 against
    the streaming pass of phase 6, counts the plain step's device kernels
    and measures the device's idle share over 10 K3 steps;
-10. compares the 2M + P3 kernel (K5) with its plain version at quadrature
+10. holds K5a's log lambda against the plain shape solve on the ladder
+    states, cold and warm-started, bit for bit; then compares the 2M + P3
+    step (K5: K5a, K5b, K5c) with its plain version at quadrature
     orders 4, 8 and 16 on the 10 curated ladder states tiled over
     (640, 16), a seeded mixed-regime (4096, 64) state and a ragged
     (1000, 40) one, each cold and warm-started from the plain step's log
     lambda, under log lambda rtol 2e-5 and fields rtol 3e-5 / atol 1e-10
     (the Pallas P3 kernel's contract), with two tilings agreeing bit for
-    bit, also with ``is_limited=False`` and Chen 2022 rain; then prints the
+    bit, also with ``is_limited=False`` and Chen 2022 rain, and counts the
+    comparisons that are bit-identical; then prints the
     kernel's float32 per-field error against the JAX package's float64 step
     on the ladder states (the record in the package's ``data/``);
 11. drives the P3 path at full width: ``ColumnP3Step`` on a (16384, 128)
     float32 state (the TPU benchmark's P3 state with rho and T profiles and
     seeded jitter) at GL-16, one cold step and three 10-step rollouts
     carrying log lambda as the next step's guess, checking finiteness,
-    non-negativity, ``q_rim <= q_ice`` and the launch counter, holding the
-    cold step against the plain version, then one 10-step rollout at GL-8;
+    non-negativity, ``q_rim <= q_ice`` and the launch counters (the step's
+    and each of its three kernels'), holding the cold step against the
+    plain version, then one 10-step rollout at GL-8;
 12. times K5 and the plain step (run in 16 column chunks) at that size,
-    measures the device's idle share over 10 K5 steps, prints the plain
-    step's peak device memory and device kernels (counted on one column
-    chunk) and quotes K5 against the streaming pass of phase 6.
+    and each of K5a, K5b and K5c by CUDA events with the SM clock sampled
+    beside them, measures the device's idle share over 10 K5 steps, prints
+    the plain step's peak device memory and device kernels (counted on one
+    column chunk), quotes K5 against the streaming pass of phase 6, and
+    counts K5's operations (kernels/opcount.py: the probe build's region
+    counts on this state times each region's operations on its least path
+    through the timed build's SASS; the probe's warp counts give each
+    region's SIMT efficiency and each kernel's share of the warp issue
+    rate) and K1-K4's (their ``cell_step`` on its least path, once per
+    cell), for each kernel's bound: the larger of its bytes over 3.35 TB/s
+    and its operations' time, float32 operations over 67 TFLOP/s or MUFU
+    operations over 16 per SM per clock (132 SMs at 1.98 GHz), the larger.
+    Fails if a bound exceeds the kernel's time. The SASS and the probe's
+    counts go to ``kernels/build/``.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device it
-exits with a non-zero code and prints no result.
+The line before the last is a JSON object with one entry per kernel (K5's
+with its three kernels under ``subkernels``); the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits with a
+non-zero code and prints no result.
 """
 
 import json
@@ -71,6 +90,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -79,6 +99,29 @@ DT, DZ = 1.0, 100.0
 N_STEPS, N_ROLLOUTS = 30, 3   # the benchmark's rollout length and count
 RTOL, ATOL = 2e-5, 2e-9       # the Pallas kernel's contract (tests/test_kernels.py)
 AFFINE = (1.0 + 1e-4 * 5, 1e-9 * 6)
+# the H100 SXM's published HBM rate and float32 rate outside the tensor
+# cores (an FMA two operations); its special-function units' rate, 16
+# results per SM per clock (the CUDA C++ Programming Guide's throughput
+# table, compute capability 9.0); and its warp instruction issue rate, one
+# per scheduler per clock: 132 SMs at the 1.98 GHz boost clock
+HBM_BYTES_PER_S = 3.35e12
+FP32_PER_S = 67e12
+MUFU_PER_S = 132 * 16 * 1.98e9
+WARP_ISSUE_PER_S = 132 * 4 * 1.98e9
+
+
+def _ops_ms(tally):
+    """Least ms of an operation count (:class:`opcount.Tally`): its float32
+    operations at the float32 rate or its special-function operations at
+    theirs, the larger."""
+    return max(tally.flops / FP32_PER_S, tally.mufu / MUFU_PER_S) * 1e3
+
+
+def _bound(nbytes, tally):
+    """(ms, "bytes" or "operations"): the larger of the bytes' time at the
+    HBM rate and the operations' time."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, _ops_ms(tally)
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def _run(cmd):
@@ -286,6 +329,59 @@ def _device_kernels(fn):
     return len(names) or None
 
 
+def _k5_build_report(K5):
+    """Phase 2 for K5: each kernel's registers, local memory and static
+    shared memory (CUDA runtime) and its spills and stack frame (the
+    compiler's report). Returns the runtime's numbers per order."""
+    from cloudmicrophysics_tpu_torch.kernels import _build
+
+    log = (K5.library_path().parent / "build.log").read_text()
+    report = _build.ptxas_report(log)
+    lib = K5._library()
+    attrs = {order: K5.kernel_attrs(lib, order) for order in K5.ORDERS}
+    names = {"K5a": "column_p3_solve_kernel",
+             "K5c": "column_p3_epilogue_kernelILb1ELb0E"}
+    rows = [("K5a", "all orders", names["K5a"], attrs[16]["K5a"])]
+    rows += [("K5b", f"GL-{o}", f"column_p3_nodes_kernelILi{o}E",
+              attrs[o]["K5b"]) for o in K5.ORDERS]
+    rows += [("K5c", "limited rain PSD, SB2006 fall speeds", names["K5c"],
+              attrs[16]["K5c"])]
+    for key, tag, part, a in rows:
+        ptx = next((v for f, v in report.items() if part in f), {})
+        print(f"  {key} ({tag}): {a['registers']} registers, "
+              f"{a['local_bytes']} B local memory per thread, "
+              f"{a['shared_bytes']} B static shared memory; ptxas: "
+              f"{ptx.get('spill_stores', '?')} B spill stores, "
+              f"{ptx.get('spill_loads', '?')} B spill loads, "
+              f"{ptx.get('stack', '?')} B stack frame")
+    for part in ("logLdivN", "gamma_inc_inv4"):
+        ptx = next((v for f, v in report.items()
+                    if part in f and "registers" not in v), None)
+        if ptx:
+            print(f"  {part} (called by K5a): {ptx['stack']} B stack frame, "
+                  f"{ptx['spill_stores']} B spill stores")
+    return attrs
+
+
+def _cell_ops(mod, kernel):
+    """Operations per cell of ``kernel`` in the library of kernel module
+    ``mod``: its ``cell_step`` (run once per cell) on its least path
+    (kernels/opcount.py), and every arm's instructions. Writes the SASS to
+    ``kernels/build/<source>.sass.gz``."""
+    import gzip
+
+    from cloudmicrophysics_tpu_torch.kernels import _build, opcount
+
+    src = (_build.CSRC_DIR / mod.SOURCE).read_text()
+    sites = {"cell_step": opcount.function_block(src, "cell_step")}
+    sass = opcount.disassemble(mod.library_path())
+    (_build.BUILD_DIR / f"{Path(mod.SOURCE).stem}.sass.gz").write_bytes(
+        gzip.compress(sass.encode()))
+    instrs = [i for i in opcount.parse_sass(sass) if kernel in i.function]
+    per, static, _, _ = opcount.region_tallies(instrs, sites, mod.SOURCE)
+    return per["cell_step"], static["cell_step"]
+
+
 def main():
     import torch
 
@@ -341,15 +437,22 @@ def main():
         lib()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(3) as pool:
-        builds = dict(zip(("column1m", "column2m", "column_p3"), pool.map(
-            timed_build, (K._library, K2M._library, K5._library))))
+    k5_builds = list(K5.BUILDS)
+    with ThreadPoolExecutor(2 + len(k5_builds)) as pool:
+        builds = dict(zip(
+            ["column1m.cu", "column2m.cu"]
+            + [f"column_p3.cu ({b}: {' '.join(K5.BUILDS[b])})"
+               for b in k5_builds],
+            pool.map(timed_build, [K._library, K2M._library] + [
+                (lambda b=b: K5._library(b)) for b in k5_builds])))
     for stem, seconds in builds.items():
-        print(f"{stem}.cu built and loaded in {seconds:.1f} s")
-        for log in _build.BUILD_DIR.glob(f"{stem}-*/build.log"):
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas: {line.strip()}")
+        print(f"{stem} built and loaded in {seconds:.1f} s")
+    for mod in (K, K2M):
+        log = mod.library_path().parent / "build.log"
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {mod.SOURCE} ptxas: {line.strip()}")
+    k5_attrs = _k5_build_report(K5)
 
     # ---- 3. kernel parity on the card --------------------------------------
     print(f"== kernel vs plain version (rtol {RTOL}, atol {ATOL})")
@@ -395,7 +498,7 @@ def main():
     print(f"== main path: Column1MStep on ({NCOL}, {NLEV}) float32, "
           f"{N_ROLLOUTS} x {N_STEPS} steps")
     state = _device_state(NCOL, NLEV, device)
-    model = Column1MStep(mp, tps, tv, DT, DZ).to(device)
+    model = Column1MStep(mp, tps, tv, DT, DZ, device=device)
     first, packed, launches = _drive(model, state, K.pack_state,
                                      K.unpack_state, fused, packed_fused,
                                      ("K1", "K2"))
@@ -451,12 +554,42 @@ def main():
     max_err.update(max_err2)
     timing.update(timing2)
 
-    launches5, max_err5, timing5 = _run_p3(
+    launches5, max_err5, timing5, k5 = _run_p3(
         device, K5, ColumnP3Step, microphysics_2m_params, tps,
-        nbytes / copy_ms / 1e6)
+        nbytes / copy_ms / 1e6, k5_attrs)
     launches.update(launches5)
     max_err.update(max_err5)
     timing.update(timing5)
+
+    # ---- bounds of K1-K4: bytes, and their operations per cell ----------
+    print("== K1-K4 bounds: 14 float32 fields per cell read or written, and "
+          "cell_step's operations on its least path (kernels/opcount.py)")
+    bounds = {}
+    limited, chen = K2M._variant(microphysics_2m_params())
+    cells = NCOL * NLEV
+    for ks, mod, kernel in (
+            (("K1", "K2"), K, "column1m_step_kernel"),
+            (("K3", "K4"), K2M,
+             f"column2m_step_kernelILb{limited}ELb{chen}E")):
+        per_cell, every_arm = _cell_ops(mod, kernel)
+        bound = _bound(14 * 4 * cells, per_cell.scale(cells))
+        for k in ks:
+            bounds[k] = bound
+            print(f"  {k}: per cell {per_cell.flops:g} float32 operations, "
+                  f"{per_cell.mufu:g} MUFU, {per_cell.issued:g} instructions "
+                  f"issued ({every_arm:g} with every arm); bound "
+                  f"{bound[0]:.6g} ms ({bound[1]}; bytes "
+                  f"{14 * 4 * cells / HBM_BYTES_PER_S * 1e3:.4g} ms, float32 "
+                  f"{per_cell.flops * cells / FP32_PER_S * 1e3:.4g} ms, MUFU "
+                  f"{per_cell.mufu * cells / MUFU_PER_S * 1e3:.4g} ms), kernel "
+                  f"{timing[k][0]:.6g} ms, {bound[0] / timing[k][0]:.4g} of "
+                  f"the bound; issue {per_cell.issued * cells / 32 / WARP_ISSUE_PER_S * 1e3:.4g}"
+                  f" ms at one warp instruction per scheduler per clock")
+    bounds["K5"] = (k5["bound_ms"], k5["bound_by"])
+    over = [k for k in bounds if bounds[k][0] > timing[k][0]]
+    if over:
+        raise AssertionError(f"{over}: bound above the measured time, so the "
+                             f"count is no lower bound")
 
     csrc = "cloudmicrophysics_tpu_torch/kernels/csrc/"
     entries = [
@@ -470,8 +603,11 @@ def main():
         {"name": f"{fn} ({k})", "route": "cuda", "source": f"{csrc}{src}.cu",
          "replaces": f"cloudmicrophysics_tpu/kernels/{tpu}",
          "launches": launches[k], "max_abs_err": max_err[k],
-         "ms": timing[k][0], "plain_ms": timing[k][1]}
+         "ms": timing[k][0], "plain_ms": timing[k][1],
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": None}
         for k, fn, src, tpu in entries]
+    kernels[-1]["subkernels"] = k5["subkernels"]
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -534,7 +670,7 @@ def _run_2m(device, K, Column2MStep, microphysics_2m_params, tps, copy_ms):
     print(f"== 2M path: Column2MStep on ({NCOL}, {NLEV}) float32, "
           f"{N_ROLLOUTS} x {N_STEPS} steps")
     state = _device_state_2m(NCOL, NLEV, device)
-    model = Column2MStep(mp, tps, DT, DZ).to(device)
+    model = Column2MStep(mp, tps, DT, DZ, device=device)
     first, packed, launches = _drive(model, state, K.pack_state_2m,
                                      K.unpack_state_2m, fused, packed_fused,
                                      ("K3", "K4"))
@@ -687,13 +823,12 @@ def _compare_p3(label, out, loglam, ref, ref_loglam):
     return worst
 
 
-def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs):
-    """Phases 10-12: the 2M + P3 kernel K5 against its plain version, the P3
-    path at full width, and the timings. Returns the launch counts of the
-    main path, the largest error and the (kernel, plain) times."""
-    import json
-    from pathlib import Path
-
+def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs,
+            attrs):
+    """Phases 10-12: the 2M + P3 step K5 (kernels K5a, K5b, K5c) against
+    its plain version, the P3 path at full width, the timings and the
+    operation count. Returns the launch counts of the main path, the
+    largest error, the (kernel, plain) times and K5's bound and kernels."""
     import torch
 
     fused = K.step_column_p3_fused
@@ -706,12 +841,34 @@ def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs):
     max_err = 0.0
     cases = [
         ("ladder (640, 16)", _p3_ladder_state(record["states"], 64, 16,
-                                              device), (128, 64)),
+                                              device), (128, 10)),
         ("mixed (4096, 64)", _p3_mixed_state(4096, 64, device, seed=3),
-         (128, 256)),
+         (128, 2)),
         ("ragged (1000, 40)", _p3_mixed_state(1000, 40, device, seed=5),
          (8, 40)),
     ]
+    # K5a alone first: the fixed-trip Brent stops elsewhere on a last-bit
+    # change of its residual
+    ladder = cases[0][1]
+    mp_solve = microphysics_2m_params(with_ice=True, quadrature_order=16)
+    ll_plain = K.loglambda_p3_plain(ladder, mp_solve)
+    away = torch.where(torch.isfinite(ll_plain), ll_plain + 0.25, ll_plain)
+    for start, guess in (("cold", None), ("warm, guess off the root", away),
+                         ("warm, guess at the root", ll_plain)):
+        got = K.loglambda_p3_fused(ladder, mp_solve, tps, guess)
+        want = (ll_plain if guess is None
+                else K.loglambda_p3_plain(ladder, mp_solve, guess))
+        fin = torch.isfinite(want)
+        rel = float(((got - want).abs()[fin] / want.abs()[fin]).max())
+        same = torch.equal(got, want)
+        print(f"  K5a log lambda, ladder (640, 16) {start}: "
+              + ("bit-identical to the plain solve" if same
+                 else f"max rel diff {rel:.3e} from the plain solve"))
+        if not same and not (torch.equal(torch.isinf(got), torch.isinf(want))
+                             and rel <= P3_LL_RTOL):
+            raise AssertionError(f"K5a log lambda ({start}) disagrees with "
+                                 f"the plain solve")
+    n_cases = n_bit = 0
     runs = [(order, {}) for order in K.ORDERS] + [
         (8, {"is_limited": False, "rain_velocity": "chen2022"})]
     for order, opts in runs:
@@ -733,11 +890,16 @@ def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs):
                     f"K5 {tag} {label} {start}", outs[0][0], outs[0][1],
                     ref_out[0], ref_out[1]))
                 (a, la), (b, lb) = outs
+                n_cases += 1
+                n_bit += torch.equal(la, ref_out[1]) and all(
+                    torch.equal(x, y) for x, y in zip(a, ref_out[0]))
                 if not (all(torch.equal(x, y) for x, y in zip(a, b))
                         and torch.equal(la, lb)):
                     raise AssertionError(f"K5 {tag} {label} {start}: "
                                          f"block_cols {tilings} differ")
         print(f"  K5 {tag}: every case's tilings agree bit for bit")
+    print(f"  K5 bit-identical to the plain step (log lambda and every "
+          f"field) in {n_bit} of {n_cases} comparisons")
     del cases, outs, ref, ref_out
 
     print("== K5 float32 against the JAX package's float64 step "
@@ -772,8 +934,8 @@ def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs):
           f"GL-16, 1 cold step + {P3_ROLLOUTS} x {P3_STEPS} warm-started "
           f"steps")
     state = _p3_bench_state(P3_NCOL, P3_NLEV, device)
-    model = ColumnP3Step(mp16, tps, DT, DZ).to(device)
-    first, first_ll, launches, ms = _drive_p3(model, state, fused, "GL-16")
+    model = ColumnP3Step(mp16, tps, DT, DZ, device=device)
+    first, first_ll, launches, ms = _drive_p3(model, state, K, "GL-16")
     ref, ref_ll = K.step_column_p3_plain(state, mp16, tps, DT, DZ,
                                          col_chunks=P3_CHUNKS)
     max_err = max(max_err, _compare_p3("K5 P3 path's full-size cold step "
@@ -781,8 +943,8 @@ def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs):
                                        ref_ll))
     del ref, ref_ll
     mp8 = microphysics_2m_params(with_ice=True, quadrature_order=8)
-    model8 = ColumnP3Step(mp8, tps, DT, DZ).to(device)
-    _drive_p3(model8, state, fused, "GL-8", rollouts=1)
+    model8 = ColumnP3Step(mp8, tps, DT, DZ, device=device)
+    _drive_p3(model8, state, K, "GL-8", rollouts=1)
 
     # ---- 12. kernel and plain version at full size -------------------------
     print(f"== K5 vs plain version at ({P3_NCOL}, {P3_NLEV}) GL-16, CUDA "
@@ -817,22 +979,223 @@ def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs):
     print("  device idle share over 10 K5 steps (torch.profiler): "
           + ("not measured, the profiler saw no device time" if idle is None
              else f"{idle:.6g}"))
-    return {"K5": launches}, {"K5": max_err}, timing
+    kern8 = _time_ms(lambda: model8(state, first_ll), reps=5)
+    print(f"  K5 GL-8: {min(kern8):.6g} ms/step (per call "
+          f"{[round(t, 6) for t in kern8]})")
+    del model8
+
+    # ---- K5's three kernels: times, operations, bound ---------------------
+    parts = _k5_parts(K, model, state, first_ll, device)
+    ops, every_arm, warp_issued = _k5_ops(K, model, state, first_ll, device)
+    total = ops["K5a"] + ops["K5b"] + ops["K5c"]
+    bound_ms, bound_by = _bound(nbytes, total)
+    cells = P3_NCOL * P3_NLEV
+    print(f"  K5 GL-16 per cell: {total.flops / cells:.6g} float32 "
+          f"operations, {total.mufu / cells:.6g} MUFU, "
+          f"{total.issued / cells:.6g} instructions issued "
+          f"({sum(every_arm.values()) / cells:.6g} with every arm); bound "
+          f"{bound_ms:.6g} ms ({bound_by}; bytes "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4g} ms, float32 "
+          f"{total.flops / FP32_PER_S * 1e3:.4g} ms, MUFU "
+          f"{total.mufu / MUFU_PER_S * 1e3:.4g} ms), K5 {min(kern):.6g} "
+          f"ms/step = {bound_ms / min(kern):.4g} of the bound")
+    subkernels = []
+    for key, fn in (("K5a", "column_p3_solve"), ("K5b", "column_p3_nodes"),
+                    ("K5c", "column_p3_epilogue")):
+        b = _ops_ms(ops[key])
+        issued = warp_issued[key] / WARP_ISSUE_PER_S * 1e3
+        a = attrs[16][key]
+        print(f"  {key}: {parts[key]:.6g} ms/step; per cell "
+              f"{ops[key].flops / cells:.6g} float32 operations, "
+              f"{ops[key].mufu / cells:.6g} MUFU, "
+              f"{ops[key].issued / cells:.6g} instructions issued "
+              f"({every_arm[key] / cells:.6g} with every arm); bound "
+              f"{b:.6g} ms, {b / parts[key]:.4g} of it; its "
+              f"{warp_issued[key]:.6g} warp instructions (divergence "
+              f"included) take {issued:.6g} ms to issue, {issued / parts[key]:.4g}"
+              f" of its time; {a['registers']} registers, {a['local_bytes']} B "
+              f"local" + (" (above 1: the count attributes too much)"
+                          if issued > parts[key] else ""))
+        subkernels.append({
+            "name": f"{fn}_kernel ({key})",
+            "launches": launches[key], "ms": parts[key],
+            "float32_ops": ops[key].flops, "mufu_ops": ops[key].mufu,
+            "instructions": ops[key].issued, "bound_ms": b,
+            "registers": a["registers"], "local_bytes": a["local_bytes"]})
+    print(f"  sum of the three kernels {sum(parts.values()):.6g} ms, whole "
+          f"step {min(kern):.6g} ms")
+    return ({"K5": launches["K5"]}, {"K5": max_err}, timing,
+            {"bound_ms": bound_ms, "bound_by": bound_by,
+             "subkernels": subkernels})
 
 
-def _drive_p3(model, state, fused, tag, rollouts=P3_ROLLOUTS):
+def _k5_parts(K, model, state, guess, device):
+    """ms of each of K5's kernels alone at GL-16 by CUDA events (best of
+    5), with ``nvidia-smi`` sampling the SM clock and power beside them."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models.column import _block_cols
+
+    mp = model.mp
+    ncol, nlev = state.rho.shape
+    plan = K.launch_plan(ncol, nlev, 16, _block_cols(ncol))
+    lib, params = K._library(), model.params
+    scratch = torch.empty(plan.scratch_shape, dtype=torch.float32,
+                          device=device)
+    loglam = torch.empty_like(state.rho)
+    out = type(state)(*(torch.empty_like(t) for t in state))
+    variant = K.K2M._variant(type(mp)(warm_rain=mp.warm_rain, ice=None))
+    calls = {
+        "K5a": lambda: K.launch_solve(lib, state, guess, loglam, scratch,
+                                      params, plan, device),
+        "K5b": lambda: K.launch_nodes(lib, state, scratch, params, 16, plan,
+                                      device),
+        "K5c": lambda: K.launch_epilogue(lib, state, out, scratch, params,
+                                         plan, DT, DZ, variant, device),
+    }
+    for fn in calls.values():
+        fn()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        times = {k: min(_time_ms(fn, reps=5)) for k, fn in calls.items()}
+    finally:
+        smi.terminate()
+        samples = smi.communicate(timeout=10)[0].split("\n")
+    rows = [r.split(",") for r in samples if r.count(",") == 1]
+    clocks = [float(r[0]) for r in rows if r[0].strip().isdigit()]
+    print(f"  K5 kernels alone at GL-16: "
+          + ", ".join(f"{k} {t:.6g} ms" for k, t in times.items())
+          + (f"; SM clock beside them {min(clocks):g}-{max(clocks):g} MHz "
+             f"({len(clocks)} samples of nvidia-smi)" if clocks
+             else "; SM clock not sampled"))
+    return times
+
+
+def _k5_ops(K, model, state, guess, device):
+    """Operations K5a, K5b and K5c run on ``state`` at GL-16: the probe
+    build's per-region executions times each region's operations on its
+    least path through the timed build's SASS (kernels/opcount.py). Returns
+    per kernel the :class:`opcount.Tally`, the instructions with every arm
+    counted, and the warp instructions issued; writes the SASS and the
+    probe's counts to ``kernels/build/``."""
+    import gzip
+
+    import torch
+
+    from cloudmicrophysics_tpu_torch.kernels import _build, opcount
+    from cloudmicrophysics_tpu_torch.models.column import _block_cols
+
+    src = (_build.CSRC_DIR / K.SOURCE).read_text()
+    names, sites = opcount.region_names(src), opcount.probe_sites(src)
+    if set(names) != set(sites):
+        raise AssertionError(f"regions without one K5_COUNT site: "
+                             f"{sorted(set(names) ^ set(sites))}")
+    plib = K._library("probe")
+    if plib.column_p3_probe_regions() != len(names):
+        raise AssertionError("probe build with another region list")
+    mp = model.mp
+    ncol, nlev = state.rho.shape
+    plan = K.launch_plan(ncol, nlev, 16, _block_cols(ncol))
+    params = model.params
+    scratch = torch.empty(plan.scratch_shape, dtype=torch.float32,
+                          device=device)
+    loglam = torch.empty_like(state.rho)
+    out = type(state)(*(torch.empty_like(t) for t in state))
+    variant = K.K2M._variant(type(mp)(warm_rain=mp.warm_rain, ice=None))
+    counts, warps = {}, {}
+
+    def probe(key, threads, fn):
+        # rows: each region's thread executions, then its warp executions
+        buf = torch.zeros((2 * len(names), threads), dtype=torch.int32,
+                          device=device)
+        err = plib.column_p3_probe_set(buf.data_ptr(), threads, device.index)
+        if err:
+            raise RuntimeError(f"column_p3_probe_set: CUDA error {err}")
+        fn()
+        sums = buf.sum(dim=1, dtype=torch.int64).tolist()
+        counts[key] = dict(zip(names, sums[:len(names)]))
+        warps[key] = dict(zip(names, sums[len(names):]))
+
+    probe("K5a", plan.solve_grid * K.SOLVE_THREADS,
+          lambda: K.launch_solve(plib, state, guess, loglam, scratch, params,
+                                 plan, device))
+    probe("K5b", plan.nodes_grid * K.NODE_THREADS,
+          lambda: K.launch_nodes(plib, state, scratch, params, 16, plan,
+                                 device))
+    probe("K5c", plan.epilogue_grid * plan.epilogue_block,
+          lambda: K.launch_epilogue(plib, state, out, scratch, params, plan,
+                                    DT, DZ, variant, device))
+    same = torch.equal(loglam, model(state, guess)[1])
+    sass = opcount.disassemble(K.library_path())
+    (_build.BUILD_DIR / "column_p3.sass.gz").write_bytes(
+        gzip.compress(sass.encode()))
+    (_build.BUILD_DIR / "column_p3_probe_counts.json").write_text(
+        json.dumps({"threads": counts, "warps": warps}))
+    limited, chen = variant
+    instrs = [i for i in opcount.parse_sass(sass)
+              if ("nodes_kernel" not in i.function or "ILi16E" in i.function)
+              and ("epilogue_kernel" not in i.function
+                   or f"ILb{limited}ELb{chen}E" in i.function)]
+    per, static, copies, lost = opcount.region_tallies(instrs, sites,
+                                                       K.SOURCE)
+    print(f"  K5 operation count, GL-16: {len(instrs)} SASS instructions of "
+          f"the timed build (the launched variants), {lost} of them in "
+          f"slow-path subroutines or outside every counted region; probe "
+          f"run's log lambda equal to the timed build's: {same}")
+    print("    region: instructions per copy on the least path (with every "
+          "arm) x copies, float32 operations and MUFU per copy, thread "
+          "executions (unroll), instructions run, SIMT efficiency (thread "
+          "executions / 32 x warp executions)")
+    ops, every_arm, warp_issued = {}, {}, {}
+    for key, c in counts.items():
+        dyn = opcount.dynamic_count(per, c, sites)
+        ops[key] = sum(dyn.values(), opcount.Tally())
+        every_arm[key] = sum(static[n] * c[n] / sites[n].unroll
+                             for n in names)
+        warp_issued[key] = sum(t.issued for t in opcount.dynamic_count(
+            per, warps[key], sites).values())
+        for n in names:
+            if c[n]:
+                print(f"    {key} {n}: {per[n].issued:.6g} ({static[n]:.6g}) "
+                      f"x {copies[n]}, {per[n].flops:.6g}, {per[n].mufu:.6g}, "
+                      f"{c[n]} ({sites[n].unroll}), {dyn[n].issued:.6g}, "
+                      f"{c[n] / (32 * warps[key][n]):.4g}")
+    # an odd number of one branch's incomplete gammas in a residual runs a
+    # duplicate chain in the pair loop: work that the data does not need
+    c = counts["K5a"]
+    dyn = opcount.dynamic_count(per, c, sites)
+    dup = opcount.Tally()
+    for arm in ("R_GI_SERIES2", "R_GI_CF2"):
+        if c[arm]:
+            pair = (dyn[arm] + dyn[arm + "_IT"]).scale(1.0 / c[arm])
+            dup = dup + pair.scale(c[arm + "_DUP"] / 2)
+    print(f"    K5a duplicate chains: {c['R_GI_SERIES2_DUP']} series, "
+          f"{c['R_GI_CF2_DUP']} continued fraction, {dup.flops:.6g} float32 "
+          f"operations and {dup.mufu:.6g} MUFU, not counted as K5a's work")
+    ops["K5a"] = ops["K5a"] + dup.scale(-1.0)
+    return ops, every_arm, warp_issued
+
+
+def _drive_p3(model, state, K, tag, rollouts=P3_ROLLOUTS):
     """A P3 path at full width: one cold step of ``model`` on ``state``,
     then ``rollouts`` timed rollouts of ``P3_STEPS`` steps, each starting
     from a rollout-distinct copy of ``state`` and the cold step's log
-    lambda, carrying log lambda as the next step's guess. The launch counter
-    is set to 0 just before and read just after; checks that it equals the
-    steps driven, that the results are finite and non-negative, and that
-    q_rim <= q_ice. Returns the cold step, its log lambda, the launch count
-    and the ms/step of each rollout."""
+    lambda, carrying log lambda as the next step's guess. The launch
+    counters (the step's and each of its three kernels') are set to 0 just
+    before and read just after; checks that each equals the steps driven,
+    that the results are finite and non-negative, and that q_rim <= q_ice.
+    Returns the cold step, its log lambda, the launch counts and the
+    ms/step of each rollout."""
     import torch
 
+    counted = {"K5": K.step_column_p3_fused, "K5a": K.launch_solve,
+               "K5b": K.launch_nodes, "K5c": K.launch_epilogue}
     torch.cuda.synchronize()
-    fused.launches = 0
+    for fn in counted.values():
+        fn.launches = 0
     first, first_ll = model(state)
     steps = 1
     times, checksums, ends = [], [], []
@@ -851,10 +1214,10 @@ def _drive_p3(model, state, fused, tag, rollouts=P3_ROLLOUTS):
         times.append(start.elapsed_time(end))
         checksums.append(float(s.q_ice.double().sum()))
         ends.append((s, ll))
-    launches = fused.launches
+    launches = {k: fn.launches for k, fn in counted.items()}
     torch.cuda.synchronize()
-    if launches != steps:
-        raise AssertionError(f"{tag}: launch count {launches} != steps "
+    if set(launches.values()) != {steps}:
+        raise AssertionError(f"{tag}: launch counts {launches} != steps "
                              f"driven ({steps})")
     for name, (x, ll) in zip(["cold step"] + [f"rollout {r} end" for r in
                                              range(rollouts)],
@@ -877,8 +1240,8 @@ def _drive_p3(model, state, fused, tag, rollouts=P3_ROLLOUTS):
     print(f"  {tag} grid-points/s: best {max(pts):.6g}, median "
           f"{float(np.median(pts)):.6g}")
     print(f"  {tag} checksum sum(q_ice) per rollout: {checksums}")
-    print(f"  {tag} launches in this path: {launches} (= {steps} steps: 1 "
-          f"cold + {rollouts} x {P3_STEPS})")
+    print(f"  {tag} launches in this path: {launches} (each = {steps} "
+          f"steps: 1 cold + {rollouts} x {P3_STEPS})")
     return first, first_ll, launches, ms
 
 

@@ -5,8 +5,8 @@ Each kernel source under ``csrc/`` is compiled with ``nvcc`` for Hopper
 ``ctypes``. Nothing is built when this module is imported: the build
 happens at the first launch, into ``build/`` beside this file (listed in
 ``.gitignore``), keyed by a hash of the source, the shared headers of
-``csrc/`` (``*.cuh``), the generated header and the flags, so an edited
-source is rebuilt and an unchanged one is reused.
+``csrc/`` (``*.cuh``), the generated header and the flags (a source may add
+its own), so an edited source is rebuilt and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -64,14 +65,17 @@ def index_header(names, guard: str) -> str:
     return "\n".join(lines)
 
 
-def build(source: str, header_name: str, header_text: str) -> Path:
-    """Compile ``csrc/<source>`` (with the generated header) and return
-    the path of the shared library; reuse it when it already exists."""
+def build(source: str, header_name: str, header_text: str,
+          flags: tuple = ()) -> Path:
+    """Compile ``csrc/<source>`` (with the generated header and the extra
+    nvcc ``flags``) and return the path of the shared library; reuse it
+    when it already exists."""
     src = CSRC_DIR / source
     shared = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    nvcc_flags = NVCC_FLAGS + tuple(flags)
     key = hashlib.sha256(
         src.read_bytes() + shared + header_text.encode()
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        + " ".join(nvcc_flags).encode()).hexdigest()[:16]
     out_dir = BUILD_DIR / f"{src.stem}-{key}"
     lib = out_dir / f"lib{src.stem}.so"
     if lib.is_file():
@@ -79,7 +83,7 @@ def build(source: str, header_name: str, header_text: str) -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / header_name).write_text(header_text)
     tmp = out_dir / f"lib{src.stem}.so.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(out_dir), "-o", str(tmp),
+    cmd = [nvcc_path(), *nvcc_flags, "-I", str(out_dir), "-o", str(tmp),
            str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     (out_dir / "build.log").write_text(
@@ -93,6 +97,36 @@ def build(source: str, header_name: str, header_text: str) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load(source: str, header_name: str, header_text: str) -> ctypes.CDLL:
+def load(source: str, header_name: str, header_text: str,
+         flags: tuple = ()) -> ctypes.CDLL:
     """Build if needed, then load the library (once per process)."""
-    return ctypes.CDLL(str(build(source, header_name, header_text)))
+    return ctypes.CDLL(str(build(source, header_name, header_text, flags)))
+
+
+def ptxas_report(log: str) -> dict:
+    """Function -> ``registers`` (kernels only), ``stack`` (bytes of stack
+    frame), ``spill_stores`` and ``spill_loads`` (bytes) from the
+    ``-Xptxas -v`` lines of a build log."""
+    report, entry, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props:
+            report.setdefault(props, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+            props = None
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            report.setdefault(entry, {})["registers"] = int(m.group(1))
+            entry = None
+    return report

@@ -248,9 +248,23 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
+SOURCE = "column2m.cu"
+# -lineinfo leaves the code as it is and maps each SASS instruction to its
+# source line, which kernels/opcount.py reads
+FLAGS = ("-lineinfo",)
+
+
+def _header() -> str:
+    return _build.index_header(PARAM_NAMES, "COLUMN2M_PARAMS_H")
+
+
+def library_path():
+    """The kernel library's file (built if needed)."""
+    return _build.build(SOURCE, "column2m_params.h", _header(), FLAGS)
+
+
 def _library() -> ctypes.CDLL:
-    header = _build.index_header(PARAM_NAMES, "COLUMN2M_PARAMS_H")
-    lib = _build.load("column2m.cu", "column2m_params.h", header)
+    lib = _build.load(SOURCE, "column2m_params.h", _header(), FLAGS)
     if not getattr(lib, "_signatures_set", False):
         tail = [_P, _I, _I, _I, _F, _F, _I, _I, _I, _F, _F, _I, _P]
         lib.column2m_step_unpacked.argtypes = [_P] * 14 + tail

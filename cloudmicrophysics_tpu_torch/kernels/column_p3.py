@@ -1,30 +1,43 @@
-"""Fused 2M warm rain + P3 ice column step as one hand-written CUDA kernel,
+"""2M warm rain + P3 ice column step as three hand-written CUDA kernels,
 beside its plain PyTorch version.
 
 Port of ``cloudmicrophysics_tpu/kernels/column_p3.py``. The CUDA source
 ``csrc/column_p3.cu`` (with the warm-rain device code of ``csrc/warm2m.cuh``,
-shared with the 2M kernel) computes, per ``(column, level)`` cell and in one
-pass over the eleven prognostic fields, everything
-:func:`..models.column.step_column_p3` computes: the P3 shape solve
-(warm-started from an optional ``loglambda_guess``), the ice node table and
-every contraction over it (liquid-ice collisions, blocked self-collection,
-melt, the weighted fall speeds), the nucleation, freezing,
-sublimation/deposition and number-adjustment rates, the SB2006 warm rates,
-rain and ice sedimentation, latent heating, the clamp and
-``q_rim <= q_ice``. It returns ``(new_state, loglambda)``.
+shared with the 2M kernel) computes everything
+:func:`..models.column.step_column_p3` computes, in three kernels launched
+one after the other on the current stream and joined by a float32 scratch
+record of :data:`SCRATCH_FIELDS` rows of ``ncol * nlev`` (:func:`launch_plan`
+gives their grids):
+
+* K5a (:func:`launch_solve`), a thread per cell: the P3 shape solve
+  (warm-started from an optional ``loglambda_guess``), the sanitized state,
+  the PSD and the integration bounds, the cloud window of the collisions
+  and the node pass's per-cell factors; :func:`loglambda_p3_fused` runs it
+  alone;
+* K5b (:func:`launch_nodes`), a warp per cell (half a warp at order 4), a
+  lane per ice quadrature node: every contraction over the ice nodes
+  (liquid-ice collisions, blocked self-collection, melt, the weighted fall
+  speeds), each node-axis sum added one node at a time in node order;
+* K5c (:func:`launch_epilogue`), a thread per cell in blocks of whole
+  columns: the nucleation, freezing, sublimation/deposition and
+  number-adjustment rates, the SB2006 warm rates, rain and ice
+  sedimentation, latent heating, the clamp and ``q_rim <= q_ice``.
+
+:func:`step_column_p3_fused` runs the three and returns ``(new_state,
+loglambda)``.
 
 A CPU tensor takes the plain version (:func:`step_column_p3_plain`, the eager
-step). A CUDA tensor launches the kernel, or raises ``NotImplementedError``
-for what the kernel does not cover: dtypes other than float32, more than 256
-levels, quadrature orders other than 4, 8 and 16 (compiled variants), a
-slope law other than ``SlopePowerLaw``, an aspect ratio other than
+step). A CUDA tensor launches the kernels, or raises ``NotImplementedError``
+for what they do not cover: dtypes other than float32, more than 256
+levels, quadrature orders other than 4, 8 and 16 (compiled variants of
+K5b), a slope law other than ``SlopePowerLaw``, an aspect ratio other than
 ``Oblate``, ice nucleation other than ``Frostenberg2023``, an unlimited ice
 rain PSD, and the 2M kernel's exclusions. Both ``is_limited`` values and
-both rain velocity types of the warm rain are run-time variants; any float
-override is data in the parameter buffer.
+both rain velocity types of the warm rain are compiled variants of K5c,
+picked at launch; any float override is data in the parameter buffer.
 
-The kernel reads the parameters from one float32 device buffer built on the
-host in float64 by :func:`kernel_params_p3`: the scalars, in the order of
+The kernels read the parameters from one float32 device buffer built on
+the host in float64 by :func:`kernel_params_p3`: the scalars, in the order of
 :data:`PARAM_NAMES` (which starts with the 2M kernel's list, so the shared
 warm-rain code reads the same indices), then the Gauss node/weight tables of
 the compiled order. The build writes the matching ``#define P_<name>``
@@ -35,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -56,15 +70,17 @@ from .column1m import _check_cuda, _check_tiling
 __all__ = [
     "ORDERS",
     "PARAM_NAMES",
+    "SCRATCH_FIELDS",
     "kernel_params_p3",
+    "launch_plan",
+    "loglambda_p3_fused",
+    "loglambda_p3_plain",
     "step_column_p3_fused",
     "step_column_p3_plain",
 ]
 
-_FIELDS = ColumnStateP3._fields
-
-# Threads per block of the kernel (kThreads in csrc/column_p3.cu): a block
-# steps whole columns, so nlev may not exceed it.
+# K5c's threads per block (kEpiThreads in csrc/column_p3.cu): a block steps
+# whole columns, so nlev may not exceed it.
 MAX_NLEV = 256
 
 # Quadrature orders with a compiled variant of the kernel.
@@ -267,38 +283,172 @@ def step_column_p3_plain(state: ColumnStateP3, mp, tps, dt, dz,
                           col_chunks=col_chunks, impl="eager")
 
 
+def loglambda_p3_plain(state: ColumnStateP3, mp, loglambda_guess=None):
+    """What :func:`loglambda_p3_fused` computes, in eager PyTorch: the P3
+    shape solve on the raw state, as :func:`step_column_p3` runs it."""
+    rho = state.rho
+    pstate = P3.state_from_prognostic(
+        mp.ice.scheme, state.q_ice * rho, state.n_ice * rho,
+        state.q_rim * rho, state.b_rim * rho)
+    with torch.no_grad():
+        return P3.get_distribution_loglambda(pstate, loglambda_guess)
+
+
 # ---------------------------------------------------------------------------
-# Kernel wrapper
+# Kernel wrappers
 # ---------------------------------------------------------------------------
+
+# Threads per block of K5a, K5b and at most K5c (kSolveThreads, kNodeThreads,
+# kEpiThreads in csrc/column_p3.cu).
+SOLVE_THREADS, NODE_THREADS, EPILOGUE_THREADS = 128, 128, 256
+
+# The scratch record between the kernels, one (ncol * nlev) row per field
+# (enum Scratch in csrc/column_p3.cu): K5a's sanitized state, PSD, bounds and
+# per-cell factors of the node pass, then K5b's node-pass sums.
+SCRATCH_FIELDS = (
+    "L", "N", "F", "rho_rim", "rho_g", "D_gr", "D_cr", "mu", "lam", "log_N0",
+    "b0", "b1", "b2", "b3", "b4", "c_lo", "c_hi",
+    "vc_as0", "vc_as1", "vc_bs", "vc_al0", "vc_al1",
+    "rain_ok", "r_lo", "r_hi", "r_n0", "r_dm", "cp_logN0", "cp_lam",
+    "cr_a0", "cr_a1", "cr_a2", "cr_b0", "cr_b1", "cr_b2",
+    "inv_2Tc", "frz_num", "frz_den",
+    "QCFRZ", "QCSHD", "NCCOL", "QRFRZ", "QRSHD", "NRCOL", "INT_M", "BCCOL",
+    "BRCOL", "INT_WET", "melt", "vn", "vm", "agg",
+)
+
+
+class LaunchPlan(NamedTuple):
+    """Grids and blocks of K5's three kernels for one step."""
+
+    scratch_shape: tuple      # (len(SCRATCH_FIELDS), ncol * nlev)
+    solve_grid: int           # K5a: a thread per cell, SOLVE_THREADS a block
+    nodes_grid: int           # K5b: lanes_per_cell lanes per cell
+    lanes_per_cell: int
+    cells_per_block: int      # K5b cells per NODE_THREADS block
+    epilogue_cols: int        # K5c: whole columns per block
+    epilogue_block: int       # K5c threads per block (epilogue_cols * nlev)
+    epilogue_grid: int
+
+
+def lanes_per_cell(order: int) -> int:
+    """K5b's lanes per cell: one per ice node (4 segments x ``order``
+    nodes), at most a warp."""
+    return min(32, 4 * order)
+
+
+def launch_plan(ncol: int, nlev: int, order: int,
+                block_cols: int) -> LaunchPlan:
+    """The launch plan of one K5 step on ``(ncol, nlev)`` fields at
+    quadrature ``order``. ``block_cols`` must divide ``ncol``; K5c's block
+    steps the largest divisor of ``block_cols`` whose columns fit in
+    EPILOGUE_THREADS threads (so that the blocks fill the card however
+    large ``block_cols`` is)."""
+    _check_tiling(ncol, block_cols)
+    if nlev > MAX_NLEV:
+        raise NotImplementedError(
+            f"the CUDA P3 column kernel supports nlev <= {MAX_NLEV}, "
+            f"not {nlev}")
+    if order not in ORDERS:
+        raise NotImplementedError(
+            f"the CUDA P3 column kernel supports quadrature orders {ORDERS}, "
+            f"not {order}")
+    ncells = ncol * nlev
+    lanes = lanes_per_cell(order)
+    per_block = NODE_THREADS // lanes
+    fit = EPILOGUE_THREADS // nlev
+    cols = max(d for d in range(1, min(block_cols, fit) + 1)
+               if block_cols % d == 0)
+    return LaunchPlan(
+        scratch_shape=(len(SCRATCH_FIELDS), ncells),
+        solve_grid=-(-ncells // SOLVE_THREADS),
+        nodes_grid=-(-ncells // per_block),
+        lanes_per_cell=lanes, cells_per_block=per_block,
+        epilogue_cols=cols, epilogue_block=cols * nlev,
+        epilogue_grid=ncol // cols)
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
+SOURCE = "column_p3.cu"
+# nvcc flags of each build of the source: the one the wrappers launch
+# (-lineinfo leaves the code as it is and maps each SASS instruction to its
+# source line, which kernels/opcount.py reads) and the operation-count
+# probe.
+BUILDS = {
+    "kernel": ("-lineinfo",),
+    "probe": ("-lineinfo", "-DK5_PROBE"),
+}
 
-def _library() -> ctypes.CDLL:
-    header = _build.index_header(PARAM_NAMES, "COLUMN_P3_PARAMS_H")
-    lib = _build.load("column_p3.cu", "column_p3_params.h", header)
+
+def _header() -> str:
+    return _build.index_header(PARAM_NAMES, "COLUMN_P3_PARAMS_H")
+
+
+def library_path(build: str = "kernel"):
+    """The file of one of the kernel library's :data:`BUILDS` (built if
+    needed)."""
+    return _build.build(SOURCE, "column_p3_params.h", _header(),
+                        BUILDS[build])
+
+
+def _library(build: str = "kernel") -> ctypes.CDLL:
+    """One of the kernel library's :data:`BUILDS`, loaded."""
+    lib = _build.load(SOURCE, "column_p3_params.h", _header(), BUILDS[build])
     if not getattr(lib, "_signatures_set", False):
-        lib.column_p3_step.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _F, _F, _I, _I, _I, _P]
-        lib.column_p3_step.restype = _I
-        lib.column_p3_num_params.restype = _I
-        lib.column_p3_threads_per_block.restype = _I
-        lib.column_p3_table_len.argtypes = [_I]
-        lib.column_p3_table_len.restype = _I
+        lib.column_p3_solve.argtypes = [_P, _P, _P, _P, _P, _L, _I, _I, _P]
+        lib.column_p3_nodes.argtypes = [_P, _P, _P, _I, _L, _I, _I, _P]
+        lib.column_p3_epilogue.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
+                                           _F, _F, _I, _I, _I, _P]
+        for fn in (lib.column_p3_solve, lib.column_p3_nodes,
+                   lib.column_p3_epilogue, lib.column_p3_num_params,
+                   lib.column_p3_scratch_fields):
+            fn.restype = _I
+        for fn in (lib.column_p3_threads, lib.column_p3_lanes_per_cell,
+                   lib.column_p3_table_len):
+            fn.argtypes, fn.restype = [_I], _I
+        lib.column_p3_kernel_attrs.argtypes = [_I, _I, _P]
+        lib.column_p3_kernel_attrs.restype = _I
+        if build == "probe":
+            lib.column_p3_probe_set.argtypes = [_P, _L, _I]
+            lib.column_p3_probe_set.restype = _I
+            lib.column_p3_probe_regions.restype = _I
         if lib.column_p3_num_params() != len(PARAM_NAMES):
             raise RuntimeError("column_p3 library built from another "
                                "parameter list")
-        if lib.column_p3_threads_per_block() != MAX_NLEV:
-            raise RuntimeError("column_p3 library built with another block "
-                               "size")
+        if lib.column_p3_scratch_fields() != len(SCRATCH_FIELDS):
+            raise RuntimeError("column_p3 library built with another "
+                               "scratch record")
+        threads = (SOLVE_THREADS, NODE_THREADS, EPILOGUE_THREADS)
+        if tuple(lib.column_p3_threads(k) for k in range(3)) != threads:
+            raise RuntimeError("column_p3 library built with other block "
+                               "sizes")
         for order in ORDERS:
-            if lib.column_p3_table_len(order) != _table_len(order):
+            if (lib.column_p3_table_len(order) != _table_len(order)
+                    or lib.column_p3_lanes_per_cell(order)
+                    != lanes_per_cell(order)):
                 raise RuntimeError("column_p3 library built with other "
                                    "quadrature tables")
         lib._signatures_set = True
     return lib
+
+
+def kernel_attrs(lib: ctypes.CDLL, order: int) -> dict:
+    """Registers, local memory bytes per thread, static shared memory
+    bytes and the largest block of K5a, K5b (at ``order``) and K5c, as the
+    CUDA runtime reports them."""
+    out = {}
+    for k, name in enumerate(("K5a", "K5b", "K5c")):
+        vals = (ctypes.c_int * 4)()
+        err = lib.column_p3_kernel_attrs(k, order, vals)
+        if err:
+            raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error "
+                               f"{err}")
+        out[name] = dict(zip(("registers", "local_bytes", "shared_bytes",
+                              "max_threads"), vals))
+    return out
 
 
 def _table_len(order: int) -> int:
@@ -348,18 +498,53 @@ def _device_params(params, mp, tps, device) -> torch.Tensor:
     return params
 
 
-def step_column_p3_fused(state: ColumnStateP3, mp, tps, dt, dz,
-                         loglambda_guess=None, block_cols: int = 128,
-                         params=None):
-    """One fused 2M + P3 column step on eleven ``(ncol, nlev)`` fields;
-    returns ``(new_state, loglambda)`` like :func:`step_column_p3`.
+def _ptrs(tensors) -> ctypes.c_void_p:
+    arr = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    return ctypes.cast(arr, ctypes.c_void_p)
 
-    ``loglambda_guess``: an optional ``(ncol, nlev)`` warm start for the
-    shape solve (the previous step's ``loglambda``). ``ncol`` must be a
-    multiple of ``block_cols`` (the columns one thread block steps).
-    ``params``: the buffer of :func:`kernel_params_p3`, built here when not
-    given. CPU tensors take :func:`step_column_p3_plain`.
-    """
+
+def _raise_on(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def launch_solve(lib, state, guess, loglam, scratch, params, plan, device):
+    """K5a on the current stream: ``loglam`` and the first rows of
+    ``scratch`` from ``state`` (and the warm-start ``guess`` or None)."""
+    _raise_on(lib.column_p3_solve(
+        _ptrs(state), None if guess is None else guess.data_ptr(),
+        loglam.data_ptr(), scratch.data_ptr(), params.data_ptr(),
+        state.rho.numel(), plan.solve_grid, device.index,
+        torch.cuda.current_stream(device).cuda_stream), "column_p3_solve")
+    launch_solve.launches += 1
+
+
+def launch_nodes(lib, state, scratch, params, order, plan, device):
+    """K5b on the current stream: the node-pass sums of ``scratch``."""
+    _raise_on(lib.column_p3_nodes(
+        _ptrs(state), scratch.data_ptr(), params.data_ptr(), order,
+        state.rho.numel(), plan.nodes_grid, device.index,
+        torch.cuda.current_stream(device).cuda_stream), "column_p3_nodes")
+    launch_nodes.launches += 1
+
+
+def launch_epilogue(lib, state, out, scratch, params, plan, dt, dz, variant,
+                    device):
+    """K5c on the current stream: the eleven fields of ``out``."""
+    ncol, nlev = state.rho.shape
+    limited, chen = variant
+    _raise_on(lib.column_p3_epilogue(
+        _ptrs(state), _ptrs(out), scratch.data_ptr(), params.data_ptr(),
+        ncol, nlev, plan.epilogue_cols, plan.epilogue_grid, float(dt),
+        float(dz), limited, chen, device.index,
+        torch.cuda.current_stream(device).cuda_stream), "column_p3_epilogue")
+    launch_epilogue.launches += 1
+
+
+launch_solve.launches = launch_nodes.launches = launch_epilogue.launches = 0
+
+
+def _check_fields(state, loglambda_guess, block_cols, where):
     ncol, nlev = state.rho.shape
     _check_tiling(ncol, block_cols)
     tensors = list(state) + ([] if loglambda_guess is None
@@ -369,25 +554,65 @@ def step_column_p3_fused(state: ColumnStateP3, mp, tps, dt, dz,
             raise ValueError(f"every field must be {(ncol, nlev)}, "
                              f"got {tuple(t.shape)}")
     if state.rho.device.type == "cpu":
-        return step_column_p3_plain(state, mp, tps, dt, dz, loglambda_guess)
-    device = _check_cuda(tensors, "step_column_p3_fused")
+        return None
+    return _check_cuda(tensors, where)
+
+
+def loglambda_p3_fused(state: ColumnStateP3, mp, tps, loglambda_guess=None,
+                       params=None):
+    """K5a alone: the P3 shape solve's ``(ncol, nlev)`` log lambda, warm-
+    started from ``loglambda_guess`` when given. CPU tensors take
+    :func:`loglambda_p3_plain`."""
+    device = _check_fields(state, loglambda_guess, 1, "loglambda_p3_fused")
+    if device is None:
+        return loglambda_p3_plain(state, mp, loglambda_guess)
+    ncol, nlev = state.rho.shape
     _check_supported(mp, nlev, state.rho.dtype)
+    plan = launch_plan(ncol, nlev, mp.ice.quadrature_order, 1)
+    params = _device_params(params, mp, tps, device)
+    loglam = torch.empty_like(state.rho)
+    scratch = torch.empty(plan.scratch_shape, dtype=torch.float32,
+                          device=device)
+    launch_solve(_library(), state, loglambda_guess, loglam, scratch, params,
+                 plan, device)
+    return loglam
+
+
+def step_column_p3_fused(state: ColumnStateP3, mp, tps, dt, dz,
+                         loglambda_guess=None, block_cols: int = 128,
+                         params=None):
+    """One 2M + P3 column step on eleven ``(ncol, nlev)`` fields; returns
+    ``(new_state, loglambda)`` like :func:`step_column_p3`.
+
+    On CUDA tensors it launches K5a (shape solve and bounds), K5b (ice node
+    pass) and K5c (rates, sedimentation, update) on the current stream,
+    joined by a ``(len(SCRATCH_FIELDS), ncol * nlev)`` float32 scratch
+    record it allocates (see :func:`launch_plan`). ``loglambda_guess``: an
+    optional ``(ncol, nlev)`` warm start for the shape solve (the previous
+    step's ``loglambda``). ``ncol`` must be a multiple of ``block_cols``.
+    ``params``: the buffer of :func:`kernel_params_p3`, built here when not
+    given. CPU tensors take :func:`step_column_p3_plain`.
+    """
+    device = _check_fields(state, loglambda_guess, block_cols,
+                           "step_column_p3_fused")
+    if device is None:
+        return step_column_p3_plain(state, mp, tps, dt, dz, loglambda_guess)
+    ncol, nlev = state.rho.shape
+    _check_supported(mp, nlev, state.rho.dtype)
+    order = mp.ice.quadrature_order
+    plan = launch_plan(ncol, nlev, order, block_cols)
     params = _device_params(params, mp, tps, device)
     lib = _library()
     out = ColumnStateP3(*(torch.empty_like(t) for t in state))
     loglam = torch.empty_like(state.rho)
-    ins = (ctypes.c_void_p * len(_FIELDS))(*(t.data_ptr() for t in state))
-    outs = (ctypes.c_void_p * len(_FIELDS))(*(t.data_ptr() for t in out))
-    guess = None if loglambda_guess is None else loglambda_guess.data_ptr()
-    limited, chen = K2M._variant(type(mp)(warm_rain=mp.warm_rain, ice=None))
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.column_p3_step(
-        ctypes.cast(ins, ctypes.c_void_p), ctypes.cast(outs, ctypes.c_void_p),
-        guess, loglam.data_ptr(), params.data_ptr(),
-        mp.ice.quadrature_order, ncol, nlev, block_cols, float(dt),
-        float(dz), limited, chen, device.index, stream)
-    if err:
-        raise RuntimeError(f"column_p3_step launch failed: CUDA error {err}")
+    scratch = torch.empty(plan.scratch_shape, dtype=torch.float32,
+                          device=device)
+    variant = K2M._variant(type(mp)(warm_rain=mp.warm_rain, ice=None))
+    launch_solve(lib, state, loglambda_guess, loglam, scratch, params, plan,
+                 device)
+    launch_nodes(lib, state, scratch, params, order, plan, device)
+    launch_epilogue(lib, state, out, scratch, params, plan, dt, dz, variant,
+                    device)
     step_column_p3_fused.launches += 1
     return out, loglam
 

@@ -167,9 +167,10 @@ class Column1MStep(nn.Module):
     """One fused 1M column step (instantaneous tendencies, explicit Euler).
 
     Holds the parameters, ``dt``, ``dz`` and the kernel's float32 parameter
-    buffer (built once, on the host in float64; it follows the module
-    through ``.to(device)``). ``forward(state, q_tot_affine=None)`` advances
-    either a packed ``(7, ncol, nlev)`` tensor (see
+    buffer (computed on the host in float64, stored on ``device``: the GPU
+    unless ``device="cpu"`` is asked for; it follows the module through
+    ``.to(device)``). ``forward(state, q_tot_affine=None)`` advances either
+    a packed ``(7, ncol, nlev)`` tensor (see
     :func:`..kernels.column1m.pack_state`) or a :class:`ColumnState` by one
     step and returns the same kind. On CUDA tensors it launches the fused
     kernel; on CPU tensors it runs the plain version. A thread block steps
@@ -177,13 +178,15 @@ class Column1MStep(nn.Module):
     """
 
     def __init__(self, mp: Microphysics1MParams, tps: ThermodynamicsParameters,
-                 tv: TerminalVelocityParams, dt: float, dz: float):
+                 tv: TerminalVelocityParams, dt: float, dz: float,
+                 device: torch.device | str = "cuda"):
         super().__init__()
         from ..kernels.column1m import kernel_params
 
         self.mp, self.tps, self.tv = mp, tps, tv
         self.dt, self.dz = float(dt), float(dz)
-        self.register_buffer("params", kernel_params(mp, tps, tv),
+        self.register_buffer("params", kernel_params(mp, tps, tv,
+                                                     device=device),
                              persistent=False)
 
     def forward(self, state, q_tot_affine=None):
@@ -294,9 +297,10 @@ class Column2MStep(nn.Module):
     """One fused 2M warm-rain column step (SB2006, explicit Euler).
 
     Holds the parameters, ``dt``, ``dz`` and the kernel's float32 parameter
-    buffer (built once, on the host in float64; it follows the module
-    through ``.to(device)``). ``forward(state, q_tot_affine=None)`` advances
-    either a packed ``(7, ncol, nlev)`` tensor (see
+    buffer (computed on the host in float64, stored on ``device``: the GPU
+    unless ``device="cpu"`` is asked for; it follows the module through
+    ``.to(device)``). ``forward(state, q_tot_affine=None)`` advances either
+    a packed ``(7, ncol, nlev)`` tensor (see
     :func:`..kernels.column2m.pack_state_2m`) or a :class:`ColumnState2M` by
     one step and returns the same kind; ``q_tot_affine`` applies to the
     packed state only, as in the JAX package. On CUDA tensors it launches
@@ -306,13 +310,14 @@ class Column2MStep(nn.Module):
     """
 
     def __init__(self, mp, tps: ThermodynamicsParameters, dt: float,
-                 dz: float):
+                 dz: float, device: torch.device | str = "cuda"):
         super().__init__()
         from ..kernels.column2m import kernel_params_2m
 
         self.mp, self.tps = mp, tps
         self.dt, self.dz = float(dt), float(dz)
-        self.register_buffer("params", kernel_params_2m(mp, tps),
+        self.register_buffer("params", kernel_params_2m(mp, tps,
+                                                        device=device),
                              persistent=False)
 
     def forward(self, state, q_tot_affine=None):
@@ -372,9 +377,9 @@ def step_column_p3(state: ColumnStateP3, mp, tps: ThermodynamicsParameters,
     ``impl`` selects the form (identical math): ``"eager"`` (default),
     eager PyTorch on any device, the JAX package's XLA path; ``"fused"``,
     the fused kernel (:func:`..kernels.column_p3.step_column_p3_fused`),
-    the JAX package's Pallas kernel: one CUDA launch per step on CUDA
-    tensors, the plain version on CPU tensors (a thread block steps the
-    columns :class:`ColumnP3Step` gives it).
+    the JAX package's Pallas kernel: three CUDA launches per step on CUDA
+    tensors, the plain version on CPU tensors (with the ``block_cols``
+    :class:`ColumnP3Step` gives it).
     """
     ncol = state.rho.shape[0]
     if col_chunks and ncol % col_chunks:
@@ -479,23 +484,26 @@ class ColumnP3Step(nn.Module):
     """One fused 2M warm-rain + P3 ice column step (explicit Euler).
 
     Holds the parameters, ``dt``, ``dz`` and the kernel's float32 parameter
-    buffer (built once, on the host in float64; it follows the module
-    through ``.to(device)``). ``forward(state, loglambda_guess=None)``
-    advances a :class:`ColumnStateP3` by one step and returns ``(state,
-    loglambda)``; pass the returned ``loglambda`` as the next step's guess
-    to warm-start the shape solve. On CUDA tensors it launches the fused
-    kernel; on CPU tensors it runs the plain version. A thread block steps
-    the largest power of two of columns, up to 128, that divides ``ncol``.
+    buffer (computed on the host in float64, stored on ``device``: the GPU
+    unless ``device="cpu"`` is asked for; it follows the module through
+    ``.to(device)``). ``forward(state, loglambda_guess=None)`` advances a
+    :class:`ColumnStateP3` by one step and returns ``(state, loglambda)``;
+    pass the returned ``loglambda`` as the next step's guess to warm-start
+    the shape solve. On CUDA tensors it launches the step's three kernels
+    (:func:`..kernels.column_p3.step_column_p3_fused`); on CPU tensors it
+    runs the plain version. ``block_cols`` is the largest power of two of
+    columns, up to 128, that divides ``ncol``.
     """
 
     def __init__(self, mp, tps: ThermodynamicsParameters, dt: float,
-                 dz: float):
+                 dz: float, device: torch.device | str = "cuda"):
         super().__init__()
         from ..kernels.column_p3 import kernel_params_p3
 
         self.mp, self.tps = mp, tps
         self.dt, self.dz = float(dt), float(dz)
-        self.register_buffer("params", kernel_params_p3(mp, tps),
+        self.register_buffer("params", kernel_params_p3(mp, tps,
+                                                        device=device),
                              persistent=False)
 
     def forward(self, state: ColumnStateP3, loglambda_guess=None):

@@ -119,10 +119,11 @@ def _fill(obj, tree: Mapping[str, Any]):
 
 
 def column_state_from_numpy(arrays: Mapping[str, np.ndarray],
-                            device: torch.device | str = "cpu",
+                            device: torch.device | str = "cuda",
                             dtype: torch.dtype | None = None):
-    """A :class:`models.column.ColumnState` of tensors on ``device`` from a
-    dict of numpy arrays keyed by field name (dtype kept unless given)."""
+    """A :class:`models.column.ColumnState` of tensors on ``device`` (the
+    GPU unless ``device="cpu"`` is asked for) from a dict of numpy arrays
+    keyed by field name (dtype kept unless given)."""
     from ..models.column import ColumnState
 
     return ColumnState(*(
@@ -131,10 +132,11 @@ def column_state_from_numpy(arrays: Mapping[str, np.ndarray],
 
 
 def column_state_2m_from_numpy(arrays: Mapping[str, np.ndarray],
-                               device: torch.device | str = "cpu",
+                               device: torch.device | str = "cuda",
                                dtype: torch.dtype | None = None):
-    """A :class:`models.column.ColumnState2M` of tensors on ``device`` from a
-    dict of numpy arrays keyed by field name (dtype kept unless given)."""
+    """A :class:`models.column.ColumnState2M` of tensors on ``device`` (the
+    GPU unless ``device="cpu"`` is asked for) from a dict of numpy arrays
+    keyed by field name (dtype kept unless given)."""
     from ..models.column import ColumnState2M
 
     return ColumnState2M(*(
@@ -143,10 +145,11 @@ def column_state_2m_from_numpy(arrays: Mapping[str, np.ndarray],
 
 
 def column_state_p3_from_numpy(arrays: Mapping[str, np.ndarray],
-                               device: torch.device | str = "cpu",
+                               device: torch.device | str = "cuda",
                                dtype: torch.dtype | None = None):
-    """A :class:`models.column.ColumnStateP3` of tensors on ``device`` from a
-    dict of numpy arrays keyed by field name (dtype kept unless given)."""
+    """A :class:`models.column.ColumnStateP3` of tensors on ``device`` (the
+    GPU unless ``device="cpu"`` is asked for) from a dict of numpy arrays
+    keyed by field name (dtype kept unless given)."""
     from ..models.column import ColumnStateP3
 
     return ColumnStateP3(*(

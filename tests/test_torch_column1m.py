@@ -57,7 +57,7 @@ def _jax_state(a, dtype):
 
 
 def _torch_state(a, dtype):
-    return TP.column_state_from_numpy(a, dtype=dtype)
+    return TP.column_state_from_numpy(a, device="cpu", dtype=dtype)
 
 
 def _assert_f64(out, ref, what):
@@ -254,7 +254,7 @@ def test_column1m_step_five_steps_matches_jax(packed):
     js = _jax_state(a, jnp.float64)
     for _ in range(5):
         js = JC.step_column_1m(js, MP_J, TPS_J, TV_J, DT, DZ)
-    model = TC.Column1MStep(MP_T, TPS_T, TV_T, DT, DZ)
+    model = TC.Column1MStep(MP_T, TPS_T, TV_T, DT, DZ, device="cpu")
     st = _torch_state(a, torch.float64)
     x = TK.pack_state(st) if packed else st
     for _ in range(5):

@@ -66,7 +66,7 @@ def _jax_state(a, dtype):
 
 
 def _torch_state(a, dtype):
-    return TP.column_state_2m_from_numpy(a, dtype=dtype)
+    return TP.column_state_2m_from_numpy(a, device="cpu", dtype=dtype)
 
 
 def _assert_f64(out, ref, what):
@@ -190,7 +190,7 @@ def test_cpu_path_does_not_count_launches():
     TK.step_column_2m_fused(st, MP_T, TPS_T, DT, DZ, block_cols=8)
     TK.step_column_2m_fused_packed(TK.pack_state_2m(st), MP_T, TPS_T, DT, DZ,
                                    block_cols=8)
-    TC.Column2MStep(MP_T, TPS_T, DT, DZ)(st)
+    TC.Column2MStep(MP_T, TPS_T, DT, DZ, device="cpu")(st)
     assert (TK.step_column_2m_fused.launches,
             TK.step_column_2m_fused_packed.launches) == before
 
@@ -268,7 +268,7 @@ def test_column2m_step_five_steps_matches_jax(packed):
     js = _jax_state(a, jnp.float64)
     for _ in range(5):
         js = JC.step_column_2m(js, MP_J, TPS_J, DT, DZ)
-    model = TC.Column2MStep(MP_T, TPS_T, DT, DZ)
+    model = TC.Column2MStep(MP_T, TPS_T, DT, DZ, device="cpu")
     assert model.params.shape == (len(TK.PARAM_NAMES),)
     st = _torch_state(a, torch.float64)
     x = TK.pack_state_2m(st) if packed else st
@@ -282,7 +282,7 @@ def test_column2m_step_five_steps_matches_jax(packed):
 
 def test_column2m_step_affine_needs_the_packed_state():
     st = _torch_state(_arrays(16, 8), torch.float32)
-    model = TC.Column2MStep(MP_T, TPS_T, DT, DZ)
+    model = TC.Column2MStep(MP_T, TPS_T, DT, DZ, device="cpu")
     with pytest.raises(ValueError, match="packed"):
         model(st, q_tot_affine=(1.0, 1e-9))
     out = model(TK.pack_state_2m(st), q_tot_affine=(1.01, 2e-9))

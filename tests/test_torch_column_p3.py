@@ -65,7 +65,7 @@ def _jax_state(a):
 
 
 def _torch_state(a, dtype=torch.float64):
-    return TP.column_state_p3_from_numpy(a, dtype=dtype)
+    return TP.column_state_p3_from_numpy(a, device="cpu", dtype=dtype)
 
 
 def _assert_close(out, ref, what):
@@ -151,7 +151,7 @@ def test_step_column_p3_impls():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_column_p3_step_module_equals_step(dtype):
     st = _torch_state(_arrays(), dtype)
-    model = TC.ColumnP3Step(MP_T, TPS_T, DT, DZ)
+    model = TC.ColumnP3Step(MP_T, TPS_T, DT, DZ, device="cpu")
     assert model.params.dtype == torch.float32
     before = TK.step_column_p3_fused.launches
     out, ll = model(st)
@@ -259,3 +259,83 @@ def test_cuda_source_reads_exactly_the_parameter_list():
         assert TK.PARAM_NAMES[ref:ref + len(mirror)] == mirror
     local = set(re.findall(r'#include "([^"]+)"', src))
     assert local == {"column_p3_params.h", "warm2m.cuh"}
+
+
+# ---------------------------------------------------------------------------
+# the launch plan of K5's three kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("order", TK.ORDERS)
+@pytest.mark.parametrize("ncol,nlev,block_cols", [
+    (16384, 128, 128), (640, 16, 64), (4096, 64, 256), (1000, 40, 8),
+    (1000, 40, 40), (96, 256, 32), (7, 5, 7), (3, 1, 3)])
+def test_launch_plan_covers_every_cell(ncol, nlev, order, block_cols):
+    plan = TK.launch_plan(ncol, nlev, order, block_cols)
+    ncells = ncol * nlev
+    assert plan.scratch_shape == (len(TK.SCRATCH_FIELDS), ncells)
+    # K5a: a thread per cell
+    assert (plan.solve_grid - 1) * TK.SOLVE_THREADS < ncells \
+        <= plan.solve_grid * TK.SOLVE_THREADS
+    # K5b: a lane per ice node (4 segments x order), at most a warp a cell
+    assert plan.lanes_per_cell == min(32, 4 * order)
+    assert 32 % plan.lanes_per_cell == 0
+    assert plan.cells_per_block * plan.lanes_per_cell == TK.NODE_THREADS
+    assert (plan.nodes_grid - 1) * plan.cells_per_block < ncells \
+        <= plan.nodes_grid * plan.cells_per_block
+    # K5c: blocks of whole columns tiling block_cols, within a block's
+    # threads, and as many columns as fit
+    cols = plan.epilogue_cols
+    assert block_cols % cols == 0 and plan.epilogue_grid * cols == ncol
+    assert plan.epilogue_block == cols * nlev <= TK.EPILOGUE_THREADS
+    fit = TK.EPILOGUE_THREADS // nlev
+    assert all(block_cols % d for d in range(cols + 1, min(block_cols, fit)
+                                             + 1))
+
+
+def test_launch_plan_fills_the_card_at_the_p3_size():
+    # 132 SMs: K5c no longer runs 128 blocks of 128 columns
+    plan = TK.launch_plan(16384, 128, 16, 128)
+    assert plan.epilogue_grid == 8192 and plan.epilogue_block == 256
+    assert plan.nodes_grid == 16384 * 128 // 4
+    assert plan.solve_grid == 16384
+
+
+@pytest.mark.parametrize("ncol,nlev,order,block_cols,error,match", [
+    (100, 16, 16, 48, ValueError, "not a multiple"),
+    (100, 16, 16, 0, ValueError, "block_cols"),
+    (8, TK.MAX_NLEV + 1, 16, 8, NotImplementedError, "nlev"),
+    (8, 16, 32, 8, NotImplementedError, "quadrature orders"),
+    (8, 16, 6, 8, NotImplementedError, "quadrature orders"),
+])
+def test_launch_plan_rejects(ncol, nlev, order, block_cols, error, match):
+    with pytest.raises(error, match=match):
+        TK.launch_plan(ncol, nlev, order, block_cols)
+
+
+def test_scratch_record_matches_the_source():
+    src = (_build.CSRC_DIR / "column_p3.cu").read_text()
+    body = re.search(r"enum Scratch \{(.*?)kScratch", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    names = [n.strip() for n in body.split(",") if n.strip()]
+    assert len(names) == len(TK.SCRATCH_FIELDS)
+    for name, field in zip(names, TK.SCRATCH_FIELDS):
+        assert name.removeprefix("S_").lower() == field.lower(), (name, field)
+    for const, value in (("kSolveThreads", TK.SOLVE_THREADS),
+                         ("kNodeThreads", TK.NODE_THREADS),
+                         ("kEpiThreads", TK.EPILOGUE_THREADS)):
+        assert re.search(rf"\b{const} = {value}\b", src), const
+
+
+@pytest.mark.parametrize("order", TK.ORDERS)
+def test_loglambda_wrapper_takes_the_plain_solve_on_cpu(order):
+    mp = _p3(quadrature_order=order)
+    st = _torch_state(_arrays(), torch.float32)
+    before = TK.launch_solve.launches
+    ll = TK.loglambda_p3_fused(st, mp, TPS_T)
+    assert torch.equal(ll, TK.loglambda_p3_plain(st, mp))
+    _, ll_step = TC.step_column_p3(st, mp, TPS_T, DT, DZ)
+    assert torch.equal(ll, ll_step)
+    guess = torch.where(torch.isfinite(ll), ll + 0.3, ll)
+    assert torch.equal(TK.loglambda_p3_fused(st, mp, TPS_T, guess),
+                       TK.loglambda_p3_plain(st, mp, guess))
+    assert TK.launch_solve.launches == before

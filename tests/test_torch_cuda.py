@@ -11,8 +11,12 @@ Tolerance: rtol 2e-5, atol 2e-9, the contract tests/test_kernels.py holds
 the Pallas kernels to (for the P3 kernel: log lambda rtol 2e-5, fields
 rtol 3e-5 / atol 1e-10, tests/test_kernels.py:192-198); tilings must agree
 bit for bit (each cell is computed by the same code whatever block steps
-it).
+it), and so must K5a's log lambda and the plain shape solve (the
+fixed-trip Brent stops at another iterate on a last-bit change).
 """
+
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -212,10 +216,13 @@ def test_p3_kernel_matches_plain(device, order, ncol, nlev, tilings):
     mp = microphysics_2m_params(with_ice=True, quadrature_order=order)
     st = _state_p3(ncol, nlev, device)
     ref = K5.step_column_p3_plain(st, mp, TPS, DT, DZ)
-    before = K5.step_column_p3_fused.launches
+    counted = (K5.step_column_p3_fused, K5.launch_solve, K5.launch_nodes,
+               K5.launch_epilogue)
+    before = [fn.launches for fn in counted]
     outs = [K5.step_column_p3_fused(st, mp, TPS, DT, DZ, block_cols=bc)
             for bc in tilings]
-    assert K5.step_column_p3_fused.launches == before + len(tilings)
+    assert [fn.launches for fn in counted] == [n + len(tilings)
+                                               for n in before]
     _assert_close_p3(outs[0], ref)
     for x, y in zip(outs[0][0] + (outs[0][1],), outs[1][0] + (outs[1][1],)):
         assert torch.equal(x, y)
@@ -270,3 +277,62 @@ def test_p3_cuda_rejections(device):
     with pytest.raises(ValueError, match="contiguous"):
         K5.step_column_p3_fused(st._replace(T=st.T.t().contiguous().t()),
                                 mp, TPS, DT, DZ, block_cols=16)
+
+
+def _ladder_state(device, nrep=8, nlev=16):
+    """The 10 curated ladder states of the package's float64 record, each
+    over ``nrep`` columns of ``nlev`` levels with a rho and T profile."""
+    path = (Path(K5.__file__).resolve().parents[1] / "data"
+            / "p3_ladder_gl16.json")
+    rows = np.asarray(json.loads(path.read_text())["states"], np.float64)
+    arr = np.repeat(rows[:, None, :], nrep, axis=1).reshape(-1, 11)
+    arr = np.repeat(arr[:, None, :], nlev, axis=1)
+    arr[..., 0] *= np.linspace(1.05, 0.95, nlev)[None, :]
+    arr[..., 1] += np.linspace(2.0, -2.0, nlev)[None, :]
+    return ColumnStateP3(*(torch.as_tensor(arr[..., i], dtype=torch.float32,
+                                           device=device)
+                           for i in range(11)))
+
+
+@pytest.mark.parametrize("states", ["ladder", "mixed"])
+def test_p3_solve_kernel_loglambda_is_bit_identical(device, states):
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=16)
+    st = _ladder_state(device) if states == "ladder" else _state_p3(
+        256, 64, device)
+    before = K5.launch_solve.launches
+    ref = K5.loglambda_p3_plain(st, mp)
+    assert torch.equal(K5.loglambda_p3_fused(st, mp, TPS), ref)
+    assert K5.launch_solve.launches == before + 1
+    # warm-started off the root, and at the root itself
+    away = torch.where(torch.isfinite(ref), ref + 0.25, ref)
+    for guess in (away, ref):
+        assert torch.equal(K5.loglambda_p3_fused(st, mp, TPS, guess),
+                           K5.loglambda_p3_plain(st, mp, guess))
+
+
+def test_p3_step_is_bit_identical_on_the_ladder(device):
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=16)
+    st = _ladder_state(device)
+    out, ll = K5.step_column_p3_fused(st, mp, TPS, DT, DZ, block_cols=8)
+    ref, ll_ref = K5.step_column_p3_plain(st, mp, TPS, DT, DZ)
+    assert torch.equal(ll, ll_ref)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+def test_entry_points_default_to_the_gpu(device):
+    from cloudmicrophysics_tpu_torch.parameters import (
+        column_state_p3_from_numpy,
+    )
+
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=8)
+    for model in (Column1MStep(MP, TPS, TV, DT, DZ),
+                  Column2MStep(microphysics_2m_params(), TPS, DT, DZ),
+                  ColumnP3Step(mp, TPS, DT, DZ)):
+        assert model.params.device.type == "cuda"
+    arrays = {name: np.asarray(t.cpu()) for name, t in
+              zip(ColumnStateP3._fields, _state_p3(64, 16, device))}
+    st = column_state_p3_from_numpy(arrays)
+    assert all(t.device.type == "cuda" for t in st)
+    _assert_close_p3(ColumnP3Step(mp, TPS, DT, DZ)(st),
+                     K5.step_column_p3_plain(st, mp, TPS, DT, DZ))

@@ -29,7 +29,7 @@ st = ColumnState(
     q_icl=torch.full((n, k), 2e-4), q_rai=torch.full((n, k), 3e-4),
     q_sno=torch.full((n, k), 2e-4))
 model = Column1MStep(microphysics_1m_params(), ThermodynamicsParameters(),
-                     terminal_velocity_params(), 1.0, 100.0)
+                     terminal_velocity_params(), 1.0, 100.0, device="cpu")
 out = model(pack_state(st))
 assert out.shape == (7, n, k) and bool(torch.isfinite(out).all())
 bad = sorted(m for m in sys.modules
@@ -91,7 +91,7 @@ st = ColumnState2M(
     n_lcl=torch.full((n, k), 5e7), q_rai=torch.full((n, k), 3e-4),
     n_rai=torch.full((n, k), 5e5))
 model = Column2MStep(microphysics_2m_params(rain_velocity="chen2022"),
-                     ThermodynamicsParameters(), 1.0, 100.0)
+                     ThermodynamicsParameters(), 1.0, 100.0, device="cpu")
 out = model(pack_state_2m(st))
 assert out.shape == (7, n, k) and bool(torch.isfinite(out).all())
 print("IMPORTED", len(names))
@@ -127,7 +127,7 @@ st = ColumnStateP3(
     n_rai=full(1e5), q_ice=full(5e-4), n_ice=full(1e5), q_rim=full(1e-4),
     b_rim=full(2e-7))
 model = ColumnP3Step(microphysics_2m_params(with_ice=True, quadrature_order=4),
-                     ThermodynamicsParameters(), 1.0, 100.0)
+                     ThermodynamicsParameters(), 1.0, 100.0, device="cpu")
 out, loglam = model(st)
 out, loglam = model(out, loglam)
 assert all(bool(torch.isfinite(t).all()) for t in out)

@@ -109,7 +109,7 @@ def test_from_tree_accepts_numpy_leaves():
 def test_column_state_from_numpy(dtype):
     rng = np.random.default_rng(3)
     arrays = {name: rng.random((4, 5)) for name in ColumnState._fields}
-    st = TP.column_state_from_numpy(arrays, dtype=dtype)
+    st = TP.column_state_from_numpy(arrays, device="cpu", dtype=dtype)
     assert isinstance(st, ColumnState)
     for name, t in zip(ColumnState._fields, st):
         assert t.dtype == dtype and t.shape == (4, 5) and t.device.type == "cpu"
@@ -254,7 +254,8 @@ def test_column_state_p3_from_numpy():
 
     rng = np.random.default_rng(5)
     arrays = {name: rng.random((2, 7)) for name in ColumnStateP3._fields}
-    st = TP.column_state_p3_from_numpy(arrays, dtype=torch.float64)
+    st = TP.column_state_p3_from_numpy(arrays, device="cpu",
+                                       dtype=torch.float64)
     assert isinstance(st, ColumnStateP3) and len(st) == 11
     for name, t in zip(ColumnStateP3._fields, st):
         np.testing.assert_array_equal(t.numpy(), arrays[name])
@@ -263,7 +264,8 @@ def test_column_state_p3_from_numpy():
 def test_column_state_2m_from_numpy():
     rng = np.random.default_rng(4)
     arrays = {name: rng.random((3, 6)) for name in ColumnState2M._fields}
-    st = TP.column_state_2m_from_numpy(arrays, dtype=torch.float32)
+    st = TP.column_state_2m_from_numpy(arrays, device="cpu",
+                                       dtype=torch.float32)
     assert isinstance(st, ColumnState2M)
     for name, t in zip(ColumnState2M._fields, st):
         assert t.dtype == torch.float32 and t.shape == (3, 6)
