@@ -10,23 +10,30 @@ then, failing at the first phase that does not hold:
 1. prints the toolchain (GPU name and power limit, torch, CUDA, nvcc,
    whether triton imports);
 2. prints each source's build time and the compiler's register/spill
-   report, and for K5's three kernels (K5a solve, K5b node pass at each
-   order, K5c epilogue) their registers, spills, stack frame and local
-   memory per thread (``column_p3.cu`` is built twice, the kernel and its
-   operation-count probe: ``BUILDS`` in ``kernels/column_p3.py``);
-3. compares both kernel entry points (packed and unpacked) with their plain
-   PyTorch versions on the card at three cases, (4096, 128), a ragged
-   (1000, 40) and the in-kernel ``q_tot`` affine, under rtol 2e-5 /
-   atol 2e-9, and checks that two ``block_cols`` tilings agree bit for bit;
+   report; K1/K2's registers, spills and resident blocks per SM; and for
+   K5's three kernels (K5a solve, K5b node pass at each order, K5c
+   epilogue) their registers, spills, stack frame and local memory per
+   thread (``column1m.cu`` and ``column_p3.cu`` are each built twice, the
+   kernel and its probe: ``BUILDS`` in ``kernels/column1m.py`` and
+   ``kernels/column_p3.py``);
+3. compares both 1M kernel entry points (packed, K1, and unpacked, K2)
+   with their plain PyTorch versions on the card at (4096, 128), ragged
+   (1000, 40) and (512, 33), (96, 256), the in-kernel ``q_tot`` affine and
+   ``sediment_cloud=False``, under rtol 2e-5 / atol 2e-9, checks that two
+   ``block_cols`` tilings agree bit for bit, counts the comparisons that
+   are bit-identical to the plain step and fails unless all are;
 4. drives the main path at full width: ``Column1MStep`` over the packed
    (7, 524288, 128) float32 state of the repo's benchmark recipe, one step
    on the unpacked state and then three timed 30-step rollouts with the
    benchmark's ``q_tot`` affine schedule, checking that the result is
    finite and non-negative and that the kernels' launch counters went up
    by exactly the steps driven, and holding the one unpacked step against
-   the plain version;
-5. times each kernel and its plain version at that size by CUDA events and
-   compares one full-size packed step with the plain version;
+   the plain version bit for bit;
+5. times each kernel and its plain version at that size by CUDA events,
+   holds one full-size packed step against the plain version bit for bit,
+   and prints K1's stage split from its probe build (each stage's share of
+   the warps' clock64 cycles: loads to first use, cell_step, the flux
+   exchange, stores);
 6. times a plain streaming pass over the packed state (``torch.mul``, the
    memory roof the kernel is quoted against) and measures the device's idle
    share over 10 fused steps with ``torch.profiler``;
@@ -73,7 +80,8 @@ then, failing at the first phase that does not hold:
     through the timed build's SASS; the probe's warp counts give each
     region's SIMT efficiency and each kernel's share of the warp issue
     rate) and K1-K4's (their ``cell_step`` on its least path, once per
-    cell), for each kernel's bound: the larger of its bytes over 3.35 TB/s
+    cell, with the global loads among its instructions), for each kernel's
+    bound: the larger of its bytes over 3.35 TB/s
     and its operations' time, float32 operations over 67 TFLOP/s or MUFU
     operations over 16 per SM per clock (132 SMs at 1.98 GHz), the larger.
     Fails if a bound exceeds the kernel's time. The SASS and the probe's
@@ -204,6 +212,42 @@ def _report(label, rows):
         raise AssertionError(f"{label}: kernel disagrees with the plain "
                              f"version in {bad}")
     return max(r[0] for r in rows.values())
+
+
+def _same(label, out, ref, tally):
+    """Whether two ColumnStates are equal bit for bit; prints the cells
+    that differ per field when not, and adds the outcome to ``tally``
+    (``[identical, compared]``)."""
+    import torch
+
+    diff = {n: int((a != b).sum()) for n, a, b in zip(ref._fields, out, ref)
+            if not torch.equal(a, b)}
+    tally[0] += not diff
+    tally[1] += 1
+    print(f"  {label}: " + ("bit-identical to the plain step" if not diff
+                            else f"cells differing from the plain step "
+                                 f"{diff}"))
+    return not diff
+
+
+def _with_sm_clock(fn):
+    """``fn()`` with ``nvidia-smi`` sampling the SM clock every 100 ms
+    beside it; returns fn's result and a note of the clocks seen."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        result = fn()
+    finally:
+        smi.terminate()
+        samples = smi.communicate(timeout=10)[0].split("\n")
+    rows = [r.split(",") for r in samples if r.count(",") == 1]
+    clocks = [float(r[0]) for r in rows if r[0].strip().isdigit()]
+    note = (f"SM clock beside them {min(clocks):g}-{max(clocks):g} MHz "
+            f"({len(clocks)} samples of nvidia-smi)" if clocks
+            else "SM clock not sampled")
+    return result, note
 
 
 def _time_ms(fn, reps, warmup=1):
@@ -363,23 +407,63 @@ def _k5_build_report(K5):
     return attrs
 
 
-def _cell_ops(mod, kernel):
-    """Operations per cell of ``kernel`` in the library of kernel module
-    ``mod``: its ``cell_step`` (run once per cell) on its least path
-    (kernels/opcount.py), and every arm's instructions. Writes the SASS to
+def _k1_stages(K, packed, params):
+    """K1's stage split from its probe build (``-DK1_PROBE``, for the
+    parameter block ``params``) on ``packed``: each stage's share of the
+    warps' ``clock64()`` cycles and its cycles per warp pass, from one
+    launch after a warm-up."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models.column import _block_cols
+
+    lib = K._library(params, "probe")
+    sums = torch.zeros(len(K.PROBE_STAGES) + 1, dtype=torch.int64,
+                       device=packed.device)
+    err = lib.column1m_probe_set(sums.data_ptr(), packed.device.index)
+    if err:
+        raise RuntimeError(f"column1m_probe_set: CUDA error {err}")
+
+    def run():
+        K.launch_packed(lib, packed, DT, DZ,
+                        _block_cols(packed.shape[1], K.BLOCK_COLS),
+                        q_tot_affine=AFFINE)
+
+    run()
+    torch.cuda.synchronize()
+    sums.zero_()
+    ms = _time_ms(run, reps=1, warmup=0)[0]
+    *cycles, passes = sums.tolist()
+    total = sum(cycles)
+    print(f"  K1 probe build (clock64 per warp, one launch, {ms:.6g} ms): "
+          f"{passes} warp passes; per stage share of the cycles and cycles "
+          f"per warp pass: " + ", ".join(
+              f"{s} {c / total:.4f} ({c / passes:.6g})"
+              for s, c in zip(K.PROBE_STAGES, cycles)))
+    return dict(zip(K.PROBE_STAGES, cycles))
+
+
+def _cell_ops(source, library, kernel):
+    """Operations per cell of ``kernel`` in the ``library`` built from
+    ``csrc/<source>``: its ``cell_step`` (run once per cell) on its least
+    path (kernels/opcount.py), every arm's instructions, and the global
+    loads (``LDG``) among them. Writes the SASS to
     ``kernels/build/<source>.sass.gz``."""
     import gzip
 
     from cloudmicrophysics_tpu_torch.kernels import _build, opcount
 
-    src = (_build.CSRC_DIR / mod.SOURCE).read_text()
+    src = (_build.CSRC_DIR / source).read_text()
     sites = {"cell_step": opcount.function_block(src, "cell_step")}
-    sass = opcount.disassemble(mod.library_path())
-    (_build.BUILD_DIR / f"{Path(mod.SOURCE).stem}.sass.gz").write_bytes(
+    sass = opcount.disassemble(library)
+    (_build.BUILD_DIR / f"{Path(source).stem}.sass.gz").write_bytes(
         gzip.compress(sass.encode()))
     instrs = [i for i in opcount.parse_sass(sass) if kernel in i.function]
-    per, static, _, _ = opcount.region_tallies(instrs, sites, mod.SOURCE)
-    return per["cell_step"], static["cell_step"]
+    per_cell, every_arm = opcount.call_site_tally(instrs, sites, source,
+                                                  "cell_step")
+    groups, _ = opcount.attribute(instrs, sites, source)
+    ldg = sum(1 for i, g in zip(instrs, groups)
+              if g is not None and i.opcode.startswith("LDG"))
+    return per_cell, every_arm, ldg
 
 
 def main():
@@ -437,39 +521,57 @@ def main():
         lib()
         return time.perf_counter() - t0
 
-    k5_builds = list(K5.BUILDS)
-    with ThreadPoolExecutor(2 + len(k5_builds)) as pool:
-        builds = dict(zip(
-            ["column1m.cu", "column2m.cu"]
-            + [f"column_p3.cu ({b}: {' '.join(K5.BUILDS[b])})"
-               for b in k5_builds],
-            pool.map(timed_build, [K._library, K2M._library] + [
-                (lambda b=b: K5._library(b)) for b in k5_builds])))
+    params = K.kernel_params(mp, tps, tv)
+    jobs = [(f"{K.SOURCE} ({b}: {' '.join(K.BUILDS[b])})",
+             lambda b=b: K._library(params, b)) for b in K.BUILDS]
+    jobs += [(f"{K5.SOURCE} ({b}: {' '.join(K5.BUILDS[b])})",
+              lambda b=b: K5._library(b)) for b in K5.BUILDS]
+    jobs.append(("column2m.cu", K2M._library))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        builds = dict(zip([j[0] for j in jobs],
+                          pool.map(timed_build, [j[1] for j in jobs])))
     for stem, seconds in builds.items():
         print(f"{stem} built and loaded in {seconds:.1f} s")
-    for mod in (K, K2M):
-        log = mod.library_path().parent / "build.log"
-        for line in log.read_text().splitlines():
+    for src, path in ((K.SOURCE, K.library_path(params)),
+                      (K2M.SOURCE, K2M.library_path())):
+        for line in (path.parent / "build.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
-                print(f"  {mod.SOURCE} ptxas: {line.strip()}")
+                print(f"  {src} ptxas: {line.strip()}")
+    k1_attrs = K.kernel_attrs(K._library(params), device.index)
+    ptx = _build.ptxas_report(
+        (K.library_path(params).parent / "build.log").read_text())
+    ptx = next((v for f, v in ptx.items()
+                if "column1m_step_kernel" in f and "stack" in v), {})
+    print(f"  K1/K2 (column1m_step_kernel): {k1_attrs['registers']} "
+          f"registers, {k1_attrs['local_bytes']} B local memory per thread; "
+          f"ptxas: {ptx.get('spill_stores', '?')} B spill stores, "
+          f"{ptx.get('spill_loads', '?')} B spill loads; "
+          f"{k1_attrs['threads']} threads per block, "
+          f"{k1_attrs['blocks_per_sm']} resident blocks per SM "
+          f"({k1_attrs['threads'] * k1_attrs['blocks_per_sm'] // 32} warps)")
     k5_attrs = _k5_build_report(K5)
 
     # ---- 3. kernel parity on the card --------------------------------------
     print(f"== kernel vs plain version (rtol {RTOL}, atol {ATOL})")
-    params = K.kernel_params(mp, tps, tv, device=device)
     max_err = {"K1": 0.0, "K2": 0.0}
-    cases = [("(4096, 128)", 4096, 128, (256, 128), None),
-             ("ragged (1000, 40)", 1000, 40, (8, 40), None),
-             ("affine (4096, 128)", 4096, 128, (256, 64), AFFINE)]
-    for label, ncol, nlev, tilings, affine in cases:
+    bits = [0, 0]    # K1/K2 comparisons bit-identical to the plain step, of
+    cases = [("(4096, 128)", 4096, 128, (256, 128), None, True),
+             ("ragged (1000, 40)", 1000, 40, (8, 40), None, True),
+             ("ragged (512, 33)", 512, 33, (64, 1), None, True),
+             ("(96, 256)", 96, 256, (32, 3), None, True),
+             ("affine (4096, 128)", 4096, 128, (256, 64), AFFINE, True),
+             ("(4096, 128) sediment_cloud=False", 4096, 128, (256, 16), None,
+              False)]
+    for label, ncol, nlev, tilings, affine, sed in cases:
         st = _device_state(ncol, nlev, device, seed=7)
-        kw = dict(q_tot_affine=affine)
+        kw = dict(q_tot_affine=affine, sediment_cloud=sed)
         ref = K.step_column_1m_plain(st, mp, tps, tv, DT, DZ, **kw)
         outs = [fused(st, mp, tps, tv, DT, DZ, block_cols=bc, params=params,
                       **kw) for bc in tilings]
         max_err["K2"] = max(max_err["K2"],
                             _report(f"K2 {label} block_cols={tilings[0]}",
                                     _compare(outs[0], ref)))
+        _same(f"K2 {label}", outs[0], ref, bits)
         if not all(torch.equal(a, b) for a, b in zip(*outs)):
             raise AssertionError(f"K2 {label}: block_cols {tilings} differ")
         print(f"  K2 {label}: block_cols {tilings} agree bit for bit")
@@ -482,16 +584,14 @@ def main():
         max_err["K1"] = max(max_err["K1"], _report(
             f"K1 {label} block_cols={tilings[0]}",
             _compare(K.unpack_state(pouts[0]), pref)))
+        _same(f"K1 {label}", K.unpack_state(pouts[0]), pref, bits)
         if not torch.equal(pouts[0], pouts[1]):
             raise AssertionError(f"K1 {label}: block_cols {tilings} differ")
         print(f"  K1 {label}: block_cols {tilings} agree bit for bit")
-    st = _device_state(4096, 128, device, seed=7)
-    max_err["K2"] = max(max_err["K2"], _report(
-        "K2 (4096, 128) sediment_cloud=False",
-        _compare(fused(st, mp, tps, tv, DT, DZ, sediment_cloud=False,
-                       params=params),
-                 K.step_column_1m_plain(st, mp, tps, tv, DT, DZ,
-                                        sediment_cloud=False))))
+    print(f"  K1/K2 bit-identical to the plain step in {bits[0]} of {bits[1]} "
+          f"comparisons")
+    if bits[0] != bits[1]:
+        raise AssertionError("K1/K2 differ from the plain step")
     del st, pk, ref, pref, outs, pouts
 
     # ---- 4. the main path at full width ------------------------------------
@@ -502,10 +602,12 @@ def main():
     first, packed, launches = _drive(model, state, K.pack_state,
                                      K.unpack_state, fused, packed_fused,
                                      ("K1", "K2"))
+    ref = K.step_column_1m_plain(state, mp, tps, tv, DT, DZ)
     max_err["K2"] = max(max_err["K2"], _report(
-        "K2 main path's full-size step vs plain",
-        _compare(first, K.step_column_1m_plain(state, mp, tps, tv, DT, DZ))))
-    del first
+        "K2 main path's full-size step vs plain", _compare(first, ref)))
+    if not _same("K2 main path's full-size step", first, ref, bits):
+        raise AssertionError("K2 full-size step differs from the plain step")
+    del first, ref
 
     # ---- 5. kernels and plain versions at full size ------------------------
     print(f"== kernel vs plain version at ({NCOL}, {NLEV}), CUDA events")
@@ -513,22 +615,28 @@ def main():
     plain2 = _time_ms(lambda: K.step_column_1m_plain(
         state, mp, tps, tv, DT, DZ, q_tot_affine=AFFINE), reps=3)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    kern2 = _time_ms(lambda: fused(state, mp, tps, tv, DT, DZ,
-                                   params=model.params,
-                                   q_tot_affine=AFFINE), reps=10)
-    kern1 = _time_ms(lambda: model(packed, q_tot_affine=AFFINE), reps=10)
+    (kern2, kern1), clock = _with_sm_clock(lambda: (
+        _time_ms(lambda: fused(state, mp, tps, tv, DT, DZ,
+                               params=model.params, q_tot_affine=AFFINE),
+                 reps=10),
+        _time_ms(lambda: model(packed, q_tot_affine=AFFINE), reps=10)))
     plain1 = _time_ms(lambda: K.step_column_1m_packed_plain(
         packed, mp, tps, tv, DT, DZ, q_tot_affine=AFFINE), reps=3)
     timing = {"K1": (min(kern1), min(plain1)), "K2": (min(kern2), min(plain2))}
     for k, (t_kern, t_plain) in timing.items():
         print(f"  {k}: kernel {t_kern:.6g} ms/step, plain {t_plain:.6g} "
               f"ms/step, plain/kernel {t_plain / t_kern:.4g}")
-    print(f"  plain version peak device memory {peak_gb:.4g} GB")
-    full = _report("K1 one full-size step vs plain", _compare(
-        K.unpack_state(model(packed, q_tot_affine=AFFINE)),
-        K.unpack_state(K.step_column_1m_packed_plain(
-            packed, mp, tps, tv, DT, DZ, q_tot_affine=AFFINE))))
-    max_err["K1"] = max(max_err["K1"], full)
+    print(f"  plain version peak device memory {peak_gb:.4g} GB; K1/K2 "
+          f"{clock}")
+    out = K.unpack_state(model(packed, q_tot_affine=AFFINE))
+    ref = K.unpack_state(K.step_column_1m_packed_plain(
+        packed, mp, tps, tv, DT, DZ, q_tot_affine=AFFINE))
+    max_err["K1"] = max(max_err["K1"], _report(
+        "K1 one full-size step vs plain", _compare(out, ref)))
+    if not _same("K1 one full-size step", out, ref, bits):
+        raise AssertionError("K1 full-size step differs from the plain step")
+    del out, ref
+    _k1_stages(K, packed, model.params)
 
     # ---- 6. memory roof and idle share -------------------------------------
     print(f"== fused step against a streaming pass over ({len(packed)}, "
@@ -567,17 +675,19 @@ def main():
     bounds = {}
     limited, chen = K2M._variant(microphysics_2m_params())
     cells = NCOL * NLEV
-    for ks, mod, kernel in (
-            (("K1", "K2"), K, "column1m_step_kernel"),
-            (("K3", "K4"), K2M,
+    for ks, source, library, kernel in (
+            (("K1", "K2"), K.SOURCE, K.library_path(params),
+             "column1m_step_kernel"),
+            (("K3", "K4"), K2M.SOURCE, K2M.library_path(),
              f"column2m_step_kernelILb{limited}ELb{chen}E")):
-        per_cell, every_arm = _cell_ops(mod, kernel)
+        per_cell, every_arm, ldg = _cell_ops(source, library, kernel)
         bound = _bound(14 * 4 * cells, per_cell.scale(cells))
         for k in ks:
             bounds[k] = bound
             print(f"  {k}: per cell {per_cell.flops:g} float32 operations, "
                   f"{per_cell.mufu:g} MUFU, {per_cell.issued:g} instructions "
-                  f"issued ({every_arm:g} with every arm); bound "
+                  f"issued ({every_arm:g} with every arm, {ldg} of them "
+                  f"global loads); bound "
                   f"{bound[0]:.6g} ms ({bound[1]}; bytes "
                   f"{14 * 4 * cells / HBM_BYTES_PER_S * 1e3:.4g} ms, float32 "
                   f"{per_cell.flops * cells / FP32_PER_S * 1e3:.4g} ms, MUFU "
@@ -1055,22 +1165,11 @@ def _k5_parts(K, model, state, guess, device):
     }
     for fn in calls.values():
         fn()
-    smi = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-         "--format=csv,noheader,nounits", "-lms", "100"],
-        stdout=subprocess.PIPE, text=True)
-    try:
-        times = {k: min(_time_ms(fn, reps=5)) for k, fn in calls.items()}
-    finally:
-        smi.terminate()
-        samples = smi.communicate(timeout=10)[0].split("\n")
-    rows = [r.split(",") for r in samples if r.count(",") == 1]
-    clocks = [float(r[0]) for r in rows if r[0].strip().isdigit()]
+    times, clock = _with_sm_clock(
+        lambda: {k: min(_time_ms(fn, reps=5)) for k, fn in calls.items()})
     print(f"  K5 kernels alone at GL-16: "
           + ", ".join(f"{k} {t:.6g} ms" for k, t in times.items())
-          + (f"; SM clock beside them {min(clocks):g}-{max(clocks):g} MHz "
-             f"({len(clocks)} samples of nvidia-smi)" if clocks
-             else "; SM clock not sampled"))
+          + f"; {clock}")
     return times
 
 

@@ -21,10 +21,14 @@ modes other than ``"instantaneous"``, option selections other than the
 default :class:`~..parameters.m1.Microphysics1MOptions`, dtypes other than
 float32, and more than 256 levels.
 
-The kernel reads the parameters from one float32 device buffer, built on
-the host in float64 by :func:`kernel_params`. :data:`PARAM_NAMES` is the
-only definition of its order: the build writes the matching
-``#define P_<name> <index>`` header from it.
+The kernel's parameters are compiled into it: :func:`kernel_params`
+builds the float32 parameter block on the host in float64, and the build
+writes each value as an exact float literal into the generated header
+(:func:`header`), so the library is built once per parameter block (at its
+first launch, cached on disk by the header's hash) and every constant is an
+immediate operand. The wrappers read the block on the host, never from the
+device, which would add a synchronising copy to every step.
+:data:`PARAM_NAMES` is the only definition of the block's order.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from ..models.column import ColumnState, step_column_1m
@@ -54,19 +59,23 @@ __all__ = [
 
 _FIELDS = ColumnState._fields  # (rho, T, q_tot, q_lcl, q_icl, q_rai, q_sno)
 
-# Threads per block of the kernel (kThreads in csrc/column1m.cu): a block
-# steps whole columns, so nlev may not exceed it.
+# The levels the kernel is held to: the most its card tests cover.
 MAX_NLEV = 256
+# Columns a thread block steps by default (8 warps, 4 columns each): at
+# 524288 x 128 on an H100 the grid's last, part-empty wave of blocks costs
+# less than with 128 (PERF.md).
+BLOCK_COLS = 32
 
 PARAM_NAMES = (
     # float32 constants of the dtype
     "EPS", "TINY", "LOG_EPS", "HALF_MIN", "LOG_TINY",
     # thermodynamics
     "T_0", "LH_V0", "LH_S0", "LH_F0", "DCP_VL", "DCP_VI", "DCP_LI",
-    "CP_D", "CPVD", "CPLV", "CPIV", "CV_L", "T_TRIPLE", "INV_T_TRIPLE",
-    "PRESS_TRIPLE", "KV_L", "CL_L", "KV_I", "CL_I", "R_V", "T_FREEZE",
+    "CP_D", "CPVD", "CPLV", "CPIV", "CV_L", "INV_T_TRIPLE",
+    "PRESS_TRIPLE", "KV_L", "CL_L", "KV_I", "CL_I", "R_V", "INV_R_V",
+    "T_FREEZE",
     # air
-    "K_THERM", "K_THERM_SAFE", "D_VAPOR_SAFE", "NU_AIR",
+    "K_THERM", "INV_K_THERM_SAFE", "INV_D_VAPOR_SAFE", "INV_NU_AIR",
     # PSD: snow intercept, lambda in log space
     "LOG_MU_SNO", "NU_SNO",
     "POW_RAI", "LOGNUM_RAI", "LOGDEN_RAI", "LOGFLOOR_RAI", "LOG_R0_RAI",
@@ -78,18 +87,18 @@ PARAM_NAMES = (
     # cloud condensate formation
     "TAU_LCL", "TAU_ICL",
     # autoconversion (logistic integral)
-    "ACNV_R_X0S", "ACNV_R_K", "ACNV_R_TRN", "ACNV_R_X0LT", "ACNV_R_TAU",
-    "ACNV_S_X0S", "ACNV_S_K", "ACNV_S_TRN", "ACNV_S_X0LT", "ACNV_S_TAU",
+    "ACNV_R_X0S", "ACNV_R_K", "ACNV_R_X0LT", "INV_ACNV_R_TAU",
+    "ACNV_S_X0S", "ACNV_S_K", "ACNV_S_X0LT", "INV_ACNV_S_TAU",
     # accretion
     "E_LR", "E_LS", "E_IR", "E_IS", "E_RS", "CD_RS",
     "A0_RAI", "CHIA_RAI", "CHIV_RAI", "GACC_RAI", "PACC_RAI",
     "A0_SNO", "V0_SNO", "CHIA_SNO", "CHIV_SNO", "GACC_SNO", "PACC_SNO",
     "M0_RAI", "CHIM_RAI", "GSINK_RAI", "PSINK_RAI",
     # bulk terminal velocities
-    "PVT_RAI", "GTERM_RAI", "GC_RAI", "CV0_SNO", "PVT_SNO", "GTERM_SNO",
-    "GC_SNO",
+    "PVT_RAI", "GTERM_RAI", "GC_RAI", "INV_GC_RAI", "CV0_SNO", "PVT_SNO",
+    "GTERM_SNO", "GC_SNO", "INV_GC_SNO",
     # rain-snow collisions
-    "PI", "M0_SNO", "CHIM_SNO", "R0D_RAI", "R0D_SNO",
+    "PI", "M0_SNO", "CHIM_SNO", "INV_R0D_RAI", "INV_R0D_SNO",
     "EXP1_RAI", "EXP2_RAI", "EXP3_RAI", "C2_RAI", "C3_RAI",
     "EXP1_SNO", "EXP2_SNO", "EXP3_SNO", "C2_SNO", "C3_SNO",
     # evaporation, sublimation, melt
@@ -97,29 +106,29 @@ PARAM_NAMES = (
     "VA_SNO", "VBSC_SNO", "PVENT_SNO", "GVENT_SNO", "SQ_SNO", "PI4",
     "C4PI_N0_ICL",
     # cloud sedimentation: Stokes liquid, Chen 2022 small ice
-    "C18", "RHO_W_STOKES", "GRAV_STOKES", "NU_STOKES", "C6PI", "C23",
-    "N0_LCL", "RHO_W_LCL",
-    "AS", "BS", "CS", "ES", "FS", "GS1000", "LOG1000", "N0_ICL_SED",
-    "RHO_I_ICL",
+    "C18", "RHO_W_STOKES", "GRAV_STOKES", "INV_NU_STOKES", "C6PI", "C23",
+    "INV_N0_LCL", "INV_RHO_W_LCL",
+    "AS", "BS", "CS", "ES", "FS", "GS1000", "LOG1000", "INV_N0_ICL_SED",
+    "INV_RHO_I_ICL",
 )
 
 
 def _logistic_consts(pp, eps: float):
     """Host side of ``ops.common.logistic_function_integral``:
-    ``(x0_safe, k, translation, x0 < eps)``."""
+    ``(x0_safe, k, x0 < eps)``; the kernel takes the translation from k as
+    the eager step does, in float32."""
     x0 = float(torch.tensor(pp.q_threshold, dtype=torch.float32))
-    k = pp.k
-    # trnslt = -log1mexp(-k) / k
-    log1mexp = (math.log(-math.expm1(-k)) if -k > -math.log(2.0)
-                else math.log1p(-math.exp(-k)))
-    return max(x0, eps), k, -log1mexp / k, float(x0 < eps)
+    return max(x0, eps), pp.k, float(x0 < eps)
 
 
 def _param_values(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
                   tv: TerminalVelocityParams) -> dict:
     """Every float the kernel reads, keyed by :data:`PARAM_NAMES`; the
     products and logs the eager code folds from Python floats are folded
-    here the same way, in float64."""
+    here the same way, in float64. ``INV_<x>`` is ``1/x`` in float64: where
+    the eager step divides a tensor by a Python float, PyTorch's CUDA kernel
+    multiplies by that reciprocal rounded once to float32, and so does the
+    kernel."""
     f32 = torch.float32
     eps = eps_numerics(f32)
     tiny = 1e-25
@@ -140,15 +149,16 @@ def _param_values(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
         DCP_LI=tps.cp_l - tps.cp_i,
         CP_D=tps.cp_d, CPVD=tps.cp_v - tps.cp_d, CPLV=tps.cp_l - tps.cp_v,
         CPIV=tps.cp_i - tps.cp_v, CV_L=tps.cv_l,
-        T_TRIPLE=tps.T_triple, INV_T_TRIPLE=1 / tps.T_triple,
+        INV_T_TRIPLE=1 / tps.T_triple,
         PRESS_TRIPLE=tps.press_triple,
         KV_L=(tps.cp_v - tps.cp_l) / tps.R_v,
         CL_L=(tps.LH_v0 - (tps.cp_v - tps.cp_l) * tps.T_0) / tps.R_v,
         KV_I=(tps.cp_v - tps.cp_i) / tps.R_v,
         CL_I=(tps.LH_s0 - (tps.cp_v - tps.cp_i) * tps.T_0) / tps.R_v,
-        R_V=tps.R_v, T_FREEZE=tps.T_freeze,
-        K_THERM=aps.K_therm, K_THERM_SAFE=max(aps.K_therm, eps),
-        D_VAPOR_SAFE=max(aps.D_vapor, eps), NU_AIR=aps.nu_air,
+        R_V=tps.R_v, INV_R_V=1 / tps.R_v, T_FREEZE=tps.T_freeze,
+        K_THERM=aps.K_therm, INV_K_THERM_SAFE=1 / max(aps.K_therm, eps),
+        INV_D_VAPOR_SAFE=1 / max(aps.D_vapor, eps),
+        INV_NU_AIR=1 / aps.nu_air,
         LOG_MU_SNO=math.log(snow.pdf.mu), NU_SNO=snow.pdf.nu,
         N0_RAI=rain.pdf.n0, N0_ICL=ice.pdf.n0,
         V0C_RAI=(8.0 / 3.0) / vr.C_drag, RHO_W_VEL_RAI=vr.rho_w,
@@ -171,16 +181,19 @@ def _param_values(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
         PSINK_RAI=(rain.mass.me + rain.area.ae + vr.ve + rain.mass.dm
                    + rain.area.da + vr.dv),
         PVT_RAI=vr.ve + vr.dv, GTERM_RAI=vr.gamma_term,
-        GC_RAI=rain.mass.gamma_coeff,
+        GC_RAI=rain.mass.gamma_coeff, INV_GC_RAI=1 / rain.mass.gamma_coeff,
         CV0_SNO=vs.chiv * vs.v0, PVT_SNO=vs.ve + vs.dv,
         GTERM_SNO=vs.gamma_term, GC_SNO=snow.mass.gamma_coeff,
+        INV_GC_SNO=1 / snow.mass.gamma_coeff,
         PI=pi, M0_SNO=snow.mass.m0, CHIM_SNO=snow.mass.chim,
         PI4=4 * pi, C4PI_N0_RAI=4 * pi * rain.pdf.n0,
         C4PI_N0_ICL=4 * pi * ice.pdf.n0,
         C18=1.0 / 18.0, RHO_W_STOKES=stokes.rho_w, GRAV_STOKES=stokes.grav,
-        NU_STOKES=stokes.nu_air, C6PI=6 / pi, C23=2.0 / 3.0,
-        N0_LCL=mp.cloud.liquid.N_0, RHO_W_LCL=mp.cloud.liquid.rho_w,
-        LOG1000=math.log(1000.0), N0_ICL_SED=ice.N_0, RHO_I_ICL=ice.rho_i,
+        INV_NU_STOKES=1 / stokes.nu_air, C6PI=6 / pi, C23=2.0 / 3.0,
+        INV_N0_LCL=1 / mp.cloud.liquid.N_0,
+        INV_RHO_W_LCL=1 / mp.cloud.liquid.rho_w,
+        LOG1000=math.log(1000.0), INV_N0_ICL_SED=1 / ice.N_0,
+        INV_RHO_I_ICL=1 / ice.rho_i,
     )
 
     # lambda_inv of rain, snow, cloud ice (ops/m1.py:_log_lambda_inverse)
@@ -200,7 +213,7 @@ def _param_values(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
     # rain-snow collisions: powers of the collected species' lambda
     for tag, species in (("RAI", rain), ("SNO", snow)):
         delta = species.mass.me + species.mass.dm
-        v[f"R0D_{tag}"] = species.mass.r0 ** delta
+        v[f"INV_R0D_{tag}"] = 1 / species.mass.r0 ** delta
         v[f"EXP1_{tag}"] = delta + 1
         v[f"EXP2_{tag}"] = delta + 2
         v[f"EXP3_{tag}"] = delta + 3
@@ -218,10 +231,10 @@ def _param_values(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
 
     for tag, opt in (("R", pp.rain_autoconversion),
                      ("S", pp.snow_autoconversion)):
-        x0s, k, trn, x0lt = _logistic_consts(opt, eps)
+        x0s, k, x0lt = _logistic_consts(opt, eps)
         v.update({f"ACNV_{tag}_X0S": x0s, f"ACNV_{tag}_K": k,
-                  f"ACNV_{tag}_TRN": trn, f"ACNV_{tag}_X0LT": x0lt,
-                  f"ACNV_{tag}_TAU": opt.tau})
+                  f"ACNV_{tag}_X0LT": x0lt,
+                  f"INV_ACNV_{tag}_TAU": 1 / opt.tau})
 
     # Chen 2022 small-ice coefficients (ops/common.py), all of rho_i
     A, B, C = small_ice.A, small_ice.B, small_ice.C
@@ -238,16 +251,16 @@ def _param_values(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
 
 
 def kernel_params(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
-                  tv: TerminalVelocityParams,
-                  device: torch.device | str | None = None) -> torch.Tensor:
-    """The kernel's float32 parameter buffer, in :data:`PARAM_NAMES` order."""
+                  tv: TerminalVelocityParams) -> torch.Tensor:
+    """The kernel's float32 parameter block, in :data:`PARAM_NAMES` order,
+    on the host (a CPU tensor): the kernel is built for its values."""
     values = _param_values(mp, tps, tv)
     if set(values) != set(PARAM_NAMES):
         raise AssertionError(
             "kernel parameter list out of sync: "
             f"{sorted(set(values) ^ set(PARAM_NAMES))}")
-    return torch.tensor([values[n] for n in PARAM_NAMES], dtype=torch.float64,
-                        device=device).to(torch.float32)
+    return torch.tensor([values[n] for n in PARAM_NAMES],
+                        dtype=torch.float64).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -302,38 +315,98 @@ _F = ctypes.c_float
 
 
 SOURCE = "column1m.cu"
-# -lineinfo leaves the code as it is and maps each SASS instruction to its
-# source line, which kernels/opcount.py reads
-FLAGS = ("-lineinfo",)
+# nvcc flags of each build of the source: the one the wrappers launch
+# (-lineinfo leaves the code as it is and maps each SASS instruction to its
+# source line, which kernels/opcount.py reads) and the stage-timing probe
+BUILDS = {
+    "kernel": ("-lineinfo",),
+    "probe": ("-lineinfo", "-DK1_PROBE"),
+}
+# the stages the probe build times, in the order of enum ProbeStage
+PROBE_STAGES = ("load", "cell", "exchange", "store")
 
 
-def _header() -> str:
-    return _build.index_header(PARAM_NAMES, "COLUMN1M_PARAMS_H")
+def header(params: torch.Tensor) -> str:
+    """The generated header of a parameter block: ``#define PC_<name>`` as
+    a hexadecimal float literal of each value (exact), in
+    :data:`PARAM_NAMES` order, and ``N_PARAMS``."""
+    values = params.numpy()
+    if values.shape != (len(PARAM_NAMES),):
+        raise ValueError(f"a parameter block has {len(PARAM_NAMES)} values")
+    if not np.isfinite(values).all():
+        raise ValueError("the parameter block holds a non-finite value")
+    lines = ["// Generated from kernels/column1m.py's parameter block; do not "
+             "edit.", "#ifndef COLUMN1M_PARAMS_H", "#define COLUMN1M_PARAMS_H"]
+    lines += [f"#define PC_{name} ({float(v).hex()}f)"
+              for name, v in zip(PARAM_NAMES, values)]
+    lines += [f"#define N_PARAMS {len(PARAM_NAMES)}", "#endif", ""]
+    return "\n".join(lines)
 
 
-def library_path():
-    """The kernel library's file (built if needed)."""
-    return _build.build(SOURCE, "column1m_params.h", _header(), FLAGS)
+def library_path(params: torch.Tensor, build: str = "kernel"):
+    """The file of one of the kernel library's :data:`BUILDS` for the
+    parameter block ``params`` (built if needed)."""
+    return _build.build(SOURCE, "column1m_params.h", header(params),
+                        BUILDS[build])
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE, "column1m_params.h", _header(), FLAGS)
+_LIBRARIES = {}
+
+
+def _library(params: torch.Tensor, build: str = "kernel") -> ctypes.CDLL:
+    """One of the kernel library's :data:`BUILDS` for the parameter block
+    ``params``, loaded (built at a block's first launch, then looked up by
+    its bytes)."""
+    key = (params.numpy().tobytes(), build)
+    lib = _LIBRARIES.get(key)
+    if lib is None:
+        lib = _LIBRARIES[key] = bind(
+            _build.load(SOURCE, "column1m_params.h", header(params),
+                        BUILDS[build]), build == "probe")
+    return lib
+
+
+def bind(lib: ctypes.CDLL, probe: bool = False) -> ctypes.CDLL:
+    """Set the C signatures of a loaded build of the source (``probe``: the
+    ``-DK1_PROBE`` one) and check it against this module; returns it."""
     if not getattr(lib, "_signatures_set", False):
-        tail = [_P, _I, _I, _I, _F, _F, _I, _I, _F, _F, _I, _P]
+        tail = [_I, _I, _I, _F, _F, _I, _I, _F, _F, _I, _P]
         lib.column1m_step_unpacked.argtypes = [_P] * 14 + tail
         lib.column1m_step_unpacked.restype = _I
         lib.column1m_step_packed.argtypes = [_P, _P, ctypes.c_longlong] + tail
         lib.column1m_step_packed.restype = _I
         lib.column1m_num_params.restype = _I
         lib.column1m_threads_per_block.restype = _I
+        lib.column1m_blocks_per_sm.argtypes = [_I, _P]
+        lib.column1m_blocks_per_sm.restype = _I
+        lib.column1m_kernel_attrs.argtypes = [_P, _P]
+        lib.column1m_kernel_attrs.restype = _I
+        if probe:
+            lib.column1m_probe_set.argtypes = [_P, _I]
+            lib.column1m_probe_set.restype = _I
+            lib.column1m_probe_stages.restype = _I
+            if lib.column1m_probe_stages() != len(PROBE_STAGES):
+                raise RuntimeError("column1m probe built with another "
+                                   "stage list")
         if lib.column1m_num_params() != len(PARAM_NAMES):
             raise RuntimeError("column1m library built from another "
                                "parameter list")
-        if lib.column1m_threads_per_block() != MAX_NLEV:
-            raise RuntimeError("column1m library built with another block "
-                               "size")
         lib._signatures_set = True
     return lib
+
+
+def kernel_attrs(lib: ctypes.CDLL, device: int = 0) -> dict:
+    """Registers and local memory bytes per thread, threads per block and
+    resident blocks per SM of the kernel, as the CUDA runtime reports
+    them."""
+    regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = (lib.column1m_kernel_attrs(ctypes.byref(regs), ctypes.byref(local))
+           or lib.column1m_blocks_per_sm(device, ctypes.byref(blocks)))
+    if err:
+        raise RuntimeError(f"column1m kernel attributes: CUDA error {err}")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "threads": lib.column1m_threads_per_block(),
+            "blocks_per_sm": blocks.value}
 
 
 def _check_supported(mp, mode: str, nlev: int, dtype: torch.dtype) -> None:
@@ -360,15 +433,20 @@ def _check_tiling(ncol: int, block_cols: int) -> None:
             f"ncol={ncol} not a multiple of block_cols={block_cols}")
 
 
-def _device_params(params, mp, tps, tv, device) -> torch.Tensor:
+def host_params(params, mp, tps, tv) -> torch.Tensor:
+    """The parameter block a launch's library is built for: ``params``
+    itself (the block of :func:`kernel_params`, held on the host), or the
+    block built from ``mp, tps, tv`` when it is None. Never copies from a
+    device: a ``params`` anywhere but on the CPU raises ``ValueError``."""
     if params is None:
-        return kernel_params(mp, tps, tv, device=device)
-    if (params.device != device or params.dtype != torch.float32
+        return kernel_params(mp, tps, tv)
+    if (params.device.type != "cpu" or params.dtype != torch.float32
             or params.shape != (len(PARAM_NAMES),)
             or not params.is_contiguous()):
         raise ValueError(
-            f"params must be a contiguous float32 ({len(PARAM_NAMES)},) "
-            f"tensor on {device}")
+            f"params must be the host parameter block: a contiguous float32 "
+            f"({len(PARAM_NAMES)},) CPU tensor, not {params.dtype} "
+            f"{tuple(params.shape)} on {params.device}")
     return params
 
 
@@ -395,15 +473,15 @@ def _affine(q_tot_affine):
 def step_column_1m_fused(state: ColumnState, mp, tps, tv, dt, dz,
                          mode: str = "instantaneous", nsub: int = 1,
                          sediment_cloud: bool = True,
-                         block_cols: int = 256,
+                         block_cols: int = BLOCK_COLS,
                          q_tot_affine=None, params=None) -> ColumnState:
     """One fused 1M column step on seven ``(ncol, nlev)`` fields.
 
     ``ncol`` must be a multiple of ``block_cols`` (the columns one thread
     block steps). ``q_tot_affine``: optional ``(scale, bias)`` applied to
-    ``q_tot`` on load (``q_tot*scale + bias``). ``params``: the buffer of
-    :func:`kernel_params`, built here when not given. CPU tensors take
-    :func:`step_column_1m_plain`.
+    ``q_tot`` on load (``q_tot*scale + bias``). ``params``: the host block
+    of :func:`kernel_params` (the kernel is built for its values), built
+    here when not given. CPU tensors take :func:`step_column_1m_plain`.
     """
     ncol, nlev = state.rho.shape
     _check_tiling(ncol, block_cols)
@@ -417,14 +495,13 @@ def step_column_1m_fused(state: ColumnState, mp, tps, tv, dt, dz,
                                     q_tot_affine=q_tot_affine)
     device = _check_cuda(list(state), "step_column_1m_fused")
     _check_supported(mp, mode, nlev, state.rho.dtype)
-    params = _device_params(params, mp, tps, tv, device)
-    lib = _library()
+    lib = _library(host_params(params, mp, tps, tv))
     out = ColumnState(*(torch.empty_like(t) for t in state))
     has_affine, scale, bias = _affine(q_tot_affine)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.column1m_step_unpacked(
         *(t.data_ptr() for t in state), *(t.data_ptr() for t in out),
-        params.data_ptr(), ncol, nlev, block_cols, float(dt), float(dz),
+        ncol, nlev, block_cols, float(dt), float(dz),
         int(bool(sediment_cloud)), has_affine, scale, bias, device.index,
         stream)
     if err:
@@ -440,7 +517,7 @@ step_column_1m_fused.launches = 0
 def step_column_1m_fused_packed(packed: torch.Tensor, mp, tps, tv, dt, dz,
                                 mode: str = "instantaneous", nsub: int = 1,
                                 sediment_cloud: bool = True,
-                                block_cols: int = 128,
+                                block_cols: int = BLOCK_COLS,
                                 q_tot_affine=None,
                                 params=None) -> torch.Tensor:
     """Packed-state variant of :func:`step_column_1m_fused`: the state is
@@ -456,23 +533,33 @@ def step_column_1m_fused_packed(packed: torch.Tensor, mp, tps, tv, dt, dz,
         return step_column_1m_packed_plain(
             packed, mp, tps, tv, dt, dz, mode=mode, nsub=nsub,
             sediment_cloud=sediment_cloud, q_tot_affine=q_tot_affine)
-    device = _check_cuda([packed], "step_column_1m_fused_packed")
+    _check_cuda([packed], "step_column_1m_fused_packed")
     _check_supported(mp, mode, nlev, packed.dtype)
-    params = _device_params(params, mp, tps, tv, device)
-    lib = _library()
-    out = torch.empty_like(packed)
-    has_affine, scale, bias = _affine(q_tot_affine)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.column1m_step_packed(
-        packed.data_ptr(), out.data_ptr(), ncol * nlev,
-        params.data_ptr(), ncol, nlev, block_cols, float(dt), float(dz),
-        int(bool(sediment_cloud)), has_affine, scale, bias, device.index,
-        stream)
-    if err:
-        raise RuntimeError(f"column1m_step_packed launch failed: CUDA "
-                           f"error {err}")
+    out = launch_packed(_library(host_params(params, mp, tps, tv)), packed,
+                        dt, dz, block_cols, sediment_cloud, q_tot_affine)
     step_column_1m_fused_packed.launches += 1
     return out
 
 
 step_column_1m_fused_packed.launches = 0
+
+
+def launch_packed(lib, packed, dt, dz, block_cols: int,
+                  sediment_cloud: bool = True, q_tot_affine=None):
+    """Launch ``lib``'s packed entry point (K1, built for its parameter
+    block) on a checked CUDA ``packed`` state and return the output;
+    uncounted (the wrapper counts its own launches)."""
+    _, ncol, nlev = packed.shape
+    device = packed.device
+    out = torch.empty_like(packed)
+    has_affine, scale, bias = _affine(q_tot_affine)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.column1m_step_packed(
+        packed.data_ptr(), out.data_ptr(), ncol * nlev,
+        ncol, nlev, block_cols, float(dt), float(dz),
+        int(bool(sediment_cloud)), has_affine, scale, bias, device.index,
+        stream)
+    if err:
+        raise RuntimeError(f"column1m_step_packed launch failed: CUDA "
+                           f"error {err}")
+    return out

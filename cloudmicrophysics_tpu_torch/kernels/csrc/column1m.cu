@@ -8,42 +8,109 @@
 // out). One __global__ body serves both; the two C entry points differ
 // only in how they fill the seven field pointers.
 //
-// What bounds it on an H100: each cell reads 7 floats and writes 7
-// (56 B of HBM traffic) but evaluates about 40 exp/log/pow/sqrt calls plus
-// some 15 divisions, so the full-precision SFU/FMA work per byte is high
-// and the step is compute-bound rather than bandwidth-bound (measured on an
-// H100 80GB HBM3 at 700 W: ~20% of a streaming copy's HBM rate, about one
-// instruction issued per scheduler per cycle). The design
-// keeps every intermediate in registers (one HBM read and one write per
-// field, no temporaries in device memory) and shares the per-cell PSD
-// logarithms across all rates, as the eager code does. It is compiled
-// without --use_fast_math and with --fmad=false so that it rounds like
-// the eager PyTorch step operation by operation; parity comes first.
+// Rounding: each expression follows the eager PyTorch step's operation
+// order as PyTorch's CUDA kernels evaluate it, so that the kernel is
+// bit-identical to its plain version: `x / c` for a Python-float c is a
+// multiply by c's reciprocal, taken in double on the host and rounded once
+// to float (the INV_* parameters; 1/3 is kThird), `c / x` is
+// reciprocal(x) * c, and a division by a tensor stays an IEEE division. The
+// logistic integral of the autoconversions divides by x0 and k, which the
+// eager step holds as device tensors: those two stay IEEE divisions too.
+// Built with --fmad=false and without fast math. Each cell evaluates about
+// 40 exp/log/pow/sqrt calls and 15 IEEE divisions; every intermediate stays
+// in registers (one HBM read and one write per field).
 //
-// Layout: a thread owns one (column, level) cell. A block of kThreads
-// threads covers `block_cols` whole columns in passes of kThreads / nlev
-// columns, the level index fastest, so the loads and stores of a warp hit
-// consecutive addresses of the nlev-contiguous fields. Sedimentation needs
-// the flux of the level above (k + 1): each thread writes its four fluxes
-// to shared memory, the block synchronises, and each thread reads its
-// neighbour's. The top level gets no inflow.
+// Parameters: the generated header defines each of the 136 floats of the
+// parameter list as a float literal of its exact value (PC_<name>), and the
+// library is built once per parameter block. Every constant is then an
+// immediate operand: no global load, no constant-bank load, no register to
+// hold it, and branches on a parameter (tpow's exponent) are resolved when
+// the kernel is compiled. Passed by value as a kernel argument instead, the
+// constants reached the arithmetic through uniform registers loaded by
+// ULDC, and the step took about a fifth longer (PERF.md).
+//
+// Layout: a warp steps whole columns, 32 levels at a time from the top chunk
+// down; lane l of chunk c owns level 32 c + l, so each field's load and store
+// of a warp is 128 contiguous bytes. A block's kWarps warps share its
+// `block_cols` columns (warp w takes columns w, w + kWarps, ...). The flux of
+// level k + 1 comes from the next lane by a shuffle; lane 31 takes lane 0's
+// flux of the chunk above, carried from the previous iteration; the top
+// level gets no inflow (levels above nlev carry zero flux). No barrier:
+// warps are independent. Each warp's next chunk is copied into its own
+// shared double buffer by cp.async while it steps the current one, so the
+// copies are in flight during cell_step and hold no registers there; a lane
+// reads back only its own slots.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 #include "column1m_params.h"
 
+// Stage timing: built with -DK1_PROBE, each warp sums the clock64() cycles
+// of every stage of its passes (kept by lane 0) and adds them, with its pass
+// count, to the buffer column1m_probe_set points at when it ends. A stage
+// ends once its results are in registers: K1_SINK stores them to shared
+// memory, a side effect the clock read is not moved across. The sinks add a
+// few instructions, so the probe's times are near the kernel's, not equal.
+// Without K1_PROBE the stamps compile to nothing.
+enum ProbeStage { S_LOAD, S_CELL, S_EXCHANGE, S_STORE, S_COUNT };
+
+#ifdef K1_PROBE
+__device__ unsigned long long* g_k1_probe;
+struct Probe {
+  long long sum[S_COUNT], last, passes;
+  __device__ void start() {
+    for (int s = 0; s < S_COUNT; ++s) sum[s] = 0;
+    passes = 0;
+    last = clock64();
+  }
+  __device__ void stage(int s) {
+    const long long now = clock64();
+    sum[s] += now - last;
+    last = now;
+  }
+  __device__ void flush() {
+    if ((threadIdx.x & 31) != 0) return;
+    for (int s = 0; s < S_COUNT; ++s)
+      atomicAdd(g_k1_probe + s, (unsigned long long)sum[s]);
+    atomicAdd(g_k1_probe + S_COUNT, (unsigned long long)passes);
+  }
+};
+__shared__ volatile float k1_sink[1024];
+#define K1_PROBE_START \
+  Probe probe;         \
+  probe.start()
+#define K1_SINK(v) (k1_sink[threadIdx.x] = (v))
+#define K1_STAGE(s) probe.stage(s)
+#define K1_PASS (++probe.passes)
+#define K1_PROBE_END probe.flush()
+#else
+#define K1_PROBE_START
+#define K1_SINK(v)
+#define K1_STAGE(s)
+#define K1_PASS
+#define K1_PROBE_END
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// resident blocks per SM the registers are held to: the fastest setting
+// without spills of k1_occupancy_sweep.py (PERF.md)
+constexpr int kMinBlocks = 2;
 constexpr int kFields = 7;  // rho, T, q_tot, q_lcl, q_icl, q_rai, q_sno
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kThird = (float)(1.0 / 3.0);
+constexpr float kNegLog2 = (float)-0.6931471805599453;
 
 struct Fields {
   const float* in[kFields];
   float* out[kFields];
 };
 
-#define PV(name) __ldg(P + P_##name)
+#define PV(name) (PC_##name)
 
 // max/min that return `a` when it is NaN, as torch.clamp does
 __device__ __forceinline__ float maxf(float a, float b) { return a < b ? b : a; }
@@ -60,8 +127,17 @@ __device__ __forceinline__ float tpow(float x, float p) {
   return powf(x, p);
 }
 
-// logistic_function_integral(x, x0, k) with x0_safe, k and the translation
-// precomputed on the host (ops/common.py)
+// trnslt = -log1mexp(-k) / k of ops/common.py:logistic_function_integral, as
+// the eager step evaluates it in float32 on the device
+__device__ __forceinline__ float logistic_translation(float k) {
+  const float x = -k;
+  const float x_hi = minf(x, -FLT_MIN);
+  const float l = x > kNegLog2 ? logf(-expm1f(x_hi)) : log1pf(-expf(x_hi));
+  return -l / k;
+}
+
+// logistic_function_integral(x, x0, k) (ops/common.py) with x0_safe and k
+// from the host and the translation from logistic_translation
 __device__ __forceinline__ float logistic_integral(float x_in, float x0s, float k,
                                                    float trn, float x0_lt_eps,
                                                    float eps) {
@@ -75,12 +151,13 @@ __device__ __forceinline__ float logistic_integral(float x_in, float x0s, float 
   return x0_lt_eps != 0.0f ? x : result;
 }
 
-// _relaxation_tendency (ops/noneq.py)
+// _relaxation_tendency (ops/noneq.py) with one timescale: the eager step
+// divides both arms and selects one; dividing only the selected numerator
+// gives the same bits
 __device__ __forceinline__ float relaxation(float sat_excess, float q_cond,
-                                            float ts_dep, float ts_sub) {
-  const float evap = -minf(-sat_excess, maxf(q_cond, 0.0f)) / ts_sub;
-  const float dep = sat_excess / ts_dep;
-  return sat_excess < 0.0f ? evap : dep;
+                                            float ts) {
+  const float evap = -minf(-sat_excess, maxf(q_cond, 0.0f));
+  return (sat_excess < 0.0f ? evap : sat_excess) / ts;
 }
 
 // _accretion_kernel (ops/m1.py), the same left-to-right product
@@ -117,12 +194,14 @@ struct CellOut {
 };
 
 // Everything of models/column.py:step_column_1m for one cell, except the
-// flux exchange between levels.
-__device__ __forceinline__ CellOut cell_step(const float* __restrict__ P,
-                                             float rho, float T, float q_tot,
-                                             float q_lcl, float q_icl,
-                                             float q_rai, float q_sno,
-                                             float dt, bool sediment_cloud) {
+// flux exchange between levels. trn_r, trn_s: the autoconversions' logistic
+// translations.
+__device__ __forceinline__ CellOut cell_step(float trn_r,
+                                             float trn_s, float rho, float T,
+                                             float q_tot, float q_lcl,
+                                             float q_icl, float q_rai,
+                                             float q_sno, float dt,
+                                             bool sediment_cloud) {
   const float eps = PV(EPS);
   const float tiny = PV(TINY);
   const float log_eps = PV(LOG_EPS);
@@ -136,10 +215,12 @@ __device__ __forceinline__ CellOut cell_step(const float* __restrict__ P,
   const float qs_c = maxf(q_sno, 0.0f);
 
   // ---- size_distr_parameters (ops/m1.py), in shared log space ----------
-  const float log_rho = logf(maxf(maxf(rho_c, 0.0f), tiny));
-  const float log_qr = logf(maxf(maxf(qr_c, 0.0f), tiny));
-  const float log_qs = logf(maxf(maxf(qs_c, 0.0f), tiny));
-  const float log_qi = logf(maxf(maxf(qi_c, 0.0f), tiny));
+  // (the eager step clamps the clamped fields to 0 once more: maxf(x_c, 0)
+  // is x_c bit for bit, NaN and -0 included)
+  const float log_rho = logf(maxf(rho_c, tiny));
+  const float log_qr = logf(maxf(qr_c, tiny));
+  const float log_qs = logf(maxf(qs_c, tiny));
+  const float log_qi = logf(maxf(qi_c, tiny));
 
   const float log_n0s_raw =
       PV(LOG_MU_SNO) + PV(NU_SNO) * (log_rho + maxf(log_qs, log_eps));
@@ -176,7 +257,7 @@ __device__ __forceinline__ CellOut cell_step(const float* __restrict__ P,
   const float q_ice = qi_c + qs_c;
   const float cp_air = PV(CP_D) + PV(CPVD) * qt_c + PV(CPLV) * q_liq + PV(CPIV) * q_ice;
   const float qv = maxf(qt_c - q_liq - q_ice, 0.0f);
-  const float log_T = logf(T / PV(T_TRIPLE));
+  const float log_T = logf(T * PV(INV_T_TRIPLE));
   const float inv_T = 1.0f / T;
   const float dinv_T = PV(INV_T_TRIPLE) - inv_T;
   const float p_sat_l = PV(PRESS_TRIPLE) * expf(PV(KV_L) * log_T + PV(CL_L) * dinv_T);
@@ -190,20 +271,20 @@ __device__ __forceinline__ CellOut cell_step(const float* __restrict__ P,
   // ---- cloud condensate formation (ops/noneq.py) -----------------------
   const float dqdT_l = qv_sat_l * (Lv / Rv_T2 - inv_T);
   const float ts_l = PV(TAU_LCL) * (1.0f + (Lv / cp_air) * dqdT_l);
-  const float S_vap_lcl = relaxation(qv - qv_sat_l, ql_c, ts_l, ts_l);
+  const float S_vap_lcl = relaxation(qv - qv_sat_l, ql_c, ts_l);
 
   const float dqdT_i = qv_sat_i * (Ls / Rv_T2 - inv_T);
   const float ts_i = PV(TAU_ICL) * (1.0f + (Ls / cp_air) * dqdT_i);
-  float S_vap_icl = relaxation(qv - qv_sat_i, qi_c, ts_i, ts_i);
+  float S_vap_icl = relaxation(qv - qv_sat_i, qi_c, ts_i);
   S_vap_icl = (T > PV(T_FREEZE) && S_vap_icl > 0.0f) ? 0.0f : S_vap_icl;
 
   // ---- autoconversion --------------------------------------------------
   const float S_acnv_lcl_rai =
-      logistic_integral(ql_c, PV(ACNV_R_X0S), PV(ACNV_R_K), PV(ACNV_R_TRN),
-                        PV(ACNV_R_X0LT), eps) / PV(ACNV_R_TAU);
+      logistic_integral(ql_c, PV(ACNV_R_X0S), PV(ACNV_R_K), trn_r,
+                        PV(ACNV_R_X0LT), eps) * PV(INV_ACNV_R_TAU);
   const float S_acnv_icl_sno =
-      logistic_integral(qi_c, PV(ACNV_S_X0S), PV(ACNV_S_K), PV(ACNV_S_TRN),
-                        PV(ACNV_S_X0LT), eps) / PV(ACNV_S_TAU);
+      logistic_integral(qi_c, PV(ACNV_S_X0S), PV(ACNV_S_K), trn_s,
+                        PV(ACNV_S_X0LT), eps) * PV(INV_ACNV_S_TAU);
 
   // ---- accretion -------------------------------------------------------
   const float pw_accr_rai = expf(PV(PACC_RAI) * (log_lam_rai - PV(LOG_R0_RAI)));
@@ -251,11 +332,11 @@ __device__ __forceinline__ CellOut cell_step(const float* __restrict__ P,
   // rain-snow collisions and the sedimentation
   const float w_rai_raw = v0_rai * PV(CHIV_RAI) *
                           expf(PV(PVT_RAI) * (log_lam_rai - PV(LOG_R0_RAI))) *
-                          PV(GTERM_RAI) / PV(GC_RAI);
+                          PV(GTERM_RAI) * PV(INV_GC_RAI);
   const float w_rai = qr_c > eps ? w_rai_raw : 0.0f;
   const float w_sno_raw = PV(CV0_SNO) *
                           expf(PV(PVT_SNO) * (log_lam_sno - PV(LOG_R0_SNO))) *
-                          PV(GTERM_SNO) / PV(GC_SNO);
+                          PV(GTERM_SNO) * PV(INV_GC_SNO);
   const float w_sno = qs_c > eps ? w_sno_raw : 0.0f;
 
   float S_rai_sno, S_sno_rai;
@@ -272,7 +353,7 @@ __device__ __forceinline__ CellOut cell_step(const float* __restrict__ P,
     r = r * PV(E_RS);
     r = r * dv_sr;
     r = r * PV(GC_RAI);
-    r = r / PV(R0D_RAI);
+    r = r * PV(INV_R0D_RAI);
     r = r * snow_rain_bracket(lam_sno, lam_rai, PV(EXP1_RAI), PV(EXP2_RAI),
                               PV(EXP3_RAI), PV(C2_RAI), PV(C3_RAI));
     S_rai_sno = both ? r : 0.0f;
@@ -287,7 +368,7 @@ __device__ __forceinline__ CellOut cell_step(const float* __restrict__ P,
     r = r * PV(E_RS);
     r = r * dv_rs;
     r = r * PV(GC_SNO);
-    r = r / PV(R0D_SNO);
+    r = r * PV(INV_R0D_SNO);
     r = r * snow_rain_bracket(lam_rai, lam_sno, PV(EXP1_SNO), PV(EXP2_SNO),
                               PV(EXP3_SNO), PV(C2_SNO), PV(C3_SNO));
     S_sno_rai = both ? r : 0.0f;
@@ -297,18 +378,17 @@ __device__ __forceinline__ CellOut cell_step(const float* __restrict__ P,
   const float S_accr_melt_rai_sno = is_warm ? alpha_melt * S_rai_sno : 0.0f;
 
   // ---- evaporation, sublimation/deposition, melt -----------------------
-  const float K_safe = PV(K_THERM_SAFE);
-  const float D_safe = PV(D_VAPOR_SAFE);
   const float p_v = qv * rho_c * PV(R_V) * T;
 
   float S_vap_rai;
   {  // conv_q_rai_to_q_vap
     const float S = p_v / p_sat_l - 1.0f;
-    const float G = 1.0f / (Lv / K_safe / T * (Lv / PV(R_V) / T - 1.0f) +
-                            T * PV(R_V) / D_safe / maxf(p_sat_l, eps));
+    const float G = 1.0f / (Lv * PV(INV_K_THERM_SAFE) / T *
+                                (Lv * PV(INV_R_V) / T - 1.0f) +
+                            T * PV(R_V) * PV(INV_D_VAPOR_SAFE) / maxf(p_sat_l, eps));
     const float vent = PV(VA_RAI) +
                        PV(VBSC_RAI) * expf(PV(PVENT_RAI) * (log_lam_rai - PV(LOG_R0_RAI))) *
-                           sqrtf(2.0f * v0_rai * PV(CHIV_RAI) / PV(NU_AIR) * lam_rai) *
+                           sqrtf(2.0f * v0_rai * PV(CHIV_RAI) * PV(INV_NU_AIR) * lam_rai) *
                            PV(GVENT_RAI);
     const float evap =
         rdiv(PV(C4PI_N0_RAI), rho_c) * S * G * (lam_rai * lam_rai) * vent;
@@ -322,8 +402,9 @@ __device__ __forceinline__ CellOut cell_step(const float* __restrict__ P,
   float S_vap_sno;
   {  // conv_q_sno_to_q_vap, DepositionAndSublimation
     const float S = p_v / p_sat_i - 1.0f;
-    const float G = 1.0f / (Ls / K_safe / T * (Ls / PV(R_V) / T - 1.0f) +
-                            T * PV(R_V) / D_safe / maxf(p_sat_i, eps));
+    const float G = 1.0f / (Ls * PV(INV_K_THERM_SAFE) / T *
+                                (Ls * PV(INV_R_V) / T - 1.0f) +
+                            T * PV(R_V) * PV(INV_D_VAPOR_SAFE) / maxf(p_sat_i, eps));
     const float subl = PV(PI4) * n0_sno / rho_c * S * G * (lam_sno * lam_sno) * vent_sno;
     S_vap_sno = qs_c > eps ? subl : 0.0f;
   }
@@ -366,8 +447,8 @@ __device__ __forceinline__ CellOut cell_step(const float* __restrict__ P,
     const float qi_s = maxf(q_icl, 0.0f);
     // Stokes regime cloud liquid (ops/noneq.py:terminal_velocity)
     const float pref = PV(C18) * (rdiv(PV(RHO_W_STOKES), rho) - 1.0f) *
-                       PV(GRAV_STOKES) / PV(NU_STOKES);
-    const float log_x = logf(PV(C6PI) * rho * ql_s / PV(N0_LCL) / PV(RHO_W_LCL));
+                       PV(GRAV_STOKES) * PV(INV_NU_STOKES);
+    const float log_x = logf(PV(C6PI) * rho * ql_s * PV(INV_N0_LCL) * PV(INV_RHO_W_LCL));
     const float w_lcl_raw = pref * expf(PV(C23) * log_x);
     const float w_lcl = q_lcl > eps ? w_lcl_raw : 0.0f;
     // Chen 2022 small ice
@@ -377,7 +458,8 @@ __device__ __forceinline__ CellOut cell_step(const float* __restrict__ P,
     const float unit = expf(b * PV(LOG1000));
     const float a1 = PV(ES) * rho_pow * unit;
     const float a2 = PV(FS) * rho_pow * unit;
-    float log_D = logf(PV(C6PI) * rho * qi_s / PV(N0_ICL_SED) / PV(RHO_I_ICL)) / 3.0f;
+    float log_D =
+        logf(PV(C6PI) * rho * qi_s * PV(INV_N0_ICL_SED) * PV(INV_RHO_I_ICL)) * kThird;
     log_D = maxf(log_D, PV(LOG_TINY));
     const float D = expf(log_D);
     const float sum = a1 * expf(b * log_D - D * 0.0f) +
@@ -400,43 +482,99 @@ __device__ __forceinline__ CellOut cell_step(const float* __restrict__ P,
   return o;
 }
 
-__global__ void __launch_bounds__(kThreads)
-column1m_step_kernel(Fields f, const float* __restrict__ P, int ncol, int nlev,
-                     int block_cols, float dt, float dz, int sediment_cloud,
-                     int has_affine, float scale, float bias) {
-  __shared__ float flux[4][kThreads];
-  const int t = threadIdx.x;
-  const int cols_per_pass = kThreads / nlev;
-  const int lc = t / nlev;
-  const int k = t - lc * nlev;
-  const int64_t col_base = (int64_t)blockIdx.x * block_cols;
+// Copy this lane's cell of one warp chunk (level k of column col) of the
+// seven fields into its slots of a shared buffer, asynchronously (cp.async,
+// one group); levels above nlev are filled with zeros.
+__device__ __forceinline__ void fetch_chunk(const Fields& f, int col, int k,
+                                            int nlev, float (*buf)[32], int lane) {
+  const bool active = k < nlev;
+  const int64_t idx = (int64_t)col * nlev + (active ? k : 0);
+#pragma unroll
+  for (int i = 0; i < kFields; ++i) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(&buf[i][lane]);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(f.in[i] + idx), "r"(active ? 4 : 0));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  for (int c0 = 0; c0 < block_cols; c0 += cols_per_pass) {
-    const int64_t col = col_base + c0 + lc;
-    const bool active = lc < cols_per_pass && c0 + lc < block_cols && col < ncol;
-    const int64_t idx = col * nlev + k;
-    float rho = 0.0f, q[kFields];
-    CellOut o;
-    if (active) {
-      #pragma unroll
-      for (int i = 0; i < kFields; ++i) q[i] = f.in[i][idx];
-      rho = q[0];
-      if (has_affine) q[2] = q[2] * scale + bias;
-      o = cell_step(P, rho, q[1], q[2], q[3], q[4], q[5], q[6], dt,
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+column1m_step_kernel(const __grid_constant__ Fields f, int ncol, int nlev,
+                     int block_cols, float dt, float dz,
+                     int sediment_cloud, int has_affine, float scale, float bias) {
+  // per warp, two chunks' fields: the one being stepped and the next
+  __shared__ float stage[kWarps][2][kFields][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nchunks = (nlev + 31) >> 5;
+  const int block_end = (blockIdx.x + 1) * block_cols;
+  const int end = block_end < ncol ? block_end : ncol;
+  const float trn_r = logistic_translation(PV(ACNV_R_K));
+  const float trn_s = logistic_translation(PV(ACNV_S_K));
+  K1_PROBE_START;
+
+  // iteration (col, c): chunk c of column col, top chunk first
+  int col = blockIdx.x * block_cols + warp;
+  int c = nchunks - 1;
+  int slot = 0;
+  if (col < end) fetch_chunk(f, col, 32 * c + lane, nlev, stage[warp][0], lane);
+  // lane 31: lane 0's fluxes of the chunk above; none above the top chunk
+  float carry_lcl = 0.0f, carry_icl = 0.0f, carry_rai = 0.0f, carry_sno = 0.0f;
+  while (col < end) {
+    K1_PASS;
+    const int k = 32 * c + lane;
+    const bool active = k < nlev;
+    const int next_col = c == 0 ? col + kWarps : col;
+    const int next_c = c == 0 ? nchunks - 1 : c - 1;
+    // the next chunk's copies are in flight while this one is stepped
+    if (next_col < end)
+      fetch_chunk(f, next_col, 32 * next_c + lane, nlev, stage[warp][slot ^ 1], lane);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    float q[kFields];
+#pragma unroll
+    for (int i = 0; i < kFields; ++i) q[i] = stage[warp][slot][i][lane];
+    K1_SINK(q[0] + q[1] + q[2] + q[3] + q[4] + q[5] + q[6]);
+    K1_STAGE(S_LOAD);
+
+    const float rho = q[0];
+    const float q_tot = has_affine ? q[2] * scale + bias : q[2];
+    CellOut o = {};   // levels above nlev: zero flux
+    if (active)
+      o = cell_step(trn_r, trn_s, rho, q[1], q_tot, q[3], q[4], q[5], q[6], dt,
                     sediment_cloud != 0);
-      flux[0][t] = o.F_lcl;
-      flux[1][t] = o.F_icl;
-      flux[2][t] = o.F_rai;
-      flux[3][t] = o.F_sno;
+    K1_SINK(o.F_lcl + o.F_icl + o.F_rai + o.F_sno + o.T_new + o.dq_lcl + o.dq_icl +
+            o.dq_rai + o.dq_sno);
+    K1_STAGE(S_CELL);
+
+    // inflow from level k + 1: the next lane's flux, by a rotation that
+    // hands lane 31 lane 0's, which lane 31 keeps for the chunk below and
+    // takes from the chunk above
+    const int from = (lane + 1) & 31;
+    const bool bottom = c == 0;   // the next chunk starts a column's top
+    float in_lcl = __shfl_sync(kFull, o.F_lcl, from);
+    float in_icl = __shfl_sync(kFull, o.F_icl, from);
+    float in_rai = __shfl_sync(kFull, o.F_rai, from);
+    float in_sno = __shfl_sync(kFull, o.F_sno, from);
+    if (lane == 31) {
+      float t;
+      t = in_lcl, in_lcl = carry_lcl, carry_lcl = bottom ? 0.0f : t;
+      t = in_icl, in_icl = carry_icl, carry_icl = bottom ? 0.0f : t;
+      t = in_rai, in_rai = carry_rai, carry_rai = bottom ? 0.0f : t;
+      t = in_sno, in_sno = carry_sno, carry_sno = bottom ? 0.0f : t;
     }
-    __syncthreads();
+    K1_SINK(in_lcl + in_icl + in_rai + in_sno + carry_lcl + carry_icl + carry_rai +
+            carry_sno);
+    K1_STAGE(S_EXCHANGE);
+
     if (active) {
-      const bool top = k == nlev - 1;
+      const int64_t idx = (int64_t)col * nlev + k;
       const float rho_dz = rho * dz;
-      const float sed_lcl = ((top ? 0.0f : flux[0][t + 1]) - o.F_lcl) / rho_dz;
-      const float sed_icl = ((top ? 0.0f : flux[1][t + 1]) - o.F_icl) / rho_dz;
-      const float sed_rai = ((top ? 0.0f : flux[2][t + 1]) - o.F_rai) / rho_dz;
-      const float sed_sno = ((top ? 0.0f : flux[3][t + 1]) - o.F_sno) / rho_dz;
+      const float sed_lcl = (in_lcl - o.F_lcl) / rho_dz;
+      const float sed_icl = (in_icl - o.F_icl) / rho_dz;
+      const float sed_rai = (in_rai - o.F_rai) / rho_dz;
+      const float sed_sno = (in_sno - o.F_sno) / rho_dz;
       f.out[0][idx] = rho;
       f.out[1][idx] = o.T_new;
       f.out[2][idx] = maxf(o.q_tot + dt * (sed_lcl + sed_icl + sed_rai + sed_sno), 0.0f);
@@ -445,20 +583,26 @@ column1m_step_kernel(Fields f, const float* __restrict__ P, int ncol, int nlev,
       f.out[5][idx] = maxf(q[5] + dt * (o.dq_rai + sed_rai), 0.0f);
       f.out[6][idx] = maxf(q[6] + dt * (o.dq_sno + sed_sno), 0.0f);
     }
-    __syncthreads();
+    K1_STAGE(S_STORE);
+
+    col = next_col;
+    c = next_c;
+    slot ^= 1;
   }
+  K1_PROBE_END;
 }
 
-int launch(const Fields& f, const float* params, int ncol, int nlev,
-           int block_cols, float dt, float dz, int sediment_cloud,
-           int has_affine, float scale, float bias, int device, void* stream) {
+int launch(const Fields& f, int ncol, int nlev, int block_cols, float dt,
+           float dz, int sediment_cloud, int has_affine, float scale,
+           float bias, int device, void* stream) {
+  if (nlev < 1 || block_cols < 1 || ncol < 1) return (int)cudaErrorInvalidValue;
   // this library's CUDA runtime keeps its own current device
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int grid = (ncol + block_cols - 1) / block_cols;
   column1m_step_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      f, params, ncol, nlev, block_cols, dt, dz, sediment_cloud, has_affine,
-      scale, bias);
+      f, ncol, nlev, block_cols, dt, dz, sediment_cloud, has_affine, scale,
+      bias);
   return (int)cudaGetLastError();
 }
 
@@ -470,27 +614,44 @@ int column1m_threads_per_block() { return kThreads; }
 
 int column1m_num_params() { return N_PARAMS; }
 
+// Blocks of the kernel resident on one SM, as the CUDA runtime computes them
+// from its registers and shared memory.
+int column1m_blocks_per_sm(int device, int* blocks) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, column1m_step_kernel, kThreads, 0);
+  return (int)err;
+}
+
+// Registers and local memory bytes per thread of the kernel.
+int column1m_kernel_attrs(int* registers, int* local_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, column1m_step_kernel);
+  *registers = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return (int)err;
+}
+
 // K2: seven (ncol, nlev) inputs and seven outputs, in ColumnState order.
 int column1m_step_unpacked(const float* rho, const float* T, const float* q_tot,
                            const float* q_lcl, const float* q_icl,
                            const float* q_rai, const float* q_sno,
                            float* rho_out, float* T_out, float* q_tot_out,
                            float* q_lcl_out, float* q_icl_out,
-                           float* q_rai_out, float* q_sno_out,
-                           const float* params, int ncol, int nlev,
+                           float* q_rai_out, float* q_sno_out, int ncol, int nlev,
                            int block_cols, float dt, float dz,
                            int sediment_cloud, int has_affine, float scale,
                            float bias, int device, void* stream) {
   Fields f = {{rho, T, q_tot, q_lcl, q_icl, q_rai, q_sno},
               {rho_out, T_out, q_tot_out, q_lcl_out, q_icl_out, q_rai_out,
                q_sno_out}};
-  return launch(f, params, ncol, nlev, block_cols, dt, dz, sediment_cloud,
-                has_affine, scale, bias, device, stream);
+  return launch(f, ncol, nlev, block_cols, dt, dz, sediment_cloud, has_affine, scale,
+                bias, device, stream);
 }
 
 // K1: one (7, ncol, nlev) input and output; field i starts at i * plane.
-int column1m_step_packed(const float* in, float* out, long long plane,
-                         const float* params, int ncol, int nlev,
+int column1m_step_packed(const float* in, float* out, long long plane, int ncol, int nlev,
                          int block_cols, float dt, float dz,
                          int sediment_cloud, int has_affine, float scale,
                          float bias, int device, void* stream) {
@@ -499,8 +660,20 @@ int column1m_step_packed(const float* in, float* out, long long plane,
     f.in[i] = in + i * plane;
     f.out[i] = out + i * plane;
   }
-  return launch(f, params, ncol, nlev, block_cols, dt, dz, sediment_cloud,
-                has_affine, scale, bias, device, stream);
+  return launch(f, ncol, nlev, block_cols, dt, dz, sediment_cloud, has_affine, scale,
+                bias, device, stream);
 }
+
+#ifdef K1_PROBE
+int column1m_probe_stages() { return S_COUNT; }
+
+// The (S_COUNT + 1) unsigned 64-bit sums the next launches add to: the
+// cycles of each stage, then the warp passes.
+int column1m_probe_set(unsigned long long* sums, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_k1_probe, &sums, sizeof(sums));
+  return (int)err;
+}
+#endif
 
 }  // extern "C"

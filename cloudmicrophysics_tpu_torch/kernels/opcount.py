@@ -10,7 +10,7 @@ Two sources meet here:
   ``csrc/column_p3.cu`` (``-DK5_PROBE``), whose ``K5_COUNT(region[,
   unroll])`` sites count per thread how often each region ran; for K1-K4,
   the per-cell function ``cell_step`` (:func:`function_block`), which runs
-  once per cell.
+  once per cell at its one call site (:func:`call_site_tally`).
 
 The region of a site is the innermost brace block around it. An
 instruction belongs to the innermost region that holds a line of its
@@ -58,9 +58,9 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import NamedTuple
 
-__all__ = ["Instr", "Site", "Tally", "attribute", "disassemble",
-           "dynamic_count", "function_block", "least_paths", "parse_sass",
-           "probe_sites", "region_names", "region_tallies"]
+__all__ = ["Instr", "Site", "Tally", "attribute", "call_site_tally",
+           "disassemble", "dynamic_count", "function_block", "least_paths",
+           "parse_sass", "probe_sites", "region_names", "region_tallies"]
 
 
 class Site(NamedTuple):
@@ -382,6 +382,28 @@ def region_tallies(instrs, sites: dict, source_name: str) -> tuple:
     n = {name: max(1, len(c)) for name, c in copies.items()}
     return ({name: t.scale(1.0 / n[name]) for name, t in per.items()},
             {name: static[name] / n[name] for name in sites}, n, lost)
+
+
+def call_site_tally(instrs, sites: dict, source_name: str,
+                    region: str) -> tuple:
+    """For a region with one call site, run once per call (K1-K4's
+    ``cell_step``, once per cell): the :class:`Tally` of one run along the
+    least path of its largest copy, and that copy's instructions (every
+    arm). Code the compiler hoisted out of the call loses the call site's
+    line from its inline chain and so forms a small copy of its own that
+    does not run per call: the copies are not averaged, as
+    :func:`region_tallies` averages the copies of a region inlined at
+    several sites."""
+    groups, _ = attribute(instrs, sites, source_name)
+    copies = {}
+    for ins, group, kept in zip(instrs, groups, least_paths(instrs, groups)):
+        if group is not None and group[0] == region:
+            copies.setdefault(group[1], []).append((ins, kept))
+    if not copies:
+        raise ValueError(f"no instruction of region {region}")
+    main = max(copies.values(), key=len)
+    tally = sum((_tally(ins) for ins, kept in main if kept), Tally())
+    return tally, len(main)
 
 
 def dynamic_count(per_region: dict, counts: dict, sites: dict) -> dict:

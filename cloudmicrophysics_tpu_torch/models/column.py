@@ -167,14 +167,18 @@ class Column1MStep(nn.Module):
     """One fused 1M column step (instantaneous tendencies, explicit Euler).
 
     Holds the parameters, ``dt``, ``dz`` and the kernel's float32 parameter
-    buffer (computed on the host in float64, stored on ``device``: the GPU
-    unless ``device="cpu"`` is asked for; it follows the module through
-    ``.to(device)``). ``forward(state, q_tot_affine=None)`` advances either
-    a packed ``(7, ncol, nlev)`` tensor (see
-    :func:`..kernels.column1m.pack_state`) or a :class:`ColumnState` by one
-    step and returns the same kind. On CUDA tensors it launches the fused
-    kernel; on CPU tensors it runs the plain version. A thread block steps
-    the largest power of two of columns, up to 128, that divides ``ncol``.
+    block (computed on the host in float64 and kept there: the kernel takes
+    it by value as a launch argument, so it stays on the CPU whatever
+    ``device`` and ``.to()`` say). ``device`` is where the module steps:
+    the GPU unless ``device="cpu"`` is asked for; without a card the
+    default raises PyTorch's own error, as the other step modules do.
+    ``forward(state, q_tot_affine=None)`` advances either a packed
+    ``(7, ncol, nlev)`` tensor (see :func:`..kernels.column1m.pack_state`)
+    or a :class:`ColumnState` by one step and returns the same kind. On
+    CUDA tensors it launches the fused kernel; on CPU tensors it runs the
+    plain version. A thread block steps the largest power of two of
+    columns, up to :data:`..kernels.column1m.BLOCK_COLS`, that divides
+    ``ncol``.
     """
 
     def __init__(self, mp: Microphysics1MParams, tps: ThermodynamicsParameters,
@@ -183,11 +187,11 @@ class Column1MStep(nn.Module):
         super().__init__()
         from ..kernels.column1m import kernel_params
 
+        if torch.device(device).type == "cuda":
+            torch.cuda.get_device_properties(device)   # raises without a card
         self.mp, self.tps, self.tv = mp, tps, tv
         self.dt, self.dz = float(dt), float(dz)
-        self.register_buffer("params", kernel_params(mp, tps, tv,
-                                                     device=device),
-                             persistent=False)
+        self.params = kernel_params(mp, tps, tv)
 
     def forward(self, state, q_tot_affine=None):
         from ..kernels import column1m as K
@@ -197,14 +201,14 @@ class Column1MStep(nn.Module):
         else:
             step, ncol = K.step_column_1m_fused_packed, state.shape[1]
         return step(state, self.mp, self.tps, self.tv, self.dt, self.dz,
-                    block_cols=_block_cols(ncol), q_tot_affine=q_tot_affine,
-                    params=self.params)
+                    block_cols=_block_cols(ncol, K.BLOCK_COLS),
+                    q_tot_affine=q_tot_affine, params=self.params)
 
 
-def _block_cols(ncol: int) -> int:
-    """Columns a thread block steps: 128, or the largest power of two that
-    divides ``ncol`` when 128 does not."""
-    return ncol & -ncol if ncol % 128 else 128
+def _block_cols(ncol: int, most: int = 128) -> int:
+    """Columns a thread block steps: ``most`` (a power of two), or the
+    largest power of two that divides ``ncol`` when ``most`` does not."""
+    return ncol & -ncol if ncol % most else most
 
 
 class ColumnState2M(NamedTuple):

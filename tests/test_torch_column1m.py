@@ -232,16 +232,198 @@ def test_kernel_params_buffer():
     assert q[TK.PARAM_NAMES.index("E_RS")].item() == float(np.float32(0.7))
 
 
-def test_cuda_source_reads_exactly_the_parameter_list():
-    # the header the build generates is the only link between the list and
-    # csrc/column1m.cu: every name the source reads must be in it
+def _source():
+    """csrc/column1m.cu without its comments."""
     src = (_build.CSRC_DIR / "column1m.cu").read_text()
+    return re.sub(r"//[^\n]*|/\*.*?\*/", "", src, flags=re.S)
+
+
+def test_cuda_source_reads_exactly_the_parameter_list():
+    # the generated header is the only link between the list and
+    # csrc/column1m.cu: every name the source reads must be in it, and it
+    # reads them through PV(), as the header's literals, never from memory
+    src = _source()
+    assert "#define PV(name) (PC_##name)" in src
     used = set(re.findall(r"PV\((\w+)\)", src)) - {"name"}
     assert used == set(TK.PARAM_NAMES)
-    header = _build.index_header(TK.PARAM_NAMES, "G")
-    for i, name in enumerate(TK.PARAM_NAMES):
-        assert f"#define P_{name} {i}\n" in header
-    assert f"#define N_PARAMS {len(TK.PARAM_NAMES)}" in header
+    assert re.findall(r"\bPC_\w+", src) == []   # no literal outside PV()
+    assert "__ldg(P" not in src and "__restrict__ P" not in src
+    header = TK.header(TK.kernel_params(MP_T, TPS_T, TV_T))
+    names = re.findall(r"#define PC_(\w+) ", header)
+    assert tuple(names) == TK.PARAM_NAMES
+    assert f"#define N_PARAMS {len(TK.PARAM_NAMES)}\n" in header
+
+
+def test_header_holds_each_value_exactly():
+    block = TK.kernel_params(MP_T, TPS_T, TV_T)
+    header = TK.header(block)
+    literals = re.findall(r"#define PC_\w+ \((\S+)f\)", header)
+    assert len(literals) == len(TK.PARAM_NAMES)
+    assert [float.fromhex(x) for x in literals] == block.tolist()
+    # another block is another header, so another build of the library
+    mp = TP.microphysics_1m_params(
+        process_overrides={"RainSnowAccretion": {"e": 0.7}})
+    assert TK.header(TK.kernel_params(mp, TPS_T, TV_T)) != header
+    with pytest.raises(ValueError, match="136 values"):
+        TK.header(block[:10])
+    with pytest.raises(ValueError, match="non-finite"):
+        TK.header(torch.where(torch.arange(len(block)) == 3,
+                              torch.tensor(float("inf")), block))
+
+
+def _reciprocal_sources(mp, tps, tv):
+    """What each INV_* parameter is the reciprocal of: the Python float the
+    eager step divides a tensor by there."""
+    eps = float(torch.finfo(torch.float32).tiny) ** (1.0 / 3.0)
+    aps, pp = mp.air_properties, mp.process_params
+    rain, snow = mp.precip.rain.mass, mp.precip.snow.mass
+    return {
+        "INV_T_TRIPLE": tps.T_triple, "INV_R_V": tps.R_v,
+        "INV_K_THERM_SAFE": max(aps.K_therm, eps),
+        "INV_D_VAPOR_SAFE": max(aps.D_vapor, eps),
+        "INV_NU_AIR": aps.nu_air,
+        "INV_ACNV_R_TAU": pp.rain_autoconversion.tau,
+        "INV_ACNV_S_TAU": pp.snow_autoconversion.tau,
+        "INV_GC_RAI": rain.gamma_coeff, "INV_GC_SNO": snow.gamma_coeff,
+        "INV_R0D_RAI": rain.r0 ** (rain.me + rain.dm),
+        "INV_R0D_SNO": snow.r0 ** (snow.me + snow.dm),
+        "INV_NU_STOKES": tv.stokes.nu_air,
+        "INV_N0_LCL": mp.cloud.liquid.N_0,
+        "INV_RHO_W_LCL": mp.cloud.liquid.rho_w,
+        "INV_N0_ICL_SED": mp.cloud.ice.N_0,
+        "INV_RHO_I_ICL": mp.cloud.ice.rho_i,
+    }
+
+
+@pytest.mark.parametrize("overrides", [
+    {}, {"Kessler1M": {"tau": 900.0}, "RainSnowAccretion": {"e": 0.7}}])
+def test_reciprocal_params_are_folded_in_float64(overrides):
+    # PyTorch's CUDA `x / c` for a Python float c multiplies by 1/c taken in
+    # float64 and rounded once; the kernel multiplies by the same float32
+    mp = TP.microphysics_1m_params(process_overrides=overrides)
+    sources = _reciprocal_sources(mp, TPS_T, TV_T)
+    names = [n for n in TK.PARAM_NAMES if n.startswith("INV_")]
+    assert set(names) == set(sources)
+    p = TK.kernel_params(mp, TPS_T, TV_T)
+    for name in names:
+        want = np.float32(np.float64(1.0) / np.float64(sources[name]))
+        assert p[TK.PARAM_NAMES.index(name)].item() == float(want), name
+
+
+def _functions(src):
+    """name -> (parameter names, body) of every __device__ function."""
+    out = {}
+    for m in re.finditer(r"__device__ __forceinline__ \w+ (\w+)\(([^)]*)\)"
+                         r"\s*\{", src):
+        depth, i = 1, m.end()
+        while depth:
+            depth += {"{": 1, "}": -1}.get(src[i], 0)
+            i += 1
+        params = [a.split()[-1].lstrip("&*") for a in m.group(2).split(",")
+                  if a.strip()]
+        out[m.group(1)] = (params, src[m.end():i])
+    return out
+
+
+def _call_args(src, name):
+    """The argument lists of every call of ``name`` in ``src``."""
+    calls = []
+    for m in re.finditer(rf"\b{name}\(", src):
+        depth, i, args, start = 1, m.end(), [], m.end()
+        while depth:
+            ch = src[i]
+            if ch in "([":
+                depth += 1
+            elif ch in ")]":
+                depth -= 1
+            elif ch == "," and depth == 1:
+                args.append(src[start:i].strip())
+                start = i + 1
+            i += 1
+        args.append(src[start:i - 1].strip())
+        calls.append(args)
+    return calls
+
+
+# The eager step's logistic integral (ops/common.py) divides by x0 and k
+# held as device tensors: true divisions, which the kernel keeps.
+TENSOR_DIVISORS = {("logistic_integral", "x0s"), ("logistic_integral", "k"),
+                   ("logistic_translation", "k")}
+
+
+def _parameter_divisions(src):
+    """Divisions in ``src`` whose divisor is a parameter: PV(...), a local
+    alias of one, a float literal (``3.0f``; a double constant such as
+    ``(1.0 / 3.0)`` is a host fold), or a function argument that some call
+    fills with one of these."""
+    aliases = set(re.findall(r"\bfloat (\w+) = PV\(\w+\);", src))
+    from_param = set()
+    for fname, (params, _) in _functions(src).items():
+        for args in _call_args(src, fname):
+            for pname, arg in zip(params, args):
+                if re.fullmatch(r"PV\(\w+\)", arg) or arg in aliases:
+                    from_param.add((fname, pname))
+    bad = []
+    for m in re.finditer(r"/\s*(PV\(\w+\)|p\.v\[|[A-Za-z_]\w*|[\d.]+f?)",
+                         src):
+        divisor = m.group(1)
+        if (divisor.startswith(("PV(", "p.v[")) or divisor in aliases
+                or divisor[0] in "0123456789." and divisor.endswith("f")):
+            bad.append(divisor)
+    for fname, (params, body) in _functions(src).items():
+        for m in re.finditer(r"/\s*([A-Za-z_]\w*)", body):
+            if ((fname, m.group(1)) in from_param
+                    and (fname, m.group(1)) not in TENSOR_DIVISORS):
+                bad.append(f"{fname}: {m.group(1)}")
+    return bad
+
+
+def test_cuda_source_divides_by_no_parameter():
+    assert _parameter_divisions(_source()) == []
+
+
+def test_parameter_division_check_finds_each_form():
+    # the check above would see a division by a parameter in each form
+    cases = ["x = a / PV(T_FREEZE);",
+             "const float K_safe = PV(K_THERM); x = a / K_safe;",
+             "__device__ __forceinline__ float f(float a, float c) "
+             "{ return a / c; }\n y = f(x, PV(NU_AIR));",
+             "x = a / p.v[3];", "x = logf(a) / 3.0f;"]
+    for case in cases:
+        assert _parameter_divisions(case), case
+    assert _parameter_divisions("x = a / rho_dz; y = (1.0f / x) * c;") == []
+
+
+def test_host_params_is_the_block_the_kernel_is_built_for():
+    p = TK.host_params(None, MP_T, TPS_T, TV_T)
+    assert p.device.type == "cpu" and p.dtype == torch.float32
+    assert p.shape == (len(TK.PARAM_NAMES),) and p.is_contiguous()
+    values = TK._param_values(MP_T, TPS_T, TV_T)
+    assert p.tolist() == [float(np.float32(values[n]))
+                          for n in TK.PARAM_NAMES]
+    assert TK.header(p) == TK.header(TK.kernel_params(MP_T, TPS_T, TV_T))
+
+
+def test_host_params_makes_no_copy(monkeypatch):
+    # choosing a CUDA-bound call's library reads the host block in place:
+    # no transfer, no copy, no synchronising read of a device value
+    block = TK.kernel_params(MP_T, TPS_T, TV_T)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a copy or transfer of the parameter block")
+
+    for name in ("to", "cpu", "cuda", "clone", "copy_", "item",
+                 "contiguous"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    assert TK.host_params(block, MP_T, TPS_T, TV_T) is block
+    assert "#define PC_EPS" in TK.header(block)
+    monkeypatch.undo()
+    # a block anywhere but on the host is refused, not copied back
+    with pytest.raises(ValueError, match="host parameter block"):
+        TK.host_params(torch.empty(len(TK.PARAM_NAMES), device="meta"),
+                       MP_T, TPS_T, TV_T)
+    with pytest.raises(ValueError, match="host parameter block"):
+        TK.host_params(block.double(), MP_T, TPS_T, TV_T)
 
 
 # ---------------------------------------------------------------------------

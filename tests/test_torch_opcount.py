@@ -153,6 +153,20 @@ def test_attribute_and_dynamic_count():
                    "R_H": opcount.Tally(30.0, 30.0, 0.0)}
 
 
+def test_call_site_tally_takes_the_largest_copy():
+    # R_H's copies hold one FADD (call line 6) and two (call line 7): a
+    # region with one call site runs its main copy, not the mean of both
+    instrs = opcount.parse_sass(SASS)
+    sites = opcount.probe_sites(SOURCE_K)
+    assert opcount.call_site_tally(instrs, sites, "k.cu", "R_H") == (
+        opcount.Tally(2.0, 2.0, 0.0), 2)
+    assert opcount.call_site_tally(instrs, sites, "k.cu", "R_TOP") == (
+        opcount.Tally(3.0, 0.0, 1.0), 3)
+    with pytest.raises(ValueError, match="no instruction of region R_X"):
+        opcount.call_site_tally(instrs, {"R_X": opcount.Site(20, 21, 1)},
+                                "k.cu", "R_X")
+
+
 # a branch with two arms (lines 3 and 4), straight code (line 5) and a loop
 # (line 6); then a guarded body (lines 12-13) whose load the compiler
 # moved above the guard's branch and whose store below the join
