@@ -9,13 +9,15 @@ then, failing at the first phase that does not hold:
 
 1. prints the toolchain (GPU name and power limit, torch, CUDA, nvcc,
    whether triton imports);
-2. prints each source's build time and the compiler's register/spill
-   report; K1/K2's registers, spills and resident blocks per SM; and for
-   K5's three kernels (K5a solve, K5b node pass at each order, K5c
+2. prints each build's time and the compiler's register/spill report;
+   K1/K2's and K3/K4's registers, spills and resident blocks per SM; and
+   for K5's three kernels (K5a solve, K5b node pass at each order, K5c
    epilogue) their registers, spills, stack frame and local memory per
-   thread (``column1m.cu`` and ``column_p3.cu`` are each built twice, the
-   kernel and its probe: ``BUILDS`` in ``kernels/column1m.py`` and
-   ``kernels/column_p3.py``);
+   thread (each source is built as its kernel and its probe, ``BUILDS`` in
+   ``kernels/column1m.py``, ``column2m.py`` and ``column_p3.py``, and
+   ``column2m.cu``, whose parameters and variant are compiled in, once for
+   each 2M parameter block and variant phase 7 runs: default,
+   ``is_limited=False``, Chen 2022);
 3. compares both 1M kernel entry points (packed, K1, and unpacked, K2)
    with their plain PyTorch versions on the card at (4096, 128), ragged
    (1000, 40) and (512, 33), (96, 256), the in-kernel ``q_tot`` affine and
@@ -39,18 +41,21 @@ then, failing at the first phase that does not hold:
    share over 10 fused steps with ``torch.profiler``;
 7. compares both 2M warm-rain kernel entry points (packed, K3, and
    unpacked, K4) with their plain versions at (4096, 128), a ragged
-   (1000, 40), the in-kernel ``q_tot`` affine, ``is_limited=False``,
-   ``rain_velocity="chen2022"`` and the benchmark's uniform 2M state, under
-   the same tolerance, with two tilings agreeing bit for bit;
+   (1000, 40), (64, 512), the in-kernel ``q_tot`` affine,
+   ``is_limited=False``, ``rain_velocity="chen2022"`` and the benchmark's
+   uniform 2M state, under the same tolerance, with two tilings agreeing
+   bit for bit, counts the comparisons that are bit-identical to the plain
+   step and fails unless all are;
 8. drives the 2M path at full width: ``Column2MStep`` over a packed
    (7, 524288, 128) float32 2M state, one step on the unpacked state and
    three timed 30-step rollouts with the same ``q_tot`` affine schedule,
    with the same checks, holding the unpacked step against the plain
-   version;
+   version bit for bit;
 9. times K3 and K4 and their plain versions at that size, holds one
-   full-size packed step against the plain version, quotes K3 against
-   the streaming pass of phase 6, counts the plain step's device kernels
-   and measures the device's idle share over 10 K3 steps;
+   full-size packed step against the plain version bit for bit, prints
+   K3's stage split from its probe build (as K1's in phase 5), quotes K3
+   against the streaming pass of phase 6, counts the plain step's device
+   kernels and measures the device's idle share over 10 K3 steps;
 10. holds K5a's log lambda against the plain shape solve on the ladder
     states, cold and warm-started, bit for bit; then compares the 2M + P3
     step (K5: K5a, K5b, K5c) with its plain version at quadrature
@@ -80,10 +85,11 @@ then, failing at the first phase that does not hold:
     through the timed build's SASS; the probe's warp counts give each
     region's SIMT efficiency and each kernel's share of the warp issue
     rate) and K1-K4's (their ``cell_step`` on its least path, once per
-    cell, with the global loads among its instructions), for each kernel's
-    bound: the larger of its bytes over 3.35 TB/s
-    and its operations' time, float32 operations over 67 TFLOP/s or MUFU
-    operations over 16 per SM per clock (132 SMs at 1.98 GHz), the larger.
+    cell, with the global loads among its instructions, which must be
+    none: their parameters are literals), for each kernel's bound: the
+    larger of its bytes over 3.35 TB/s and its operations' time, float32
+    operations over 67 TFLOP/s or MUFU operations over 16 per SM per clock
+    (132 SMs at 1.98 GHz), the larger.
     Fails if a bound exceeds the kernel's time. The SASS and the probe's
     counts go to ``kernels/build/``.
 
@@ -179,6 +185,9 @@ def _state_recipe_2m(ncol, nlev, seed=0):
 
 # the TPU benchmark's uniform 2M state (benchmarks/bench_suite.py:150-153)
 UNIFORM_2M = (1.1, 288.0, 6e-3, 1e-3, 9e7, 5e-4, 9e5)
+# the 2M parameter options phase 7 runs, each one more build of column2m.cu
+BLOCKS_2M = (("default", {}), ("is_limited=False", {"is_limited": False}),
+             ("rain_velocity=chen2022", {"rain_velocity": "chen2022"}))
 
 
 def _device_state_2m(ncol, nlev, device, seed=0, uniform=False):
@@ -407,21 +416,22 @@ def _k5_build_report(K5):
     return attrs
 
 
-def _k1_stages(K, packed, params):
-    """K1's stage split from its probe build (``-DK1_PROBE``, for the
-    parameter block ``params``) on ``packed``: each stage's share of the
-    warps' ``clock64()`` cycles and its cycles per warp pass, from one
-    launch after a warm-up."""
+def _stages(key, K, lib, packed):
+    """A kernel's stage split from its probe build ``lib`` (``-DK1_PROBE``
+    of ``kernels/column1m.py`` or ``-DK3_PROBE`` of ``column2m.py``, the
+    module ``K``) on ``packed``: each stage's share of the warps'
+    ``clock64()`` cycles and its cycles per warp pass, from one launch
+    after a warm-up."""
     import torch
 
     from cloudmicrophysics_tpu_torch.models.column import _block_cols
 
-    lib = K._library(params, "probe")
+    probe_set = f"{Path(K.SOURCE).stem}_probe_set"
     sums = torch.zeros(len(K.PROBE_STAGES) + 1, dtype=torch.int64,
                        device=packed.device)
-    err = lib.column1m_probe_set(sums.data_ptr(), packed.device.index)
+    err = getattr(lib, probe_set)(sums.data_ptr(), packed.device.index)
     if err:
-        raise RuntimeError(f"column1m_probe_set: CUDA error {err}")
+        raise RuntimeError(f"{probe_set}: CUDA error {err}")
 
     def run():
         K.launch_packed(lib, packed, DT, DZ,
@@ -434,7 +444,7 @@ def _k1_stages(K, packed, params):
     ms = _time_ms(run, reps=1, warmup=0)[0]
     *cycles, passes = sums.tolist()
     total = sum(cycles)
-    print(f"  K1 probe build (clock64 per warp, one launch, {ms:.6g} ms): "
+    print(f"  {key} probe build (clock64 per warp, one launch, {ms:.6g} ms): "
           f"{passes} warp passes; per stage share of the cycles and cycles "
           f"per warp pass: " + ", ".join(
               f"{s} {c / total:.4f} ({c / passes:.6g})"
@@ -526,29 +536,42 @@ def main():
              lambda b=b: K._library(params, b)) for b in K.BUILDS]
     jobs += [(f"{K5.SOURCE} ({b}: {' '.join(K5.BUILDS[b])})",
               lambda b=b: K5._library(b)) for b in K5.BUILDS]
-    jobs.append(("column2m.cu", K2M._library))
+    # column2m.cu: each 2M parameter block and variant phase 7 runs, and the
+    # default one's probe
+    blocks2m = [(tag, K2M.kernel_params_2m(m, tps), K2M._variant(m), b)
+                for tag, opts in BLOCKS_2M
+                for m in [microphysics_2m_params(**opts)]
+                for b in (K2M.BUILDS if not opts else ("kernel",))]
+    jobs += [(f"{K2M.SOURCE} ({tag}, {b}: {' '.join(K2M.BUILDS[b])})",
+              lambda p=p, v=v, b=b: K2M._library(p, v, b))
+             for tag, p, v, b in blocks2m]
     with ThreadPoolExecutor(len(jobs)) as pool:
         builds = dict(zip([j[0] for j in jobs],
                           pool.map(timed_build, [j[1] for j in jobs])))
     for stem, seconds in builds.items():
         print(f"{stem} built and loaded in {seconds:.1f} s")
+    params2m, variant2m = blocks2m[0][1:3]
     for src, path in ((K.SOURCE, K.library_path(params)),
-                      (K2M.SOURCE, K2M.library_path())):
+                      (K2M.SOURCE, K2M.library_path(params2m, variant2m))):
         for line in (path.parent / "build.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src} ptxas: {line.strip()}")
-    k1_attrs = K.kernel_attrs(K._library(params), device.index)
-    ptx = _build.ptxas_report(
-        (K.library_path(params).parent / "build.log").read_text())
-    ptx = next((v for f, v in ptx.items()
-                if "column1m_step_kernel" in f and "stack" in v), {})
-    print(f"  K1/K2 (column1m_step_kernel): {k1_attrs['registers']} "
-          f"registers, {k1_attrs['local_bytes']} B local memory per thread; "
-          f"ptxas: {ptx.get('spill_stores', '?')} B spill stores, "
-          f"{ptx.get('spill_loads', '?')} B spill loads; "
-          f"{k1_attrs['threads']} threads per block, "
-          f"{k1_attrs['blocks_per_sm']} resident blocks per SM "
-          f"({k1_attrs['threads'] * k1_attrs['blocks_per_sm'] // 32} warps)")
+    for keys, mod, lib, path, kernel in (
+            ("K1/K2", K, K._library(params), K.library_path(params),
+             "column1m_step_kernel"),
+            ("K3/K4", K2M, K2M._library(params2m, variant2m),
+             K2M.library_path(params2m, variant2m), "column2m_step_kernel")):
+        attrs = _build.kernel_attrs(lib, Path(mod.SOURCE).stem, device.index)
+        ptx = _build.ptxas_report((path.parent / "build.log").read_text())
+        ptx = next((v for f, v in ptx.items() if kernel in f and "stack" in v),
+                   {})
+        print(f"  {keys} ({kernel}): {attrs['registers']} "
+              f"registers, {attrs['local_bytes']} B local memory per thread; "
+              f"ptxas: {ptx.get('spill_stores', '?')} B spill stores, "
+              f"{ptx.get('spill_loads', '?')} B spill loads; "
+              f"{attrs['threads']} threads per block, "
+              f"{attrs['blocks_per_sm']} resident blocks per SM "
+              f"({attrs['threads'] * attrs['blocks_per_sm'] // 32} warps)")
     k5_attrs = _k5_build_report(K5)
 
     # ---- 3. kernel parity on the card --------------------------------------
@@ -636,7 +659,7 @@ def main():
     if not _same("K1 one full-size step", out, ref, bits):
         raise AssertionError("K1 full-size step differs from the plain step")
     del out, ref
-    _k1_stages(K, packed, model.params)
+    _stages("K1", K, K._library(model.params, "probe"), packed)
 
     # ---- 6. memory roof and idle share -------------------------------------
     print(f"== fused step against a streaming pass over ({len(packed)}, "
@@ -673,14 +696,18 @@ def main():
     print("== K1-K4 bounds: 14 float32 fields per cell read or written, and "
           "cell_step's operations on its least path (kernels/opcount.py)")
     bounds = {}
-    limited, chen = K2M._variant(microphysics_2m_params())
+    limited, chen = variant2m
     cells = NCOL * NLEV
     for ks, source, library, kernel in (
             (("K1", "K2"), K.SOURCE, K.library_path(params),
              "column1m_step_kernel"),
-            (("K3", "K4"), K2M.SOURCE, K2M.library_path(),
+            (("K3", "K4"), K2M.SOURCE,
+             K2M.library_path(params2m, variant2m),
              f"column2m_step_kernelILb{limited}ELb{chen}E")):
         per_cell, every_arm, ldg = _cell_ops(source, library, kernel)
+        if ldg:
+            raise AssertionError(f"{ks}: {ldg} global loads in cell_step, "
+                                 f"whose parameters are literals")
         bound = _bound(14 * 4 * cells, per_cell.scale(cells))
         for k in ks:
             bounds[k] = bound
@@ -739,19 +766,23 @@ def _run_2m(device, K, Column2MStep, microphysics_2m_params, tps, copy_ms):
     # ---- 7. kernel parity on the card --------------------------------------
     print(f"== 2M kernels vs plain version (rtol {RTOL}, atol {ATOL})")
     max_err = {"K3": 0.0, "K4": 0.0}
+    bits = [0, 0]    # K3/K4 comparisons bit-identical to the plain step, of
+    opts = dict(BLOCKS_2M)
     cases = [
-        ("(4096, 128)", {}, 4096, 128, (256, 128), None, False),
-        ("ragged (1000, 40)", {}, 1000, 40, (8, 40), None, False),
-        ("affine (4096, 128)", {}, 4096, 128, (128, 64), AFFINE, False),
-        ("is_limited=False", {"is_limited": False}, 4096, 128, (256, 64),
-         None, False),
-        ("rain_velocity=chen2022", {"rain_velocity": "chen2022"}, 4096, 128,
+        ("(4096, 128)", "default", 4096, 128, (256, 128), None, False),
+        ("ragged (1000, 40)", "default", 1000, 40, (8, 40), None, False),
+        ("(64, 512)", "default", 64, 512, (16, 64), None, False),
+        ("affine (4096, 128)", "default", 4096, 128, (128, 64), AFFINE,
+         False),
+        ("is_limited=False", "is_limited=False", 4096, 128, (256, 64), None,
+         False),
+        ("rain_velocity=chen2022", "rain_velocity=chen2022", 4096, 128,
          (256, 64), None, False),
-        ("uniform bench state", {}, 4096, 128, (256, 128), None, True),
+        ("uniform bench state", "default", 4096, 128, (256, 128), None, True),
     ]
-    for label, opts, ncol, nlev, tilings, affine, uniform in cases:
-        mpc = microphysics_2m_params(**opts)
-        params = K.kernel_params_2m(mpc, tps, device=device)
+    for label, block, ncol, nlev, tilings, affine, uniform in cases:
+        mpc = microphysics_2m_params(**opts[block])
+        params = K.kernel_params_2m(mpc, tps)
         st = _device_state_2m(ncol, nlev, device, seed=7, uniform=uniform)
         if affine is None:   # K4 has no affine, as the Pallas kernel
             ref = K.step_column_2m_plain(st, mpc, tps, DT, DZ)
@@ -759,6 +790,7 @@ def _run_2m(device, K, Column2MStep, microphysics_2m_params, tps, copy_ms):
                     for bc in tilings]
             max_err["K4"] = max(max_err["K4"], _report(
                 f"K4 {label} block_cols={tilings[0]}", _compare(outs[0], ref)))
+            _same(f"K4 {label}", outs[0], ref, bits)
             if not all(torch.equal(a, b) for a, b in zip(*outs)):
                 raise AssertionError(f"K4 {label}: block_cols {tilings} differ")
             print(f"  K4 {label}: block_cols {tilings} agree bit for bit")
@@ -771,9 +803,14 @@ def _run_2m(device, K, Column2MStep, microphysics_2m_params, tps, copy_ms):
         max_err["K3"] = max(max_err["K3"], _report(
             f"K3 {label} block_cols={tilings[0]}",
             _compare(K.unpack_state_2m(pouts[0]), pref)))
+        _same(f"K3 {label}", K.unpack_state_2m(pouts[0]), pref, bits)
         if not torch.equal(pouts[0], pouts[1]):
             raise AssertionError(f"K3 {label}: block_cols {tilings} differ")
         print(f"  K3 {label}: block_cols {tilings} agree bit for bit")
+    print(f"  K3/K4 bit-identical to the plain step in {bits[0]} of {bits[1]} "
+          f"comparisons")
+    if bits[0] != bits[1]:
+        raise AssertionError("K3/K4 differ from the plain step")
     del st, pk, pref, pouts
 
     # ---- 8. the 2M path at full width --------------------------------------
@@ -784,10 +821,12 @@ def _run_2m(device, K, Column2MStep, microphysics_2m_params, tps, copy_ms):
     first, packed, launches = _drive(model, state, K.pack_state_2m,
                                      K.unpack_state_2m, fused, packed_fused,
                                      ("K3", "K4"))
+    ref = K.step_column_2m_plain(state, mp, tps, DT, DZ)
     max_err["K4"] = max(max_err["K4"], _report(
-        "K4 2M path's full-size step vs plain",
-        _compare(first, K.step_column_2m_plain(state, mp, tps, DT, DZ))))
-    del first
+        "K4 2M path's full-size step vs plain", _compare(first, ref)))
+    if not _same("K4 2M path's full-size step", first, ref, bits):
+        raise AssertionError("K4 full-size step differs from the plain step")
+    del first, ref
 
     # ---- 9. kernels and plain versions at full size ------------------------
     print(f"== 2M kernels vs plain version at ({NCOL}, {NLEV}), CUDA events")
@@ -805,11 +844,16 @@ def _run_2m(device, K, Column2MStep, microphysics_2m_params, tps, copy_ms):
         print(f"  {k}: kernel {t_kern:.6g} ms/step, plain {t_plain:.6g} "
               f"ms/step, plain/kernel {t_plain / t_kern:.4g}")
     print(f"  plain version peak device memory {peak_gb:.4g} GB")
+    out = K.unpack_state_2m(model(packed, q_tot_affine=AFFINE))
+    ref = K.unpack_state_2m(K.step_column_2m_packed_plain(
+        packed, mp, tps, DT, DZ, q_tot_affine=AFFINE))
     max_err["K3"] = max(max_err["K3"], _report(
-        "K3 one full-size step vs plain", _compare(
-            K.unpack_state_2m(model(packed, q_tot_affine=AFFINE)),
-            K.unpack_state_2m(K.step_column_2m_packed_plain(
-                packed, mp, tps, DT, DZ, q_tot_affine=AFFINE)))))
+        "K3 one full-size step vs plain", _compare(out, ref)))
+    if not _same("K3 one full-size step", out, ref, bits):
+        raise AssertionError("K3 full-size step differs from the plain step")
+    del out, ref
+    _stages("K3", K, K._library(model.params, K._variant(mp), "probe"),
+            packed)
     nbytes = 2 * packed.numel() * packed.element_size()   # read + write
     print(f"  K3: {timing['K3'][0]:.6g} ms/step, "
           f"{nbytes / timing['K3'][0] / 1e6:.6g} GB/s, "

@@ -20,6 +20,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
+import torch
+
 KERNELS_DIR = Path(__file__).resolve().parent
 CSRC_DIR = KERNELS_DIR / "csrc"
 BUILD_DIR = KERNELS_DIR / "build"
@@ -63,6 +66,58 @@ def index_header(names, guard: str) -> str:
     lines += [f"#define P_{name} {i}" for i, name in enumerate(names)]
     lines += [f"#define N_PARAMS {len(names)}", "#endif", ""]
     return "\n".join(lines)
+
+
+def literal_header(module: str, names, block: torch.Tensor,
+                   defines=()) -> str:
+    """The generated header of a kernel built for one parameter block:
+    ``#define PC_<name>`` as a hexadecimal float literal of each value of
+    ``block`` (exact), in the order of ``names``, then ``defines`` (pairs of
+    a macro name and its value) and ``N_PARAMS``. ``module``: the kernel's
+    Python module (``kernels/<module>.py``), which names the guard."""
+    values = block.numpy()
+    if values.shape != (len(names),):
+        raise ValueError(f"a parameter block has {len(names)} values")
+    if not np.isfinite(values).all():
+        raise ValueError("the parameter block holds a non-finite value")
+    guard = f"{module.upper()}_PARAMS_H"
+    lines = [f"// Generated from kernels/{module}.py's parameter block; "
+             "do not edit.", f"#ifndef {guard}", f"#define {guard}"]
+    lines += [f"#define PC_{name} ({float(v).hex()}f)"
+              for name, v in zip(names, values)]
+    lines += [f"#define {name} {value}" for name, value in defines]
+    lines += [f"#define N_PARAMS {len(names)}", "#endif", ""]
+    return "\n".join(lines)
+
+
+def host_block(params: torch.Tensor, n: int) -> torch.Tensor:
+    """``params`` itself when it is a parameter block a kernel can be built
+    for: a contiguous float32 ``(n,)`` tensor on the host. Never copies from
+    a device: a block anywhere but on the CPU raises ``ValueError``."""
+    if (params.device.type != "cpu" or params.dtype != torch.float32
+            or params.shape != (n,) or not params.is_contiguous()):
+        raise ValueError(
+            f"params must be the host parameter block: a contiguous float32 "
+            f"({n},) CPU tensor, not {params.dtype} {tuple(params.shape)} on "
+            f"{params.device}")
+    return params
+
+
+def kernel_attrs(lib: ctypes.CDLL, prefix: str, device: int = 0) -> dict:
+    """Registers and local memory bytes per thread, threads per block and
+    resident blocks per SM of the kernel of a loaded library whose C entry
+    points ``<prefix>_kernel_attrs``, ``<prefix>_blocks_per_sm`` and
+    ``<prefix>_threads_per_block`` report them (from the CUDA runtime)."""
+    regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = (getattr(lib, f"{prefix}_kernel_attrs")(ctypes.byref(regs),
+                                                  ctypes.byref(local))
+           or getattr(lib, f"{prefix}_blocks_per_sm")(device,
+                                                      ctypes.byref(blocks)))
+    if err:
+        raise RuntimeError(f"{prefix} kernel attributes: CUDA error {err}")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "threads": getattr(lib, f"{prefix}_threads_per_block")(),
+            "blocks_per_sm": blocks.value}
 
 
 def build(source: str, header_name: str, header_text: str,

@@ -36,7 +36,6 @@ from __future__ import annotations
 import ctypes
 import math
 
-import numpy as np
 import torch
 
 from ..models.column import ColumnState, step_column_1m
@@ -330,17 +329,7 @@ def header(params: torch.Tensor) -> str:
     """The generated header of a parameter block: ``#define PC_<name>`` as
     a hexadecimal float literal of each value (exact), in
     :data:`PARAM_NAMES` order, and ``N_PARAMS``."""
-    values = params.numpy()
-    if values.shape != (len(PARAM_NAMES),):
-        raise ValueError(f"a parameter block has {len(PARAM_NAMES)} values")
-    if not np.isfinite(values).all():
-        raise ValueError("the parameter block holds a non-finite value")
-    lines = ["// Generated from kernels/column1m.py's parameter block; do not "
-             "edit.", "#ifndef COLUMN1M_PARAMS_H", "#define COLUMN1M_PARAMS_H"]
-    lines += [f"#define PC_{name} ({float(v).hex()}f)"
-              for name, v in zip(PARAM_NAMES, values)]
-    lines += [f"#define N_PARAMS {len(PARAM_NAMES)}", "#endif", ""]
-    return "\n".join(lines)
+    return _build.literal_header("column1m", PARAM_NAMES, params)
 
 
 def library_path(params: torch.Tensor, build: str = "kernel"):
@@ -395,20 +384,6 @@ def bind(lib: ctypes.CDLL, probe: bool = False) -> ctypes.CDLL:
     return lib
 
 
-def kernel_attrs(lib: ctypes.CDLL, device: int = 0) -> dict:
-    """Registers and local memory bytes per thread, threads per block and
-    resident blocks per SM of the kernel, as the CUDA runtime reports
-    them."""
-    regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = (lib.column1m_kernel_attrs(ctypes.byref(regs), ctypes.byref(local))
-           or lib.column1m_blocks_per_sm(device, ctypes.byref(blocks)))
-    if err:
-        raise RuntimeError(f"column1m kernel attributes: CUDA error {err}")
-    return {"registers": regs.value, "local_bytes": local.value,
-            "threads": lib.column1m_threads_per_block(),
-            "blocks_per_sm": blocks.value}
-
-
 def _check_supported(mp, mode: str, nlev: int, dtype: torch.dtype) -> None:
     if mode != "instantaneous":
         raise NotImplementedError(
@@ -440,14 +415,7 @@ def host_params(params, mp, tps, tv) -> torch.Tensor:
     device: a ``params`` anywhere but on the CPU raises ``ValueError``."""
     if params is None:
         return kernel_params(mp, tps, tv)
-    if (params.device.type != "cpu" or params.dtype != torch.float32
-            or params.shape != (len(PARAM_NAMES),)
-            or not params.is_contiguous()):
-        raise ValueError(
-            f"params must be the host parameter block: a contiguous float32 "
-            f"({len(PARAM_NAMES)},) CPU tensor, not {params.dtype} "
-            f"{tuple(params.shape)} on {params.device}")
-    return params
+    return _build.host_block(params, len(PARAM_NAMES))
 
 
 def _check_cuda(tensors, where: str) -> torch.device:

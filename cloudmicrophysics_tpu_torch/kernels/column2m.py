@@ -22,15 +22,19 @@ A CPU tensor takes the plain version (:func:`step_column_2m_plain`,
 :func:`step_column_2m_packed_plain`). A CUDA tensor launches the kernel,
 or raises ``NotImplementedError`` for what the kernel does not cover: P3
 ice (``mp.ice`` set), rain velocity types other than ``SB2006VelType`` and
-``Chen2022VelTypeRain``, dtypes other than float32, and more than 256
-levels. Both ``is_limited`` values and both velocity types are compiled
-variants of the kernel; any float override is data in its parameter
-buffer.
+``Chen2022VelTypeRain``, dtypes other than float32, and more than
+:data:`MAX_NLEV` levels.
 
-The kernel reads the parameters from one float32 device buffer, built on
-the host in float64 by :func:`kernel_params_2m`. :data:`PARAM_NAMES` is the
-only definition of its order: the build writes the matching
-``#define P_<name> <index>`` header from it.
+The kernel's parameters are compiled into it: :func:`kernel_params_2m`
+builds the float32 parameter block on the host in float64, and the build
+writes each value as an exact float literal into the generated header
+(:func:`header`), with the variant (``is_limited``, Chen 2022 fall speeds)
+as two more macros. So the library is built once per parameter block and
+variant (at its first launch, cached on disk by the header's hash), holds
+that one variant, and every constant is an immediate operand. The wrappers
+read the block on the host, never from the device. :data:`PARAM_NAMES` is
+the only definition of the block's order; the 2M + P3 kernel's list starts
+with it.
 """
 
 from __future__ import annotations
@@ -60,9 +64,13 @@ __all__ = [
 
 _FIELDS = ColumnState2M._fields  # (rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai)
 
-# Threads per block of the kernel (kThreads in csrc/column2m.cu): a block
-# steps whole columns, so nlev may not exceed it.
-MAX_NLEV = 256
+# The levels the kernel is held to: the most its card tests cover (a warp
+# steps a column, so the layout has no bound of its own).
+MAX_NLEV = 512
+# Columns a thread block steps by default (16 warps, a column each; the
+# grid's last, part-empty wave of blocks costs less than with 128): the
+# occupancy sweep's pick (PERF.md).
+BLOCK_COLS = 16
 
 PARAM_NAMES = (
     # float32 thresholds
@@ -191,16 +199,16 @@ def chen_rain_values(chen: Chen2022VelTypeRain) -> dict:
     return v
 
 
-def kernel_params_2m(mp, tps: ThermodynamicsParameters,
-                     device: torch.device | str | None = None) -> torch.Tensor:
-    """The kernel's float32 parameter buffer, in :data:`PARAM_NAMES` order."""
+def kernel_params_2m(mp, tps: ThermodynamicsParameters) -> torch.Tensor:
+    """The kernel's float32 parameter block, in :data:`PARAM_NAMES` order,
+    on the host (a CPU tensor): the kernel is built for its values."""
     values = _param_values(mp, tps)
     if set(values) != set(PARAM_NAMES):
         raise AssertionError(
             "kernel parameter list out of sync: "
             f"{sorted(set(values) ^ set(PARAM_NAMES))}")
-    return torch.tensor([values[n] for n in PARAM_NAMES], dtype=torch.float64,
-                        device=device).to(torch.float32)
+    return torch.tensor([values[n] for n in PARAM_NAMES],
+                        dtype=torch.float64).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -249,37 +257,86 @@ _F = ctypes.c_float
 
 
 SOURCE = "column2m.cu"
-# -lineinfo leaves the code as it is and maps each SASS instruction to its
-# source line, which kernels/opcount.py reads
-FLAGS = ("-lineinfo",)
+# nvcc flags of each build of the source: the one the wrappers launch
+# (-lineinfo leaves the code as it is and maps each SASS instruction to its
+# source line, which kernels/opcount.py reads) and the stage-timing probe
+BUILDS = {
+    "kernel": ("-lineinfo",),
+    "probe": ("-lineinfo", "-DK3_PROBE"),
+}
+# the stages the probe build times, in the order of enum ProbeStage
+PROBE_STAGES = ("load", "cell", "exchange", "store")
 
 
-def _header() -> str:
-    return _build.index_header(PARAM_NAMES, "COLUMN2M_PARAMS_H")
+def header(params: torch.Tensor, variant) -> str:
+    """The generated header of a parameter block and a variant
+    ``(is_limited, chen)`` (:func:`_variant`): ``#define PC_<name>`` as a
+    hexadecimal float literal of each value (exact), in :data:`PARAM_NAMES`
+    order, ``K3_LIMITED``, ``K3_CHEN`` and ``N_PARAMS``."""
+    limited, chen = variant
+    if {limited, chen} - {0, 1}:
+        raise ValueError(f"a variant is two flags 0 or 1, not {variant}")
+    return _build.literal_header("column2m", PARAM_NAMES, params,
+                                 (("K3_LIMITED", int(limited)),
+                                  ("K3_CHEN", int(chen))))
 
 
-def library_path():
-    """The kernel library's file (built if needed)."""
-    return _build.build(SOURCE, "column2m_params.h", _header(), FLAGS)
+def library_path(params: torch.Tensor, variant, build: str = "kernel"):
+    """The file of one of the kernel library's :data:`BUILDS` for the
+    parameter block ``params`` and ``variant`` (built if needed)."""
+    return _build.build(SOURCE, "column2m_params.h", header(params, variant),
+                        BUILDS[build])
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE, "column2m_params.h", _header(), FLAGS)
+_LIBRARIES = {}
+
+
+def _library(params: torch.Tensor, variant,
+             build: str = "kernel") -> ctypes.CDLL:
+    """One of the kernel library's :data:`BUILDS` for the parameter block
+    ``params`` and ``variant``, loaded (built at its first launch, then
+    looked up by the block's bytes and the variant)."""
+    key = (params.numpy().tobytes(), tuple(variant), build)
+    lib = _LIBRARIES.get(key)
+    if lib is None:
+        lib = _LIBRARIES[key] = bind(
+            _build.load(SOURCE, "column2m_params.h", header(params, variant),
+                        BUILDS[build]), variant, build == "probe")
+    return lib
+
+
+def bind(lib: ctypes.CDLL, variant, probe: bool = False) -> ctypes.CDLL:
+    """Set the C signatures of a loaded build of the source for ``variant``
+    (``probe``: the ``-DK3_PROBE`` one) and check it against this module;
+    returns it."""
     if not getattr(lib, "_signatures_set", False):
-        tail = [_P, _I, _I, _I, _F, _F, _I, _I, _I, _F, _F, _I, _P]
+        tail = [_I, _I, _I, _F, _F, _I, _F, _F, _I, _P]
         lib.column2m_step_unpacked.argtypes = [_P] * 14 + tail
         lib.column2m_step_unpacked.restype = _I
         lib.column2m_step_packed.argtypes = [_P, _P, ctypes.c_longlong] + tail
         lib.column2m_step_packed.restype = _I
         lib.column2m_num_params.restype = _I
         lib.column2m_threads_per_block.restype = _I
+        lib.column2m_variant.restype = _I
+        lib.column2m_blocks_per_sm.argtypes = [_I, _P]
+        lib.column2m_blocks_per_sm.restype = _I
+        lib.column2m_kernel_attrs.argtypes = [_P, _P]
+        lib.column2m_kernel_attrs.restype = _I
+        if probe:
+            lib.column2m_probe_set.argtypes = [_P, _I]
+            lib.column2m_probe_set.restype = _I
+            lib.column2m_probe_stages.restype = _I
+            if lib.column2m_probe_stages() != len(PROBE_STAGES):
+                raise RuntimeError("column2m probe built with another "
+                                   "stage list")
         if lib.column2m_num_params() != len(PARAM_NAMES):
             raise RuntimeError("column2m library built from another "
                                "parameter list")
-        if lib.column2m_threads_per_block() != MAX_NLEV:
-            raise RuntimeError("column2m library built with another block "
-                               "size")
         lib._signatures_set = True
+    limited, chen = variant
+    if lib.column2m_variant() != 2 * limited + chen:
+        raise RuntimeError(f"column2m library built for another variant "
+                           f"than {tuple(variant)}")
     return lib
 
 
@@ -301,16 +358,14 @@ def _check_supported(mp, nlev: int, dtype: torch.dtype) -> None:
             f"got {nlev}")
 
 
-def _device_params(params, mp, tps, device) -> torch.Tensor:
+def host_params(params, mp, tps) -> torch.Tensor:
+    """The parameter block a launch's library is built for: ``params``
+    itself (the block of :func:`kernel_params_2m`, held on the host), or
+    the block built from ``mp, tps`` when it is None. Never copies from a
+    device: a ``params`` anywhere but on the CPU raises ``ValueError``."""
     if params is None:
-        return kernel_params_2m(mp, tps, device=device)
-    if (params.device != device or params.dtype != torch.float32
-            or params.shape != (len(PARAM_NAMES),)
-            or not params.is_contiguous()):
-        raise ValueError(
-            f"params must be a contiguous float32 ({len(PARAM_NAMES)},) "
-            f"tensor on {device}")
-    return params
+        return kernel_params_2m(mp, tps)
+    return _build.host_block(params, len(PARAM_NAMES))
 
 
 def _variant(mp):
@@ -320,13 +375,14 @@ def _variant(mp):
 
 
 def step_column_2m_fused(state: ColumnState2M, mp, tps, dt, dz,
-                         block_cols: int = 256,
+                         block_cols: int = BLOCK_COLS,
                          params=None) -> ColumnState2M:
     """One fused 2M warm-rain column step on seven ``(ncol, nlev)`` fields.
 
     ``ncol`` must be a multiple of ``block_cols`` (the columns one thread
-    block steps). ``params``: the buffer of :func:`kernel_params_2m`, built
-    here when not given. CPU tensors take :func:`step_column_2m_plain`.
+    block steps). ``params``: the host block of :func:`kernel_params_2m`
+    (the kernel is built for its values), built here when not given. CPU
+    tensors take :func:`step_column_2m_plain`.
     """
     ncol, nlev = state.rho.shape
     _check_tiling(ncol, block_cols)
@@ -338,14 +394,13 @@ def step_column_2m_fused(state: ColumnState2M, mp, tps, dt, dz,
         return step_column_2m_plain(state, mp, tps, dt, dz)
     device = _check_cuda(list(state), "step_column_2m_fused")
     _check_supported(mp, nlev, state.rho.dtype)
-    params = _device_params(params, mp, tps, device)
-    lib = _library()
+    lib = _library(host_params(params, mp, tps), _variant(mp))
     out = ColumnState2M(*(torch.empty_like(t) for t in state))
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.column2m_step_unpacked(
         *(t.data_ptr() for t in state), *(t.data_ptr() for t in out),
-        params.data_ptr(), ncol, nlev, block_cols, float(dt), float(dz),
-        *_variant(mp), 0, 0.0, 0.0, device.index, stream)
+        ncol, nlev, block_cols, float(dt), float(dz), 0, 0.0, 0.0,
+        device.index, stream)
     if err:
         raise RuntimeError(f"column2m_step_unpacked launch failed: CUDA "
                            f"error {err}")
@@ -357,7 +412,8 @@ step_column_2m_fused.launches = 0
 
 
 def step_column_2m_fused_packed(packed: torch.Tensor, mp, tps, dt, dz,
-                                block_cols: int = 128, q_tot_affine=None,
+                                block_cols: int = BLOCK_COLS,
+                                q_tot_affine=None,
                                 params=None) -> torch.Tensor:
     """Packed-state variant of :func:`step_column_2m_fused`: the state is
     one ``(7, ncol, nlev)`` tensor (see :func:`pack_state_2m`) and maps to a
@@ -372,22 +428,31 @@ def step_column_2m_fused_packed(packed: torch.Tensor, mp, tps, dt, dz,
     if packed.device.type == "cpu":
         return step_column_2m_packed_plain(packed, mp, tps, dt, dz,
                                            q_tot_affine=q_tot_affine)
-    device = _check_cuda([packed], "step_column_2m_fused_packed")
+    _check_cuda([packed], "step_column_2m_fused_packed")
     _check_supported(mp, nlev, packed.dtype)
-    params = _device_params(params, mp, tps, device)
-    lib = _library()
-    out = torch.empty_like(packed)
-    has_affine, scale, bias = _affine(q_tot_affine)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.column2m_step_packed(
-        packed.data_ptr(), out.data_ptr(), ncol * nlev,
-        params.data_ptr(), ncol, nlev, block_cols, float(dt), float(dz),
-        *_variant(mp), has_affine, scale, bias, device.index, stream)
-    if err:
-        raise RuntimeError(f"column2m_step_packed launch failed: CUDA "
-                           f"error {err}")
+    out = launch_packed(_library(host_params(params, mp, tps), _variant(mp)),
+                        packed, dt, dz, block_cols, q_tot_affine)
     step_column_2m_fused_packed.launches += 1
     return out
 
 
 step_column_2m_fused_packed.launches = 0
+
+
+def launch_packed(lib, packed, dt, dz, block_cols: int, q_tot_affine=None):
+    """Launch ``lib``'s packed entry point (K3, built for its parameter
+    block and variant) on a checked CUDA ``packed`` state and return the
+    output; uncounted (the wrapper counts its own launches)."""
+    _, ncol, nlev = packed.shape
+    device = packed.device
+    out = torch.empty_like(packed)
+    has_affine, scale, bias = _affine(q_tot_affine)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.column2m_step_packed(
+        packed.data_ptr(), out.data_ptr(), ncol * nlev, ncol, nlev,
+        block_cols, float(dt), float(dz), has_affine, scale, bias,
+        device.index, stream)
+    if err:
+        raise RuntimeError(f"column2m_step_packed launch failed: CUDA "
+                           f"error {err}")
+    return out

@@ -462,6 +462,10 @@ def _check_supported(mp, nlev: int, dtype: torch.dtype) -> None:
     if ice is None:
         raise NotImplementedError(
             "the CUDA P3 column kernel needs the P3 ice parameters (mp.ice)")
+    if nlev > MAX_NLEV:
+        raise NotImplementedError(
+            f"the CUDA P3 column kernel supports nlev <= {MAX_NLEV}, "
+            f"not {nlev}")
     K2M._check_supported(
         type(mp)(warm_rain=mp.warm_rain, ice=None), nlev, dtype)
     if ice.quadrature_order not in ORDERS or ice.quad.n != ice.quadrature_order:

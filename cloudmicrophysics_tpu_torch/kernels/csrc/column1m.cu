@@ -47,51 +47,10 @@
 
 #include "column1m_params.h"
 
-// Stage timing: built with -DK1_PROBE, each warp sums the clock64() cycles
-// of every stage of its passes (kept by lane 0) and adds them, with its pass
-// count, to the buffer column1m_probe_set points at when it ends. A stage
-// ends once its results are in registers: K1_SINK stores them to shared
-// memory, a side effect the clock read is not moved across. The sinks add a
-// few instructions, so the probe's times are near the kernel's, not equal.
-// Without K1_PROBE the stamps compile to nothing.
-enum ProbeStage { S_LOAD, S_CELL, S_EXCHANGE, S_STORE, S_COUNT };
-
 #ifdef K1_PROBE
-__device__ unsigned long long* g_k1_probe;
-struct Probe {
-  long long sum[S_COUNT], last, passes;
-  __device__ void start() {
-    for (int s = 0; s < S_COUNT; ++s) sum[s] = 0;
-    passes = 0;
-    last = clock64();
-  }
-  __device__ void stage(int s) {
-    const long long now = clock64();
-    sum[s] += now - last;
-    last = now;
-  }
-  __device__ void flush() {
-    if ((threadIdx.x & 31) != 0) return;
-    for (int s = 0; s < S_COUNT; ++s)
-      atomicAdd(g_k1_probe + s, (unsigned long long)sum[s]);
-    atomicAdd(g_k1_probe + S_COUNT, (unsigned long long)passes);
-  }
-};
-__shared__ volatile float k1_sink[1024];
-#define K1_PROBE_START \
-  Probe probe;         \
-  probe.start()
-#define K1_SINK(v) (k1_sink[threadIdx.x] = (v))
-#define K1_STAGE(s) probe.stage(s)
-#define K1_PASS (++probe.passes)
-#define K1_PROBE_END probe.flush()
-#else
-#define K1_PROBE_START
-#define K1_SINK(v)
-#define K1_STAGE(s)
-#define K1_PASS
-#define K1_PROBE_END
+#define STAGE_PROBE
 #endif
+#include "stage_probe.cuh"
 
 namespace {
 
@@ -511,7 +470,7 @@ column1m_step_kernel(const __grid_constant__ Fields f, int ncol, int nlev,
   const int end = block_end < ncol ? block_end : ncol;
   const float trn_r = logistic_translation(PV(ACNV_R_K));
   const float trn_s = logistic_translation(PV(ACNV_S_K));
-  K1_PROBE_START;
+  PROBE_START;
 
   // iteration (col, c): chunk c of column col, top chunk first
   int col = blockIdx.x * block_cols + warp;
@@ -521,7 +480,7 @@ column1m_step_kernel(const __grid_constant__ Fields f, int ncol, int nlev,
   // lane 31: lane 0's fluxes of the chunk above; none above the top chunk
   float carry_lcl = 0.0f, carry_icl = 0.0f, carry_rai = 0.0f, carry_sno = 0.0f;
   while (col < end) {
-    K1_PASS;
+    PROBE_PASS;
     const int k = 32 * c + lane;
     const bool active = k < nlev;
     const int next_col = c == 0 ? col + kWarps : col;
@@ -535,8 +494,8 @@ column1m_step_kernel(const __grid_constant__ Fields f, int ncol, int nlev,
     float q[kFields];
 #pragma unroll
     for (int i = 0; i < kFields; ++i) q[i] = stage[warp][slot][i][lane];
-    K1_SINK(q[0] + q[1] + q[2] + q[3] + q[4] + q[5] + q[6]);
-    K1_STAGE(S_LOAD);
+    PROBE_SINK(q[0] + q[1] + q[2] + q[3] + q[4] + q[5] + q[6]);
+    PROBE_STAGE(S_LOAD);
 
     const float rho = q[0];
     const float q_tot = has_affine ? q[2] * scale + bias : q[2];
@@ -544,9 +503,9 @@ column1m_step_kernel(const __grid_constant__ Fields f, int ncol, int nlev,
     if (active)
       o = cell_step(trn_r, trn_s, rho, q[1], q_tot, q[3], q[4], q[5], q[6], dt,
                     sediment_cloud != 0);
-    K1_SINK(o.F_lcl + o.F_icl + o.F_rai + o.F_sno + o.T_new + o.dq_lcl + o.dq_icl +
+    PROBE_SINK(o.F_lcl + o.F_icl + o.F_rai + o.F_sno + o.T_new + o.dq_lcl + o.dq_icl +
             o.dq_rai + o.dq_sno);
-    K1_STAGE(S_CELL);
+    PROBE_STAGE(S_CELL);
 
     // inflow from level k + 1: the next lane's flux, by a rotation that
     // hands lane 31 lane 0's, which lane 31 keeps for the chunk below and
@@ -564,9 +523,9 @@ column1m_step_kernel(const __grid_constant__ Fields f, int ncol, int nlev,
       t = in_rai, in_rai = carry_rai, carry_rai = bottom ? 0.0f : t;
       t = in_sno, in_sno = carry_sno, carry_sno = bottom ? 0.0f : t;
     }
-    K1_SINK(in_lcl + in_icl + in_rai + in_sno + carry_lcl + carry_icl + carry_rai +
+    PROBE_SINK(in_lcl + in_icl + in_rai + in_sno + carry_lcl + carry_icl + carry_rai +
             carry_sno);
-    K1_STAGE(S_EXCHANGE);
+    PROBE_STAGE(S_EXCHANGE);
 
     if (active) {
       const int64_t idx = (int64_t)col * nlev + k;
@@ -583,13 +542,13 @@ column1m_step_kernel(const __grid_constant__ Fields f, int ncol, int nlev,
       f.out[5][idx] = maxf(q[5] + dt * (o.dq_rai + sed_rai), 0.0f);
       f.out[6][idx] = maxf(q[6] + dt * (o.dq_sno + sed_sno), 0.0f);
     }
-    K1_STAGE(S_STORE);
+    PROBE_STAGE(S_STORE);
 
     col = next_col;
     c = next_c;
     slot ^= 1;
   }
-  K1_PROBE_END;
+  PROBE_END;
 }
 
 int launch(const Fields& f, int ncol, int nlev, int block_cols, float dt,
@@ -671,7 +630,7 @@ int column1m_probe_stages() { return S_COUNT; }
 // cycles of each stage, then the warp passes.
 int column1m_probe_set(unsigned long long* sums, int device) {
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_k1_probe, &sums, sizeof(sums));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_stage_probe, &sums, sizeof(sums));
   return (int)err;
 }
 #endif

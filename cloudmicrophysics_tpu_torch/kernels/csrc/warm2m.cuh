@@ -1,9 +1,16 @@
 // Per-cell device code of the SB2006 warm-rain step, shared by the 2M
 // column kernel (column2m.cu) and the 2M + P3 column kernel (column_p3.cu).
 //
-// The includer first includes its generated parameter header: every P_<name>
-// read here must be defined there (both parameter lists start with the 2M
-// list, so the indices agree). `P` is the float32 parameter buffer.
+// The includer first includes its generated parameter header, and chooses
+// how a parameter is read:
+// * by default from the float32 parameter buffer `P` in global memory, at
+//   the index P_<name> of the header (both parameter lists start with the
+//   2M list, so the indices agree): the 2M + P3 kernel;
+// * with WARM2M_LITERAL_PARAMS defined before the include, as the exact
+//   float literal PC_<name> of the header, an immediate operand: the 2M
+//   column kernel, built once per parameter block. The functions' `P`
+//   argument is then not read (its caller passes nullptr), and there is no
+//   second block of the list (PVO takes OFF == 0 only).
 //
 // Each expression follows the eager PyTorch step's operation order as
 // PyTorch's CUDA kernels evaluate it, so that the kernels round like their
@@ -17,13 +24,23 @@
 
 #include <cuda_runtime.h>
 
+namespace warm2m {
+
+#ifdef WARM2M_LITERAL_PARAMS
+// completed by PVO: a literal block has no second block to offset into
+template <int OFF>
+struct NoOffset {
+  static_assert(OFF == 0, "literal parameters have no second block");
+};
+#define PV(name) (PC_##name)
+#define PVO(name) ((void)sizeof(::warm2m::NoOffset<OFF>), (PC_##name))
+#else
 #define PV(name) __ldg(P + P_##name)
 // the same name OFF entries further on: a second block of the parameter list
 // laid out in the same order (the P3 kernel's ice rain PSD and ice Chen 2022
 // rain coefficients)
 #define PVO(name) __ldg(P + P_##name + OFF)
-
-namespace warm2m {
+#endif
 
 constexpr float kThird = (float)(1.0 / 3.0);
 constexpr float kSixth = (float)(1.0 / 6.0);
@@ -139,15 +156,41 @@ struct WarmRates {
   float dq_lcl, dn_lcl, dq_rai, dn_rai;  // models/tendencies.py:warm_rain_tendencies_2m
 };
 
+// The rain PSD of the process rates (warm_rates: on the clamped state) and
+// of the fall speeds (rain_fall_speeds: on the raw state), which the eager
+// step evaluates twice. Their arguments agree bit for bit unless rho or
+// n_rai is negative, and equal arguments give equal results: the second is
+// then the first, not evaluated again.
+template <bool LIMITED>
+__device__ __forceinline__ void rain_pdfs(const float* __restrict__ P, float rho,
+                                          float q_rai, float n_rai,
+                                          RainPDF& rates, RainPDF& speeds) {
+  const float em = PV(EM), en = PV(EN);
+  const float rho_c = maxf(rho, 0.0f);
+  const float q_r = maxf(maxf(q_rai, 0.0f), em);
+  const float N_r = maxf(rho_c * maxf(n_rai, 0.0f), en);
+  const float q_s = maxf(q_rai, em);
+  const float N_s = maxf(n_rai * rho, en);
+  rates = pdf_rain<LIMITED>(P, q_r, rho_c, N_r);
+  if (__float_as_uint(q_r) == __float_as_uint(q_s) &&
+      __float_as_uint(rho_c) == __float_as_uint(rho) &&
+      __float_as_uint(N_r) == __float_as_uint(N_s))
+    speeds = rates;
+  else
+    speeds = pdf_rain<LIMITED>(P, q_s, rho, N_s);
+}
+
 // models/tendencies.py:bulk_tendencies_2m up to the warm-rain tendencies:
 // the clamps, then warm_rain_tendencies_2m with the (clamped) ice content
-// q_ice in the moist heat capacity and the vapor content (0 without ice)
+// q_ice in the moist heat capacity and the vapor content (0 without ice);
+// `pdf`: the rain PSD of the rates (rain_pdfs), evaluated here when null
 template <bool LIMITED>
 __device__ __forceinline__ WarmRates warm_rates(const float* __restrict__ P,
                                                 float rho, float T, float q_tot,
                                                 float q_lcl, float n_lcl,
                                                 float q_rai, float n_rai,
-                                                float q_ice) {
+                                                float q_ice,
+                                                const RainPDF* pdf = nullptr) {
   const float em = PV(EM), en = PV(EN);
 
   // ---- clamped state ---------------------------------------------------
@@ -183,7 +226,8 @@ __device__ __forceinline__ WarmRates warm_rates(const float* __restrict__ P,
   }
 
   // ---- rain PSD of the rates: evaporation, self-collection, breakup ----
-  const float xr_mean = pdf_rain<LIMITED>(P, maxf(qr_c, em), rho_c, maxf(N_rai, en)).xr_mean;
+  const float xr_mean =
+      (pdf ? *pdf : pdf_rain<LIMITED>(P, maxf(qr_c, em), rho_c, maxf(N_rai, en))).xr_mean;
   const float xr_safe = maxf(xr_mean, PV(TINY));
   const float Dr = tpow(6.0f * xr_safe * PV(INV_PI_RHO_W), kThird);
 
@@ -302,14 +346,17 @@ struct RainSpeeds {
 };
 
 // ops/m2.py:rain_terminal_velocity on the unclamped state, as the column
-// step calls it: SB2006 (Rogers-type) or Chen 2022 fall speeds
+// step calls it: SB2006 (Rogers-type) or Chen 2022 fall speeds; `pdf`: the
+// rain PSD of the fall speeds (rain_pdfs), evaluated here when null
 template <bool LIMITED, bool CHEN>
 __device__ __forceinline__ RainSpeeds rain_fall_speeds(const float* __restrict__ P,
                                                        float rho, float q_rai,
-                                                       float n_rai) {
+                                                       float n_rai,
+                                                       const RainPDF* pdf = nullptr) {
   const float em = PV(EM), en = PV(EN);
   const float N_v = n_rai * rho;
-  const float Dm = pdf_rain<LIMITED>(P, maxf(q_rai, em), rho, maxf(N_v, en)).Dr_mean;
+  const float Dm =
+      (pdf ? *pdf : pdf_rain<LIMITED>(P, maxf(q_rai, em), rho, maxf(N_v, en))).Dr_mean;
   float v0, v1;
   if (CHEN) {
     const ChenRain c = chen_rain_coeffs(P, rho);

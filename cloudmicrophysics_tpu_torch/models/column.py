@@ -167,9 +167,10 @@ class Column1MStep(nn.Module):
     """One fused 1M column step (instantaneous tendencies, explicit Euler).
 
     Holds the parameters, ``dt``, ``dz`` and the kernel's float32 parameter
-    block (computed on the host in float64 and kept there: the kernel takes
-    it by value as a launch argument, so it stays on the CPU whatever
-    ``device`` and ``.to()`` say). ``device`` is where the module steps:
+    block (computed on the host in float64 and kept there: the kernel's
+    library is built with the block's values compiled in, so it stays on
+    the CPU whatever ``device`` and ``.to()`` say). ``device`` is where the
+    module steps:
     the GPU unless ``device="cpu"`` is asked for; without a card the
     default raises PyTorch's own error, as the other step modules do.
     ``forward(state, q_tot_affine=None)`` advances either a packed
@@ -301,16 +302,19 @@ class Column2MStep(nn.Module):
     """One fused 2M warm-rain column step (SB2006, explicit Euler).
 
     Holds the parameters, ``dt``, ``dz`` and the kernel's float32 parameter
-    buffer (computed on the host in float64, stored on ``device``: the GPU
-    unless ``device="cpu"`` is asked for; it follows the module through
-    ``.to(device)``). ``forward(state, q_tot_affine=None)`` advances either
-    a packed ``(7, ncol, nlev)`` tensor (see
+    block (computed on the host in float64 and kept there: the kernel's
+    library is built with the block's values and the variant compiled in,
+    so it stays on the CPU whatever ``device`` and ``.to()`` say).
+    ``device`` is where the module steps: the GPU unless ``device="cpu"``
+    is asked for; without a card the default raises PyTorch's own error, as
+    the other step modules do. ``forward(state, q_tot_affine=None)``
+    advances either a packed ``(7, ncol, nlev)`` tensor (see
     :func:`..kernels.column2m.pack_state_2m`) or a :class:`ColumnState2M` by
     one step and returns the same kind; ``q_tot_affine`` applies to the
     packed state only, as in the JAX package. On CUDA tensors it launches
     the fused kernel; on CPU tensors it runs the plain version. A thread
-    block steps the largest power of two of columns, up to 128, that
-    divides ``ncol``.
+    block steps the largest power of two of columns, up to
+    :data:`..kernels.column2m.BLOCK_COLS`, that divides ``ncol``.
     """
 
     def __init__(self, mp, tps: ThermodynamicsParameters, dt: float,
@@ -318,11 +322,11 @@ class Column2MStep(nn.Module):
         super().__init__()
         from ..kernels.column2m import kernel_params_2m
 
+        if torch.device(device).type == "cuda":
+            torch.cuda.get_device_properties(device)   # raises without a card
         self.mp, self.tps = mp, tps
         self.dt, self.dz = float(dt), float(dz)
-        self.register_buffer("params", kernel_params_2m(mp, tps,
-                                                        device=device),
-                             persistent=False)
+        self.params = kernel_params_2m(mp, tps)
 
     def forward(self, state, q_tot_affine=None):
         from ..kernels import column2m as K
@@ -332,11 +336,11 @@ class Column2MStep(nn.Module):
                 raise ValueError("q_tot_affine needs the packed state")
             return K.step_column_2m_fused(
                 state, self.mp, self.tps, self.dt, self.dz,
-                block_cols=_block_cols(state.rho.shape[0]),
+                block_cols=_block_cols(state.rho.shape[0], K.BLOCK_COLS),
                 params=self.params)
         return K.step_column_2m_fused_packed(
             state, self.mp, self.tps, self.dt, self.dz,
-            block_cols=_block_cols(state.shape[1]),
+            block_cols=_block_cols(state.shape[1], K.BLOCK_COLS),
             q_tot_affine=q_tot_affine, params=self.params)
 
 

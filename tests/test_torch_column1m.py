@@ -352,22 +352,23 @@ TENSOR_DIVISORS = {("logistic_integral", "x0s"), ("logistic_integral", "k"),
 
 
 def _parameter_divisions(src):
-    """Divisions in ``src`` whose divisor is a parameter: PV(...), a local
-    alias of one, a float literal (``3.0f``; a double constant such as
-    ``(1.0 / 3.0)`` is a host fold), or a function argument that some call
-    fills with one of these."""
-    aliases = set(re.findall(r"\bfloat (\w+) = PV\(\w+\);", src))
+    """Divisions in ``src`` whose divisor is a parameter: PV(...) or
+    PVO(...), a local alias of one, a float literal (``3.0f``; a double
+    constant such as ``(1.0 / 3.0)`` is a host fold), or a function argument
+    that some call fills with one of these."""
+    aliases = set(re.findall(
+        r"(?:\bfloat\s+|,\s*)(\w+) = PVO?\(\w+\)(?=[;,])", src))
     from_param = set()
     for fname, (params, _) in _functions(src).items():
         for args in _call_args(src, fname):
             for pname, arg in zip(params, args):
-                if re.fullmatch(r"PV\(\w+\)", arg) or arg in aliases:
+                if re.fullmatch(r"PVO?\(\w+\)", arg) or arg in aliases:
                     from_param.add((fname, pname))
     bad = []
-    for m in re.finditer(r"/\s*(PV\(\w+\)|p\.v\[|[A-Za-z_]\w*|[\d.]+f?)",
-                         src):
+    for m in re.finditer(
+            r"/\s*(PVO?\(\w+\)|p\.v\[|[A-Za-z_]\w*|[\d.]+f?)", src):
         divisor = m.group(1)
-        if (divisor.startswith(("PV(", "p.v[")) or divisor in aliases
+        if (divisor.startswith(("PV(", "PVO(", "p.v[")) or divisor in aliases
                 or divisor[0] in "0123456789." and divisor.endswith("f")):
             bad.append(divisor)
     for fname, (params, body) in _functions(src).items():
@@ -388,7 +389,9 @@ def test_parameter_division_check_finds_each_form():
              "const float K_safe = PV(K_THERM); x = a / K_safe;",
              "__device__ __forceinline__ float f(float a, float c) "
              "{ return a / c; }\n y = f(x, PV(NU_AIR));",
-             "x = a / p.v[3];", "x = logf(a) / 3.0f;"]
+             "x = a / p.v[3];", "x = logf(a) / 3.0f;",
+             "x = a / PVO(XR_MIN);",
+             "const float em = PV(EM), en = PV(EN); x = a / en;"]
     for case in cases:
         assert _parameter_divisions(case), case
     assert _parameter_divisions("x = a / rho_dz; y = (1.0f / x) * c;") == []

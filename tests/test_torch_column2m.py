@@ -29,6 +29,7 @@ from cloudmicrophysics_tpu.models import column as JC
 from cloudmicrophysics_tpu_torch.kernels import _build
 from cloudmicrophysics_tpu_torch.kernels import column2m as TK
 from cloudmicrophysics_tpu_torch.models import column as TC
+from test_torch_column1m import _parameter_divisions
 
 TPS_J, TPS_T = JP.ThermodynamicsParameters(), TP.ThermodynamicsParameters()
 DT, DZ = 1.0, 100.0
@@ -212,6 +213,36 @@ def test_cuda_path_rejects_what_the_kernel_lacks(mp, nlev, dtype, match):
         TK._check_supported(mp, nlev, dtype)
 
 
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("case", ["device", "float64", "nlev", "P3 ice"])
+def test_wrappers_raise_and_do_not_fall_back(monkeypatch, packed, case):
+    # a tensor anywhere but on the CPU launches the kernel or raises: the
+    # plain version and the library are never reached for what the kernel
+    # lacks (meta tensors stand in for a card's; "device": no kernel there,
+    # the others: a CUDA device as _check_cuda would report it)
+    def refuse(*args, **kwargs):
+        raise AssertionError("fell back or reached the kernel library")
+
+    for name in ("step_column_2m_plain", "step_column_2m_packed_plain",
+                 "_library"):
+        monkeypatch.setattr(TK, name, refuse)
+    if case != "device":
+        monkeypatch.setattr(TK, "_check_cuda",
+                            lambda *a: torch.device("cuda", 0))
+    nlev = TK.MAX_NLEV + 1 if case == "nlev" else 8
+    dtype = torch.float64 if case == "float64" else torch.float32
+    mp = dataclasses.replace(MP_T, ice=object()) if case == "P3 ice" else MP_T
+    st = TC.ColumnState2M(*(torch.empty((16, nlev), dtype=dtype,
+                                        device="meta") for _ in range(7)))
+    match = "device type 'meta'" if case == "device" else case
+    with pytest.raises(NotImplementedError, match=match):
+        if packed:
+            TK.step_column_2m_fused_packed(TK.pack_state_2m(st), mp, TPS_T,
+                                           DT, DZ, block_cols=8)
+        else:
+            TK.step_column_2m_fused(st, mp, TPS_T, DT, DZ, block_cols=8)
+
+
 @pytest.mark.parametrize("options", OPTIONS)
 def test_cuda_path_accepts_both_options(options):
     TK._check_supported(_mps(**options)[1], TK.MAX_NLEV, torch.float32)
@@ -222,6 +253,7 @@ def test_cuda_path_accepts_both_options(options):
 def test_kernel_params_buffer():
     p = TK.kernel_params_2m(MP_T, TPS_T)
     assert p.dtype == torch.float32 and p.shape == (len(TK.PARAM_NAMES),)
+    assert p.device.type == "cpu"
     assert bool(torch.isfinite(p).all())
     values = TK._param_values(MP_T, TPS_T)
     for i, name in enumerate(TK.PARAM_NAMES):
@@ -240,22 +272,115 @@ def test_kernel_params_buffer():
         np.float32(TP.Chen2022VelTypeRain().b_rho))
 
 
+def _source(name="column2m.cu"):
+    """A file of csrc/ without its comments."""
+    src = (_build.CSRC_DIR / name).read_text()
+    return re.sub(r"//[^\n]*|/\*.*?\*/", "", src, flags=re.S)
+
+
 def test_cuda_source_reads_exactly_the_parameter_list():
-    # the header the build generates is the only link between the list and
+    # the generated header is the only link between the list and
     # csrc/column2m.cu with the warm-rain device code it includes
     # (csrc/warm2m.cuh, shared with the P3 kernel): every name they read
-    # must be in it
-    src = (_build.CSRC_DIR / "column2m.cu").read_text()
-    shared = (_build.CSRC_DIR / "warm2m.cuh").read_text()
+    # must be in it, and column2m.cu reads them through warm2m.cuh's literal
+    # accessor, as the header's literals, never from memory
+    src, shared = _source(), _source("warm2m.cuh")
     used = set(re.findall(r"PVO?\((\w+)\)", src + shared)) - {"name"}
     assert used == set(TK.PARAM_NAMES)
-    assert '#include "column2m_params.h"' in src
-    # the only other file of csrc/ it includes is the shared header
-    local = set(re.findall(r'#include "([^"]+)"', src))
-    assert local == {"column2m_params.h", "warm2m.cuh"}
-    header = _build.index_header(TK.PARAM_NAMES, "G")
-    for i, name in enumerate(TK.PARAM_NAMES):
-        assert f"#define P_{name} {i}\n" in header
+    includes = re.findall(r'#(include "[^"]+"|define WARM2M_LITERAL_PARAMS)',
+                          src)
+    assert includes == ['include "column2m_params.h"',
+                        "define WARM2M_LITERAL_PARAMS",
+                        'include "warm2m.cuh"', 'include "stage_probe.cuh"']
+    assert "#define PV(name) (PC_##name)" in shared
+    assert re.findall(r"\bPC_\w+", src) == []   # no literal outside PV()
+    assert "__ldg" not in src and "__restrict__ P" not in src
+    header = TK.header(TK.kernel_params_2m(MP_T, TPS_T), (1, 0))
+    names = re.findall(r"#define PC_(\w+) ", header)
+    assert tuple(names) == TK.PARAM_NAMES
+    assert "#define K3_LIMITED 1\n#define K3_CHEN 0\n" in header
+    assert f"#define N_PARAMS {len(TK.PARAM_NAMES)}\n" in header
+
+
+def test_p3_kernel_keeps_its_parameter_loads():
+    # column_p3.cu includes warm2m.cuh without the literal accessor, so the
+    # shared code reads the P3 kernel's parameter buffer, as it always has
+    src = _source("column_p3.cu")
+    assert "WARM2M_LITERAL_PARAMS" not in src
+    assert '#include "column_p3_params.h"\n#include "warm2m.cuh"' in src
+    shared = _source("warm2m.cuh")
+    default = shared[shared.index("#else"):shared.index("#endif")]
+    assert "#define PV(name) __ldg(P + P_##name)" in default
+    assert "#define PVO(name) __ldg(P + P_##name + OFF)" in default
+
+
+@pytest.mark.parametrize("options", [OPTIONS[0], OPTIONS[3]])
+def test_header_holds_each_value_exactly(options):
+    mp = _mps(**options)[1]
+    block, variant = TK.kernel_params_2m(mp, TPS_T), TK._variant(mp)
+    header = TK.header(block, variant)
+    literals = re.findall(r"#define PC_\w+ \((\S+)f\)", header)
+    assert len(literals) == len(TK.PARAM_NAMES)
+    assert [float.fromhex(x) for x in literals] == block.tolist()
+    assert (f"#define K3_LIMITED {variant[0]}\n#define K3_CHEN {variant[1]}\n"
+            in header)
+    # another block or another variant is another header, so another build
+    sb = TP.sb2006(accr={"kcr": 6.0})
+    other = dataclasses.replace(mp, warm_rain=dataclasses.replace(
+        mp.warm_rain, seifert_beheng=sb))
+    assert TK.header(TK.kernel_params_2m(other, TPS_T), variant) != header
+    assert TK.header(block, (1 - variant[0], variant[1])) != header
+    with pytest.raises(ValueError, match=f"{len(TK.PARAM_NAMES)} values"):
+        TK.header(block[:10], variant)
+    with pytest.raises(ValueError, match="non-finite"):
+        TK.header(torch.where(torch.arange(len(block)) == 3,
+                              torch.tensor(float("nan")), block), variant)
+    with pytest.raises(ValueError, match="two flags"):
+        TK.header(block, (2, 0))
+
+
+@pytest.mark.parametrize("name", ["column2m.cu", "warm2m.cuh"])
+def test_cuda_source_divides_by_no_parameter(name):
+    # a division by a parameter would round otherwise than the eager step's
+    # multiply by its host-folded reciprocal
+    assert _parameter_divisions(_source(name)) == []
+
+
+def test_host_params_is_the_block_the_kernel_is_built_for():
+    p = TK.host_params(None, MP_T, TPS_T)
+    assert p.device.type == "cpu" and p.dtype == torch.float32
+    assert p.shape == (len(TK.PARAM_NAMES),) and p.is_contiguous()
+    values = TK._param_values(MP_T, TPS_T)
+    assert p.tolist() == [float(np.float32(values[n]))
+                          for n in TK.PARAM_NAMES]
+    variant = TK._variant(MP_T)
+    assert TK.header(p, variant) == TK.header(
+        TK.kernel_params_2m(MP_T, TPS_T), variant)
+    model = TC.Column2MStep(MP_T, TPS_T, DT, DZ, device="cpu")
+    assert torch.equal(model.params, p)
+    assert model.to("cpu").params.device.type == "cpu"
+
+
+def test_host_params_makes_no_copy(monkeypatch):
+    # choosing a CUDA-bound call's library reads the host block in place:
+    # no transfer, no copy, no synchronising read of a device value
+    block = TK.kernel_params_2m(MP_T, TPS_T)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a copy or transfer of the parameter block")
+
+    for name in ("to", "cpu", "cuda", "clone", "copy_", "item",
+                 "contiguous"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    assert TK.host_params(block, MP_T, TPS_T) is block
+    assert "#define PC_EM" in TK.header(block, TK._variant(MP_T))
+    monkeypatch.undo()
+    # a block anywhere but on the host is refused, not copied back
+    with pytest.raises(ValueError, match="host parameter block"):
+        TK.host_params(torch.empty(len(TK.PARAM_NAMES), device="meta"),
+                       MP_T, TPS_T)
+    with pytest.raises(ValueError, match="host parameter block"):
+        TK.host_params(block.double(), MP_T, TPS_T)
 
 
 # ---------------------------------------------------------------------------

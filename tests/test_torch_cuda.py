@@ -13,7 +13,7 @@ rtol 3e-5 / atol 1e-10, tests/test_kernels.py:192-198); tilings must agree
 bit for bit (each cell is computed by the same code whatever block steps
 it), and so must K5a's log lambda and the plain shape solve (the
 fixed-trip Brent stops at another iterate on a last-bit change). The 1M
-kernels (K1, K2) are held to their plain step bit for bit.
+and 2M kernels (K1-K4) are held to their plain step bit for bit.
 """
 
 import json
@@ -98,7 +98,7 @@ def test_kernel_matches_plain(device, ncol, nlev, block_cols):
 
 def test_column1m_step_module(device):
     model = Column1MStep(MP, TPS, TV, DT, DZ).to(device)
-    # the kernel takes its parameters by value: the block stays on the host
+    # the kernel is built with the block's values: it stays on the host
     assert model.params.device.type == "cpu"
     st = _state(256, 64, device)
     packed = K.pack_state(st)
@@ -145,9 +145,12 @@ def _state_2m(ncol, nlev, device, dtype=torch.float32, seed=7):
 @pytest.mark.parametrize("rain_velocity", ["sb2006", "chen2022"])
 @pytest.mark.parametrize("ncol,nlev,block_cols", [(512, 128, 64),
                                                   (1000, 40, 8),
-                                                  (96, 256, 32)])
+                                                  (96, 256, 32),
+                                                  (64, 512, 16)])
 def test_2m_kernel_matches_plain(device, ncol, nlev, block_cols, is_limited,
                                  rain_velocity):
+    # nlev 40 leaves the top 32-level chunk of a column ragged; 512 is
+    # MAX_NLEV
     mp = microphysics_2m_params(is_limited=is_limited,
                                 rain_velocity=rain_velocity)
     st = _state_2m(ncol, nlev, device)
@@ -156,6 +159,8 @@ def test_2m_kernel_matches_plain(device, ncol, nlev, block_cols, is_limited,
     out = K2.step_column_2m_fused(st, mp, TPS, DT, DZ, block_cols=block_cols)
     assert K2.step_column_2m_fused.launches == before + 1
     _assert_close(out, ref)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
     packed = K2.step_column_2m_fused_packed(K2.pack_state_2m(st), mp, TPS,
                                             DT, DZ, block_cols=block_cols)
     assert torch.equal(packed, K2.pack_state_2m(out))
@@ -164,14 +169,19 @@ def test_2m_kernel_matches_plain(device, ncol, nlev, block_cols, is_limited,
 def test_column2m_step_module(device):
     mp = microphysics_2m_params()
     model = Column2MStep(mp, TPS, DT, DZ).to(device)
-    assert model.params.device == device
+    # the kernel is built with the block's values: it stays on the host
+    assert model.params.device.type == "cpu"
     st = _state_2m(256, 64, device)
     packed = K2.pack_state_2m(st)
     for affine in (None, (1.001, 1e-9)):
         ref = K2.step_column_2m_packed_plain(packed, mp, TPS, DT, DZ,
                                              q_tot_affine=affine)
         _assert_close(model(packed, q_tot_affine=affine), ref)
+        assert torch.equal(model(packed, q_tot_affine=affine), ref)
     _assert_close(model(st), K2.step_column_2m_plain(st, mp, TPS, DT, DZ))
+    with pytest.raises(ValueError, match="host parameter block"):
+        K2.step_column_2m_fused_packed(packed, mp, TPS, DT, DZ, block_cols=64,
+                                       params=model.params.to(device))
 
 
 def test_2m_cuda_rejections(device):
@@ -338,11 +348,12 @@ def test_entry_points_default_to_the_gpu(device):
     )
 
     mp = microphysics_2m_params(with_ice=True, quadrature_order=8)
-    # K1/K2 take their parameter block by value, from the host
+    # K1-K4 are built with their parameter block's values: it stays on the
+    # host; K5 reads its block from device memory
     assert Column1MStep(MP, TPS, TV, DT, DZ).params.device.type == "cpu"
-    for model in (Column2MStep(microphysics_2m_params(), TPS, DT, DZ),
-                  ColumnP3Step(mp, TPS, DT, DZ)):
-        assert model.params.device.type == "cuda"
+    assert Column2MStep(microphysics_2m_params(), TPS, DT,
+                        DZ).params.device.type == "cpu"
+    assert ColumnP3Step(mp, TPS, DT, DZ).params.device.type == "cuda"
     arrays = {name: np.asarray(t.cpu()) for name, t in
               zip(ColumnStateP3._fields, _state_p3(64, 16, device))}
     st = column_state_p3_from_numpy(arrays)

@@ -2,7 +2,9 @@
 asked for: the state converters and the three column-step modules default
 to ``device="cuda"``. Where no GPU is present that default fails with
 PyTorch's own error rather than falling back to the CPU; with
-``device="cpu"`` they build CPU tensors."""
+``device="cpu"`` they build CPU tensors. The 1M and 2M modules keep their
+parameter block on the host wherever they step (their kernels are built
+for its values)."""
 
 import inspect
 
@@ -21,16 +23,20 @@ CONVERTERS = [
 
 
 def _modules():
+    """Each step module's constructor, and where its parameter block lives
+    when it steps on the card: the 1M and 2M kernels are built with the
+    block's values compiled in, so their block stays on the host; the P3
+    kernel reads its block from device memory."""
     tps = TP.ThermodynamicsParameters()
     return [
-        lambda **kw: TC.Column1MStep(TP.microphysics_1m_params(), tps,
-                                     TP.terminal_velocity_params(), 1.0,
-                                     100.0, **kw),
-        lambda **kw: TC.Column2MStep(TP.microphysics_2m_params(), tps, 1.0,
-                                     100.0, **kw),
-        lambda **kw: TC.ColumnP3Step(
+        (lambda **kw: TC.Column1MStep(TP.microphysics_1m_params(), tps,
+                                      TP.terminal_velocity_params(), 1.0,
+                                      100.0, **kw), "cpu"),
+        (lambda **kw: TC.Column2MStep(TP.microphysics_2m_params(), tps, 1.0,
+                                      100.0, **kw), "cpu"),
+        (lambda **kw: TC.ColumnP3Step(
             TP.microphysics_2m_params(with_ice=True, quadrature_order=4),
-            tps, 1.0, 100.0, **kw),
+            tps, 1.0, 100.0, **kw), "cuda"),
     ]
 
 
@@ -60,9 +66,9 @@ def test_step_modules_take_cuda_as_default_device(cls):
 
 @pytest.mark.parametrize("index", range(3))
 def test_step_modules_build_their_buffer_on_the_default_device(index):
-    make = _modules()[index]
+    make, on_card = _modules()[index]
     if torch.cuda.is_available():
-        assert make().params.device.type == "cuda"
+        assert make().params.device.type == on_card
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             make()
