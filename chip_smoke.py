@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the fused 1M, 2M and 2M + P3 column kernels from
+Builds the fused 1M, 2M and 2M + P3 column kernels and the roofline's
+copy kernel (K6) and ``expf`` probe from
 ``cloudmicrophysics_tpu_torch/kernels/csrc`` with ``nvcc`` (one compiler per
 source, started together, into the package's ignored ``build/`` directory),
 then, failing at the first phase that does not hold:
@@ -17,7 +18,9 @@ then, failing at the first phase that does not hold:
    ``kernels/column1m.py``, ``column2m.py`` and ``column_p3.py``, and
    ``column2m.cu``, whose parameters and variant are compiled in, once for
    each 2M parameter block and variant phase 7 runs: default,
-   ``is_limited=False``, Chen 2022);
+   ``is_limited=False``, Chen 2022); and the registers and resident blocks
+   per SM of K6 (``copy_scale``) and the probe (``exp_chain``), both in
+   ``roof.cu``;
 3. compares both 1M kernel entry points (packed, K1, and unpacked, K2)
    with their plain PyTorch versions on the card at (4096, 128), ragged
    (1000, 40) and (512, 33), (96, 256), the in-kernel ``q_tot`` affine and
@@ -36,8 +39,17 @@ then, failing at the first phase that does not hold:
    and prints K1's stage split from its probe build (each stage's share of
    the warps' clock64 cycles: loads to first use, cell_step, the flux
    exchange, stores);
-6. times a plain streaming pass over the packed state (``torch.mul``, the
-   memory roof the kernel is quoted against) and measures the device's idle
+6. holds K6 (``kernels/roof.copy_step``) bit for bit against its plain
+   version (``x * s + 1e-12``) at (7, 4096, 128), a ragged (7, 1001, 33),
+   a view offset by one element (with a fresh output, and with an output
+   offset alike), K6c's all-ones input and the full-size packed state, and
+   the ``expf`` probe (``exp_chain_step``, 64 links) against its plain
+   chain the same way, counting the bit-identical cases and failing on a
+   miss; times K6 on the packed (7, 524288, 128) state by CUDA events (the
+   memory roof every kernel is quoted against from here on) beside its
+   bytes bound, its plain version and two library calls (``torch.mul``, and
+   ``torch.add`` with ``alpha``, the one call that computes K6's function),
+   times the probe and its plain chain, and measures the device's idle
    share over 10 fused steps with ``torch.profiler``;
 7. compares both 2M warm-rain kernel entry points (packed, K3, and
    unpacked, K4) with their plain versions at (4096, 128), a ragged
@@ -54,7 +66,7 @@ then, failing at the first phase that does not hold:
 9. times K3 and K4 and their plain versions at that size, holds one
    full-size packed step against the plain version bit for bit, prints
    K3's stage split from its probe build (as K1's in phase 5), quotes K3
-   against the streaming pass of phase 6, counts the plain step's device
+   against K6's rate of phase 6, counts the plain step's device
    kernels and measures the device's idle share over 10 K3 steps;
 10. holds K5a's log lambda against the plain shape solve on the ladder
     states, cold and warm-started, bit for bit; then compares the 2M + P3
@@ -79,7 +91,7 @@ then, failing at the first phase that does not hold:
     and each of K5a, K5b and K5c by CUDA events with the SM clock sampled
     beside them, measures the device's idle share over 10 K5 steps, prints
     the plain step's peak device memory and device kernels (counted on one
-    column chunk), quotes K5 against the streaming pass of phase 6, and
+    column chunk), quotes K5 against K6's rate of phase 6, and
     counts K5's operations (kernels/opcount.py: the probe build's region
     counts on this state times each region's operations on its least path
     through the timed build's SASS; the probe's warp counts give each
@@ -87,24 +99,41 @@ then, failing at the first phase that does not hold:
     rate) and K1-K4's (their ``cell_step`` on its least path, once per
     cell, with the global loads among its instructions, which must be
     none: their parameters are literals), for each kernel's bound: the
-    larger of its bytes over 3.35 TB/s and its operations' time, float32
-    operations over 67 TFLOP/s or MUFU operations over 16 per SM per clock
-    (132 SMs at 1.98 GHz), the larger.
+    larger of its bytes over the card's data-sheet memory rate and its
+    operations' time, float32 operations over its float32 rate (128 lanes
+    per SM, an FMA two) or MUFU operations over 16 per SM per clock, the
+    larger, both at the card's maximum SM clock (``perf.hbm_bytes_per_s``
+    by the card's name, and its SM count and clock: 3.35 TB/s, 132 SMs at
+    1.98 GHz for the H100 SXM).
     Fails if a bound exceeds the kernel's time. The SASS and the probe's
-    counts go to ``kernels/build/``.
+    counts go to ``kernels/build/``;
+13. runs the port's roofline (``cloudmicrophysics_tpu_torch.roofline``) at
+    full width, with every launch counter set to 0 just before and read
+    just after: K6's copy roof and the ``expf`` rate at 524288 x 128, K1
+    and K3 at that size and K5 at 16384 x 128 GL-16, and prints its rows
+    and each kernel's share of both roofs; fails unless every kernel of the
+    roofline launched as often as it was driven;
+14. gates the three step modules at full width with ``perf.bench_press``
+    (budgets about 1.5 times PERF.md's times: ``Column1MStep`` 6 ms,
+    ``Column2MStep`` 6.3 ms, ``ColumnP3Step`` GL-16 warm-started 47 ms;
+    no library built or loaded by a repeat call; no float64 output).
 
-The line before the last is a JSON object with one entry per kernel (K5's
-with its three kernels under ``subkernels``); the last line is
+Then it prints the ``expf`` probe's JSON object on a line of its own, the
+card's name and power limit as ``nvidia-smi`` gives them, and, on the line
+before the last, a JSON object with one entry per kernel (K5's with its
+three kernels under ``subkernels``); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits with a
 non-zero code and prints no result.
 """
 
 import json
+import functools
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -113,28 +142,50 @@ DT, DZ = 1.0, 100.0
 N_STEPS, N_ROLLOUTS = 30, 3   # the benchmark's rollout length and count
 RTOL, ATOL = 2e-5, 2e-9       # the Pallas kernel's contract (tests/test_kernels.py)
 AFFINE = (1.0 + 1e-4 * 5, 1e-9 * 6)
-# the H100 SXM's published HBM rate and float32 rate outside the tensor
-# cores (an FMA two operations); its special-function units' rate, 16
-# results per SM per clock (the CUDA C++ Programming Guide's throughput
-# table, compute capability 9.0); and its warp instruction issue rate, one
-# per scheduler per clock: 132 SMs at the 1.98 GHz boost clock
-HBM_BYTES_PER_S = 3.35e12
-FP32_PER_S = 67e12
-MUFU_PER_S = 132 * 16 * 1.98e9
-WARP_ISSUE_PER_S = 132 * 4 * 1.98e9
+class Rates(NamedTuple):
+    """The card's published rates: its HBM rate (``perf.hbm_bytes_per_s``
+    by its name); its float32 rate outside the tensor cores, 128 lanes per
+    SM (an FMA two operations); its special-function units' rate, 16
+    results per SM per clock; and its warp instruction issue rate, one per
+    scheduler, four per SM, per clock (the CUDA C++ Programming Guide's
+    throughput table, compute capability 9.0); each at the card's maximum
+    SM clock as ``nvidia-smi`` reports it."""
+    hbm: float
+    fp32: float
+    mufu: float
+    warp_issue: float
+    sms: int
+    clock_hz: float
+
+
+@functools.lru_cache(maxsize=None)
+def _rates():
+    """The :class:`Rates` of card 0."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch import perf
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = 1e6 * float(_run(["nvidia-smi", "--id=0",
+                              "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"]
+                             ).splitlines()[0])
+    return Rates(perf.hbm_bytes_per_s(torch.cuda.get_device_name(0)),
+                 sms * 256 * clock, sms * 16 * clock, sms * 4 * clock, sms,
+                 clock)
 
 
 def _ops_ms(tally):
     """Least ms of an operation count (:class:`opcount.Tally`): its float32
     operations at the float32 rate or its special-function operations at
     theirs, the larger."""
-    return max(tally.flops / FP32_PER_S, tally.mufu / MUFU_PER_S) * 1e3
+    return max(tally.flops / _rates().fp32, tally.mufu / _rates().mufu) * 1e3
 
 
 def _bound(nbytes, tally):
     """(ms, "bytes" or "operations"): the larger of the bytes' time at the
     HBM rate and the operations' time."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, _ops_ms(tally)
+    t_bytes, t_ops = nbytes / _rates().hbm * 1e3, _ops_ms(tally)
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -150,55 +201,9 @@ def _gpu_line():
                  "--format=csv,noheader"]).splitlines()[0]
 
 
-def _state_recipe(ncol, nlev, seed=0):
-    """The benchmark's state (``__graft_entry__._build``), in numpy."""
-    rng = np.random.default_rng(seed)
-    shape = (ncol, nlev)
-    ones = np.ones((ncol, 1))
-    yield np.linspace(1.2, 0.4, nlev)[None, :] * ones
-    yield np.linspace(300.0, 220.0, nlev)[None, :] * ones
-    for scale in (1e-2, 1e-3, 5e-4, 5e-4, 5e-4):
-        yield scale * rng.random(shape)
-
-
-def _device_state(ncol, nlev, device, seed=0):
-    import torch
-
-    from cloudmicrophysics_tpu_torch.models.column import ColumnState
-
-    return ColumnState(*(
-        torch.from_numpy(a.astype(np.float32)).to(device)
-        for a in _state_recipe(ncol, nlev, seed)))
-
-
-def _state_recipe_2m(ncol, nlev, seed=0):
-    """The 2M state: the 1M recipe's rho and T profiles, random contents
-    and numbers, in numpy."""
-    rng = np.random.default_rng(seed)
-    shape = (ncol, nlev)
-    ones = np.ones((ncol, 1))
-    yield np.linspace(1.2, 0.4, nlev)[None, :] * ones
-    yield np.linspace(300.0, 220.0, nlev)[None, :] * ones
-    for scale in (1e-2, 1e-3, 1e8, 5e-4, 1e6):
-        yield scale * rng.random(shape)
-
-
-# the TPU benchmark's uniform 2M state (benchmarks/bench_suite.py:150-153)
-UNIFORM_2M = (1.1, 288.0, 6e-3, 1e-3, 9e7, 5e-4, 9e5)
 # the 2M parameter options phase 7 runs, each one more build of column2m.cu
 BLOCKS_2M = (("default", {}), ("is_limited=False", {"is_limited": False}),
              ("rain_velocity=chen2022", {"rain_velocity": "chen2022"}))
-
-
-def _device_state_2m(ncol, nlev, device, seed=0, uniform=False):
-    import torch
-
-    from cloudmicrophysics_tpu_torch.models.column import ColumnState2M
-
-    arrays = ([np.full((ncol, nlev), v) for v in UNIFORM_2M] if uniform
-              else _state_recipe_2m(ncol, nlev, seed))
-    return ColumnState2M(*(torch.from_numpy(a.astype(np.float32)).to(device)
-                           for a in arrays))
 
 
 def _compare(out, ref):
@@ -224,12 +229,14 @@ def _report(label, rows):
 
 
 def _same(label, out, ref, tally):
-    """Whether two ColumnStates are equal bit for bit; prints the cells
-    that differ per field when not, and adds the outcome to ``tally``
-    (``[identical, compared]``)."""
+    """Whether two ColumnStates (or two tensors) are equal bit for bit;
+    prints the cells that differ per field when not, and adds the outcome
+    to ``tally`` (``[identical, compared]``)."""
     import torch
 
-    diff = {n: int((a != b).sum()) for n, a, b in zip(ref._fields, out, ref)
+    pairs = ([("values", out, ref)] if isinstance(ref, torch.Tensor)
+             else zip(ref._fields, out, ref))
+    diff = {n: int((a != b).sum()) for n, a, b in pairs
             if not torch.equal(a, b)}
     tally[0] += not diff
     tally[1] += 1
@@ -486,6 +493,8 @@ def main():
     from cloudmicrophysics_tpu_torch.kernels import column1m as K
     from cloudmicrophysics_tpu_torch.kernels import column2m as K2M
     from cloudmicrophysics_tpu_torch.kernels import column_p3 as K5
+    from cloudmicrophysics_tpu_torch.kernels import roof as R
+    from cloudmicrophysics_tpu_torch.models.bench_states import device_state
     from cloudmicrophysics_tpu_torch.models.column import (
         Column1MStep,
         Column2MStep,
@@ -510,6 +519,11 @@ def main():
     print("== toolchain")
     gpu_line = _gpu_line()
     print(f"gpu: {gpu_line}")
+    rates = _rates()
+    print(f"rates: HBM {rates.hbm:.6g} B/s (data sheet), float32 "
+          f"{rates.fp32:.6g} FLOP/s, MUFU {rates.mufu:.6g}/s, warp issue "
+          f"{rates.warp_issue:.6g}/s ({rates.sms} SMs at "
+          f"{rates.clock_hz / 1e9:g} GHz)")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, "
           f"capability {torch.cuda.get_device_capability(0)}")
@@ -536,6 +550,8 @@ def main():
              lambda b=b: K._library(params, b)) for b in K.BUILDS]
     jobs += [(f"{K5.SOURCE} ({b}: {' '.join(K5.BUILDS[b])})",
               lambda b=b: K5._library(b)) for b in K5.BUILDS]
+    jobs += [(f"{R.SOURCE} ({b}: {' '.join(R.BUILDS[b])})",
+              lambda b=b: R._library(b)) for b in R.BUILDS]
     # column2m.cu: each 2M parameter block and variant phase 7 runs, and the
     # default one's probe
     blocks2m = [(tag, K2M.kernel_params_2m(m, tps), K2M._variant(m), b)
@@ -573,6 +589,17 @@ def main():
               f"{attrs['blocks_per_sm']} resident blocks per SM "
               f"({attrs['threads'] * attrs['blocks_per_sm'] // 32} warps)")
     k5_attrs = _k5_build_report(K5)
+    roof_log = (R.library_path().parent / "build.log").read_text()
+    roof_ptx = _build.ptxas_report(roof_log)
+    for prefix in R.PREFIXES:
+        attrs = _build.kernel_attrs(R._library(), prefix, device.index)
+        ptx = next((v for f, v in roof_ptx.items()
+                    if f"{prefix}_kernel" in f and "stack" in v), {})
+        print(f"  {prefix} ({R.SOURCE}): {attrs['registers']} registers, "
+              f"{attrs['local_bytes']} B local memory per thread; ptxas: "
+              f"{ptx.get('spill_stores', '?')} B spill stores; "
+              f"{attrs['threads']} threads per block, "
+              f"{attrs['blocks_per_sm']} resident blocks per SM")
 
     # ---- 3. kernel parity on the card --------------------------------------
     print(f"== kernel vs plain version (rtol {RTOL}, atol {ATOL})")
@@ -586,7 +613,7 @@ def main():
              ("(4096, 128) sediment_cloud=False", 4096, 128, (256, 16), None,
               False)]
     for label, ncol, nlev, tilings, affine, sed in cases:
-        st = _device_state(ncol, nlev, device, seed=7)
+        st = device_state(ncol, nlev, device, seed=7)
         kw = dict(q_tot_affine=affine, sediment_cloud=sed)
         ref = K.step_column_1m_plain(st, mp, tps, tv, DT, DZ, **kw)
         outs = [fused(st, mp, tps, tv, DT, DZ, block_cols=bc, params=params,
@@ -620,7 +647,7 @@ def main():
     # ---- 4. the main path at full width ------------------------------------
     print(f"== main path: Column1MStep on ({NCOL}, {NLEV}) float32, "
           f"{N_ROLLOUTS} x {N_STEPS} steps")
-    state = _device_state(NCOL, NLEV, device)
+    state = device_state(NCOL, NLEV, device)
     model = Column1MStep(mp, tps, tv, DT, DZ, device=device)
     first, packed, launches = _drive(model, state, K.pack_state,
                                      K.unpack_state, fused, packed_fused,
@@ -661,23 +688,17 @@ def main():
     del out, ref
     _stages("K1", K, K._library(model.params, "probe"), packed)
 
-    # ---- 6. memory roof and idle share -------------------------------------
-    print(f"== fused step against a streaming pass over ({len(packed)}, "
-          f"{NCOL}, {NLEV}) float32")
-    buf = torch.empty_like(packed)
-    copy_ms = min(_time_ms(lambda: torch.mul(packed, 1.0 + 1e-6, out=buf),
-                           reps=10))
-    nbytes = 2 * packed.numel() * packed.element_size()   # read + write
-    print(f"  streaming pass (torch.mul): {copy_ms:.6g} ms, "
-          f"{nbytes / copy_ms / 1e6:.6g} GB/s")
+    # ---- 6. K6 and the expf probe; memory roof and idle share -------------
+    k6, probe = _run_roof(device, R, packed)
+    copy_ms, nbytes = k6["ms"], k6["nbytes"]
     print(f"  K1: {timing['K1'][0]:.6g} ms/step, "
           f"{nbytes / timing['K1'][0] / 1e6:.6g} GB/s, "
-          f"{copy_ms / timing['K1'][0]:.4g} of the streaming pass's rate")
+          f"{copy_ms / timing['K1'][0]:.4g} of K6's rate")
     idle = _idle_share(lambda: model(packed, q_tot_affine=AFFINE), calls=10)
     print("  device idle share over 10 K1 steps (torch.profiler): "
           + ("not measured, the profiler saw no device time" if idle is None
              else f"{idle:.6g}"))
-    del buf, state, packed, model
+    del state, packed, model
 
     launches2, max_err2, timing2 = _run_2m(
         device, K2M, Column2MStep, microphysics_2m_params, tps, copy_ms)
@@ -695,7 +716,7 @@ def main():
     # ---- bounds of K1-K4: bytes, and their operations per cell ----------
     print("== K1-K4 bounds: 14 float32 fields per cell read or written, and "
           "cell_step's operations on its least path (kernels/opcount.py)")
-    bounds = {}
+    bounds, mufu = {}, {}    # mufu: MUFU operations per step
     limited, chen = variant2m
     cells = NCOL * NLEV
     for ks, source, library, kernel in (
@@ -709,6 +730,7 @@ def main():
             raise AssertionError(f"{ks}: {ldg} global loads in cell_step, "
                                  f"whose parameters are literals")
         bound = _bound(14 * 4 * cells, per_cell.scale(cells))
+        rates = _rates()
         for k in ks:
             bounds[k] = bound
             print(f"  {k}: per cell {per_cell.flops:g} float32 operations, "
@@ -716,17 +738,26 @@ def main():
                   f"issued ({every_arm:g} with every arm, {ldg} of them "
                   f"global loads); bound "
                   f"{bound[0]:.6g} ms ({bound[1]}; bytes "
-                  f"{14 * 4 * cells / HBM_BYTES_PER_S * 1e3:.4g} ms, float32 "
-                  f"{per_cell.flops * cells / FP32_PER_S * 1e3:.4g} ms, MUFU "
-                  f"{per_cell.mufu * cells / MUFU_PER_S * 1e3:.4g} ms), kernel "
-                  f"{timing[k][0]:.6g} ms, {bound[0] / timing[k][0]:.4g} of "
-                  f"the bound; issue {per_cell.issued * cells / 32 / WARP_ISSUE_PER_S * 1e3:.4g}"
+                  f"{14 * 4 * cells / rates.hbm * 1e3:.4g} ms, float32 "
+                  f"{per_cell.flops * cells / rates.fp32 * 1e3:.4g} ms, MUFU "
+                  f"{per_cell.mufu * cells / rates.mufu * 1e3:.4g} ms), "
+                  f"kernel {timing[k][0]:.6g} ms, "
+                  f"{bound[0] / timing[k][0]:.4g} of the bound; issue "
+                  f"{per_cell.issued * cells / 32 / rates.warp_issue * 1e3:.4g}"
                   f" ms at one warp instruction per scheduler per clock")
+        mufu.update({k: per_cell.mufu * cells for k in ks})
     bounds["K5"] = (k5["bound_ms"], k5["bound_by"])
+    mufu["K5"] = k5["mufu_ops"]
+    bounds["K6"] = (k6["bound_ms"], "bytes")
+    timing["K6"] = (k6["ms"], k6["plain_ms"])
     over = [k for k in bounds if bounds[k][0] > timing[k][0]]
     if over:
         raise AssertionError(f"{over}: bound above the measured time, so the "
                              f"count is no lower bound")
+
+    launches.update(_run_roofline(K, K2M, K5, R, timing, mufu))
+    _run_bench_press(device, K, K2M, Column1MStep, Column2MStep, ColumnP3Step,
+                     mp, tps, tv, microphysics_2m_params)
 
     csrc = "cloudmicrophysics_tpu_torch/kernels/csrc/"
     entries = [
@@ -745,6 +776,18 @@ def main():
          "library_ms": None}
         for k, fn, src, tpu in entries]
     kernels[-1]["subkernels"] = k5["subkernels"]
+    kernels.append({
+        "name": "copy_scale (K6, K6b, K6c)", "route": "cuda",
+        "source": k6["source"],
+        "replaces": "benchmarks/roofline.py:124, "
+                    "benchmarks/scratch/perf_roof.py:30, "
+                    "benchmarks/scratch/perf_roof2.py:21",
+        "launches": launches["K6"], "max_abs_err": k6["max_abs_err"],
+        "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound_ms"], "bound_by": "bytes",
+        "library_ms": k6["library_ms"]})
+    probe["launches"] = launches["probe"]
+    print(json.dumps({"probes": [probe]}))
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -753,12 +796,203 @@ def main():
     return 0
 
 
+def _run_roof(device, R, packed):
+    """Phase 6's kernels (``kernels/roof.py``): K6 and the ``expf`` probe
+    against their plain versions bit for bit, then each timed at full size
+    on the packed state ``packed`` by CUDA events. Returns K6's record and
+    the probe's (without launch counts)."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.kernels.column1m import pack_state
+    from cloudmicrophysics_tpu_torch.models.bench_states import device_state
+
+    print("== K6 (copy_scale) and the expf probe (exp_chain) vs their plain "
+          "versions, bit for bit")
+    bits = [0, 0]    # cases bit-identical to the plain version, of
+    err = {"K6": 0.0, "probe": 0.0}
+
+    def hold(key, label, got, ref):
+        err[key] = max(err[key], float((got - ref).abs().max()))
+        _same(f"{key} {label}", got, ref, bits)
+
+    # the scales as the TPU programs compute them: K6's 1 + 1e-7 i in float32
+    # (benchmarks/roofline.py), K6b's and K6c's float32(1 + 1e-6 i)
+    # (benchmarks/scratch/perf_roof.py, perf_roof2.py)
+    s6 = R.scale_of(3)
+    s6b = torch.tensor(1.0 + 1e-6 * 5, dtype=torch.float32)
+    small = pack_state(device_state(4096, 128, device, seed=7))
+    ragged = pack_state(device_state(1001, 33, device, seed=7))  # numel 4k+3
+    offset = ragged.reshape(-1)[1:]    # starts 4 bytes past a 16-byte line
+    out_offset = torch.empty(offset.numel() + 1, device=device)[1:]
+    cases = [("(7, 4096, 128)", small, s6, None),
+             ("ragged (7, 1001, 33)", ragged, s6b, None),
+             ("view offset by one element, fresh output", offset, s6, None),
+             ("view offset by one element, output offset alike", offset, s6,
+              out_offset),
+             ("K6c all-ones (7, 4096, 128)", torch.ones_like(small), s6b,
+              None),
+             (f"full size (7, {NCOL}, {NLEV})", packed, s6, None)]
+    for label, x, s, out in cases:
+        hold("K6", label, R.copy_step(x, s, out=out), R.copy_step_plain(x, s))
+    xe = torch.full((NCOL * NLEV,), 0.5, device=device)
+    for label, x, s in (("(7, 4096, 128)", small, 3),
+                        ("ragged (7, 1001, 33)", ragged, 5),
+                        ("view offset by one element", offset, 7),
+                        (f"full size ({NCOL * NLEV},) at 0.5", xe, 1)):
+        hold("probe", label, R.exp_chain_step(x, s), R.exp_chain_plain(x, s))
+    print(f"  K6 and the probe bit-identical to their plain versions in "
+          f"{bits[0]} of {bits[1]} cases")
+    if bits[0] != bits[1]:
+        raise AssertionError("K6 or the expf probe differs from its plain "
+                             "version")
+    del small, ragged, offset, out_offset
+
+    print(f"== K6 on ({len(packed)}, {NCOL}, {NLEV}) float32 and the probe on "
+          f"{NCOL * NLEV} elements, CUDA events")
+    s = R.scale_of(1)
+    buf = torch.empty_like(packed)
+    tiny = torch.tensor(1e-12, dtype=torch.float32, device=device)
+    nbytes = 2 * packed.numel() * packed.element_size()   # read + write
+    k6_ms = min(_time_ms(lambda: R.copy_step(packed, s, out=buf), reps=10))
+    plain_ms = min(_time_ms(lambda: R.copy_step_plain(packed, s), reps=5))
+    mul_ms = min(_time_ms(lambda: torch.mul(packed, float(s), out=buf),
+                          reps=10))
+    add_ms = min(_time_ms(lambda: torch.add(tiny, packed, alpha=float(s),
+                                            out=buf), reps=10))
+    bound_ms = nbytes / _rates().hbm * 1e3
+    for name, ms in (("K6 copy_scale", k6_ms),
+                     ("plain x * s + 1e-12 (two passes)", plain_ms),
+                     ("torch.mul(packed, s, out=buf)", mul_ms),
+                     ("torch.add(1e-12, packed, alpha=s, out=buf)", add_ms)):
+        print(f"  {name}: {ms:.6g} ms, {nbytes / ms / 1e6:.6g} GB/s, "
+              f"{bound_ms / ms:.4g} of the bytes bound")
+    print(f"  K6 bound {bound_ms:.6g} ms ({nbytes} B at "
+          f"{_rates().hbm:.6g} B/s); plain/K6 {plain_ms / k6_ms:.4g}, "
+          f"torch.add/K6 {add_ms / k6_ms:.4g}")
+    del buf
+
+    exp_ms = min(_time_ms(lambda: R.exp_chain_step(xe, 1), reps=10))
+    exp_plain_ms = min(_time_ms(lambda: R.exp_chain_plain(xe, 1), reps=3))
+    n_exp = xe.numel() * R.CHAIN
+    t_mufu = n_exp / _rates().mufu * 1e3
+    t_bytes = 2 * xe.numel() * xe.element_size() / _rates().hbm * 1e3
+    print(f"  expf probe: {exp_ms:.6g} ms, {n_exp / exp_ms * 1e3:.6g} expf/s "
+          f"({R.CHAIN} per element); bound {max(t_mufu, t_bytes):.6g} ms "
+          f"(one MUFU per expf at {_rates().mufu:.6g}/s; bytes {t_bytes:.4g} "
+          f"ms), {max(t_mufu, t_bytes) / exp_ms:.4g} of it; plain chain "
+          f"({2 * R.CHAIN + 1} passes) {exp_plain_ms:.6g} ms")
+    if exp_ms < max(t_mufu, t_bytes):
+        raise AssertionError("the expf probe ran faster than one MUFU per "
+                             "expf allows: its chain was cut")
+    csrc = "cloudmicrophysics_tpu_torch/kernels/csrc/roof.cu"
+    k6 = {"ms": k6_ms, "plain_ms": plain_ms, "library_ms": add_ms,
+          "bound_ms": bound_ms, "max_abs_err": err["K6"], "nbytes": nbytes,
+          "source": csrc}
+    probe = {"name": "exp_chain (expf probe)", "route": "cuda",
+             "source": csrc,
+             "replaces": "benchmarks/roofline.py:150 (exp_chain, plain jnp: "
+                         "no Pallas kernel)",
+             "max_abs_err": err["probe"], "ms": exp_ms,
+             "plain_ms": exp_plain_ms, "expf_per_s": n_exp / exp_ms * 1e3,
+             "bound_ms": max(t_mufu, t_bytes),
+             "bound_by": "operations" if t_mufu >= t_bytes else "bytes",
+             "library_ms": None}
+    return k6, probe
+
+
+def _run_roofline(K, K2M, K5, R, timing, mufu):
+    """Phase 13: the port's roofline at full width, its launch counters set
+    to 0 just before and read just after; each of K1-K5 (its time of
+    phases 5, 9 and 12, and its MUFU operations per step, ``mufu``) as a
+    share of the measured copy roof and of the measured expf rate. Returns
+    the launch counts of K6 and the probe."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch import roofline
+
+    print(f"== roofline: K6 and the expf probe at ({NCOL}, {NLEV}), K1 and "
+          f"K3 at ({NCOL}, {NLEV}), K5 GL-16 at ({P3_NCOL}, {P3_NLEV})")
+    counted = {"K6": R.copy_step, "probe": R.exp_chain_step,
+               "K1": K.step_column_1m_fused_packed,
+               "K3": K2M.step_column_2m_fused_packed,
+               "K5": K5.step_column_p3_fused}
+    torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+    rows = roofline.main(["--ncol", str(NCOL), "--nlev", str(NLEV),
+                          "--p3-ncol", str(P3_NCOL),
+                          "--p3-nlev", str(P3_NLEV)])
+    launches = {k: fn.launches for k, fn in counted.items()}
+    torch.cuda.synchronize()
+    runs = 1 + roofline.REPS * roofline.N_ITER
+    want = {k: runs for k in counted}
+    want["K5"] = 1 + roofline.REPS * roofline.P3_N_ITER
+    print(f"  launches in the roofline: {launches}")
+    if launches != want:
+        raise AssertionError(f"roofline launch counts {launches} != calls "
+                             f"driven {want}")
+    row = {r["metric"]: r for r in rows}
+    copy_bw = row["dma_copy_roof"]["achieved_GBps"] * 1e9
+    exp_rate = row["vpu_exp_rate"]["exp_per_s"]
+    print(f"  measured roofs: copy {copy_bw:.6g} B/s "
+          f"({row['dma_copy_roof']['fraction_of_hbm_datasheet']:.4g} of the "
+          f"data sheet's {_rates().hbm:.6g}), expf {exp_rate:.6g}/s "
+          f"({exp_rate / _rates().mufu:.4g} of {_rates().mufu:.6g} MUFU/s)")
+    for k, nbytes in (("K1", 14 * 4 * NCOL * NLEV),
+                      ("K2", 14 * 4 * NCOL * NLEV),
+                      ("K3", 14 * 4 * NCOL * NLEV),
+                      ("K4", 14 * 4 * NCOL * NLEV),
+                      ("K5", 24 * 4 * P3_NCOL * P3_NLEV)):
+        t = timing[k][0] * 1e-3
+        print(f"  {k}: {timing[k][0]:.6g} ms/step, "
+              f"{nbytes / t / copy_bw:.4g} of the copy roof, "
+              f"{mufu[k] / t / exp_rate:.4g} of the expf rate "
+              f"({mufu[k]:.6g} MUFU per step)")
+    return {"K6": launches["K6"], "probe": launches["probe"]}
+
+
+def _run_bench_press(device, K, K2M, Column1MStep, Column2MStep,
+                     ColumnP3Step, mp, tps, tv, microphysics_2m_params):
+    """Phase 14: ``perf.bench_press`` on the three step modules at full
+    width, with budgets of about 1.5 times PERF.md's times."""
+    from cloudmicrophysics_tpu_torch.models.bench_states import (
+        device_state,
+        device_state_2m,
+        p3_bench_state,
+    )
+    from cloudmicrophysics_tpu_torch.perf import bench_press
+
+    print("== perf harness: bench_press on the step modules at full width")
+    model = Column1MStep(mp, tps, tv, DT, DZ, device=device)
+    packed = K.pack_state(device_state(NCOL, NLEV, device))
+    reports = [bench_press(model, (packed,), 6.0e6, name="Column1MStep (K1)")]
+    model = Column2MStep(microphysics_2m_params(), tps, DT, DZ, device=device)
+    packed = K2M.pack_state_2m(device_state_2m(NCOL, NLEV, device))
+    reports.append(bench_press(model, (packed,), 6.3e6,
+                               name="Column2MStep (K3)"))
+    del packed
+    model = ColumnP3Step(microphysics_2m_params(with_ice=True), tps, DT, DZ,
+                         device=device)
+    state = p3_bench_state(P3_NCOL, P3_NLEV, device)
+    _, guess = model(state)
+    reports.append(bench_press(model, (state, guess), 47e6,
+                               name="ColumnP3Step GL-16, warm (K5)"))
+    for r in reports:
+        print(f"  {r.name}: best {r.best_ns / 1e6:.6g} ms, budget "
+              f"{r.budget_ns / 1e6:.6g} ms, n_traces {r.n_traces}, ok {r.ok}")
+
+
 def _run_2m(device, K, Column2MStep, microphysics_2m_params, tps, copy_ms):
     """Phases 7-9: the 2M warm-rain kernels K3 (packed) and K4 (unpacked)
     against their plain versions, and the 2M path at full width. Returns
     the launch counts of the main path, the largest errors and the
     (kernel, plain) times."""
     import torch
+
+    from cloudmicrophysics_tpu_torch.models.bench_states import (
+        device_state_2m,
+        uniform_state_2m,
+    )
 
     mp = microphysics_2m_params()
     fused, packed_fused = K.step_column_2m_fused, K.step_column_2m_fused_packed
@@ -783,7 +1017,8 @@ def _run_2m(device, K, Column2MStep, microphysics_2m_params, tps, copy_ms):
     for label, block, ncol, nlev, tilings, affine, uniform in cases:
         mpc = microphysics_2m_params(**opts[block])
         params = K.kernel_params_2m(mpc, tps)
-        st = _device_state_2m(ncol, nlev, device, seed=7, uniform=uniform)
+        st = (uniform_state_2m(ncol, nlev, device) if uniform
+              else device_state_2m(ncol, nlev, device, seed=7))
         if affine is None:   # K4 has no affine, as the Pallas kernel
             ref = K.step_column_2m_plain(st, mpc, tps, DT, DZ)
             outs = [fused(st, mpc, tps, DT, DZ, block_cols=bc, params=params)
@@ -816,7 +1051,7 @@ def _run_2m(device, K, Column2MStep, microphysics_2m_params, tps, copy_ms):
     # ---- 8. the 2M path at full width --------------------------------------
     print(f"== 2M path: Column2MStep on ({NCOL}, {NLEV}) float32, "
           f"{N_ROLLOUTS} x {N_STEPS} steps")
-    state = _device_state_2m(NCOL, NLEV, device)
+    state = device_state_2m(NCOL, NLEV, device)
     model = Column2MStep(mp, tps, DT, DZ, device=device)
     first, packed, launches = _drive(model, state, K.pack_state_2m,
                                      K.unpack_state_2m, fused, packed_fused,
@@ -857,7 +1092,7 @@ def _run_2m(device, K, Column2MStep, microphysics_2m_params, tps, copy_ms):
     nbytes = 2 * packed.numel() * packed.element_size()   # read + write
     print(f"  K3: {timing['K3'][0]:.6g} ms/step, "
           f"{nbytes / timing['K3'][0] / 1e6:.6g} GB/s, "
-          f"{copy_ms / timing['K3'][0]:.4g} of the streaming pass's rate")
+          f"{copy_ms / timing['K3'][0]:.4g} of K6's rate")
     n_plain = _device_kernels(lambda: K.step_column_2m_packed_plain(
         packed, mp, tps, DT, DZ, q_tot_affine=AFFINE))
     print(f"  plain packed step: {n_plain} device kernels per step "
@@ -877,8 +1112,6 @@ P3_NCOL, P3_NLEV = 16384, 128   # the repo's P3 size (BENCH_SUITE.json batch)
 P3_STEPS, P3_ROLLOUTS = 10, 3   # the P3 bench's n_iter, and three rollouts
 P3_LL_RTOL, P3_RTOL, P3_ATOL = 2e-5, 3e-5, 1e-10   # tests/test_kernels.py:192
 P3_CHUNKS = 16                  # column chunks of the plain full-size step
-# the TPU benchmark's P3 column state (benchmarks/bench_suite.py:220-223)
-BENCH_P3 = (1.1, 263.0, 6e-3, 1e-3, 9e7, 5e-4, 9e5, 5e-4, 1e5, 1e-4, 2e-7)
 RECORD = "cloudmicrophysics_tpu_torch/data/p3_ladder_gl16.json"
 
 
@@ -889,18 +1122,6 @@ def _p3_state(arrays, device):
 
     return ColumnStateP3(*(torch.from_numpy(np.asarray(a, np.float32)).to(device)
                            for a in arrays))
-
-
-def _p3_bench_state(ncol, nlev, device, seed=0):
-    """The P3 bench state with rho 1.2 -> 0.5 and T 270 -> 250 K over the
-    levels and a seeded +-50 % jitter of every content and number."""
-    rng = np.random.default_rng(seed)
-    ones = np.ones((ncol, 1))
-    arrays = [np.linspace(1.2, 0.5, nlev)[None] * ones,
-              np.linspace(270.0, 250.0, nlev)[None] * ones]
-    arrays += [v * (1 + 0.5 * (2 * rng.random((ncol, nlev)) - 1))
-               for v in BENCH_P3[2:]]
-    return _p3_state(arrays, device)
 
 
 def _p3_mixed_state(ncol, nlev, device, seed=0):
@@ -984,6 +1205,8 @@ def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs,
     operation count. Returns the launch counts of the main path, the
     largest error, the (kernel, plain) times and K5's bound and kernels."""
     import torch
+
+    from cloudmicrophysics_tpu_torch.models.bench_states import p3_bench_state
 
     fused = K.step_column_p3_fused
     record = json.loads(
@@ -1087,7 +1310,7 @@ def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs,
     print(f"== P3 path: ColumnP3Step on ({P3_NCOL}, {P3_NLEV}) float32 "
           f"GL-16, 1 cold step + {P3_ROLLOUTS} x {P3_STEPS} warm-started "
           f"steps")
-    state = _p3_bench_state(P3_NCOL, P3_NLEV, device)
+    state = p3_bench_state(P3_NCOL, P3_NLEV, device)
     model = ColumnP3Step(mp16, tps, DT, DZ, device=device)
     first, first_ll, launches, ms = _drive_p3(model, state, K, "GL-16")
     ref, ref_ll = K.step_column_p3_plain(state, mp16, tps, DT, DZ,
@@ -1128,7 +1351,7 @@ def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs,
     nbytes = 24 * 4 * P3_NCOL * P3_NLEV   # 12 fields read, 12 written
     rate = nbytes / min(kern) / 1e6
     print(f"  K5: {min(kern):.6g} ms/step, {rate:.6g} GB/s, "
-          f"{rate / copy_gbs:.4g} of the streaming pass's rate "
+          f"{rate / copy_gbs:.4g} of K6's rate "
           f"({copy_gbs:.6g} GB/s)")
     print("  device idle share over 10 K5 steps (torch.profiler): "
           + ("not measured, the profiler saw no device time" if idle is None
@@ -1149,15 +1372,15 @@ def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs,
           f"{total.issued / cells:.6g} instructions issued "
           f"({sum(every_arm.values()) / cells:.6g} with every arm); bound "
           f"{bound_ms:.6g} ms ({bound_by}; bytes "
-          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4g} ms, float32 "
-          f"{total.flops / FP32_PER_S * 1e3:.4g} ms, MUFU "
-          f"{total.mufu / MUFU_PER_S * 1e3:.4g} ms), K5 {min(kern):.6g} "
+          f"{nbytes / _rates().hbm * 1e3:.4g} ms, float32 "
+          f"{total.flops / _rates().fp32 * 1e3:.4g} ms, MUFU "
+          f"{total.mufu / _rates().mufu * 1e3:.4g} ms), K5 {min(kern):.6g} "
           f"ms/step = {bound_ms / min(kern):.4g} of the bound")
     subkernels = []
     for key, fn in (("K5a", "column_p3_solve"), ("K5b", "column_p3_nodes"),
                     ("K5c", "column_p3_epilogue")):
         b = _ops_ms(ops[key])
-        issued = warp_issued[key] / WARP_ISSUE_PER_S * 1e3
+        issued = warp_issued[key] / _rates().warp_issue * 1e3
         a = attrs[16][key]
         print(f"  {key}: {parts[key]:.6g} ms/step; per cell "
               f"{ops[key].flops / cells:.6g} float32 operations, "
@@ -1180,7 +1403,7 @@ def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs,
           f"step {min(kern):.6g} ms")
     return ({"K5": launches["K5"]}, {"K5": max_err}, timing,
             {"bound_ms": bound_ms, "bound_by": bound_by,
-             "subkernels": subkernels})
+             "mufu_ops": total.mufu, "subkernels": subkernels})
 
 
 def _k5_parts(K, model, state, guess, device):

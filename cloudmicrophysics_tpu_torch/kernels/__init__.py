@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for the fused hot paths.
 
 The physics lives in ``ops``/``models`` as eager PyTorch; each kernel here
-computes the same step in one pass and sits beside its plain version,
+computes the same step in one pass and sits beside its plain version
+(``roof`` holds the roofline's copy and ``expf`` probe),
 which CPU tensors take. Nothing is compiled at import: a kernel is built
 with ``nvcc`` (see ``_build``) the first time it is launched.
 """
@@ -21,3 +22,4 @@ from .column2m import (
     unpack_state_2m,
 )
 from .column_p3 import kernel_params_p3, step_column_p3_fused
+from .roof import copy_step, exp_chain_step

@@ -158,6 +158,13 @@ def load(source: str, header_name: str, header_text: str,
     return ctypes.CDLL(str(build(source, header_name, header_text, flags)))
 
 
+def loads() -> int:
+    """Libraries this process has loaded (each built first if needed): the
+    misses of :func:`load`'s cache. A call that raises this count built or
+    loaded a kernel library."""
+    return load.cache_info().misses
+
+
 def ptxas_report(log: str) -> dict:
     """Function -> ``registers`` (kernels only), ``stack`` (bytes of stack
     frame), ``spill_stores`` and ``spill_loads`` (bytes) from the

@@ -379,8 +379,9 @@ def step_column_p3(state: ColumnStateP3, mp, tps: ThermodynamicsParameters,
     loglambda)`` so the caller can warm-start the next step's shape solve.
 
     ``col_chunks``: evaluate the eager step over that many equal chunks of
-    columns, one after the other (identical math; bounds the memory of the
-    node and pair-space tensors). It must divide ``ncol``.
+    columns, one after the other, via :func:`..perf.chunked_cells`
+    (identical math; bounds the memory of the node and pair-space
+    tensors). It must divide ``ncol``.
 
     ``impl`` selects the form (identical math): ``"eager"`` (default),
     eager PyTorch on any device, the JAX package's XLA path; ``"fused"``,
@@ -401,18 +402,11 @@ def step_column_p3(state: ColumnStateP3, mp, tps: ThermodynamicsParameters,
     if impl != "eager":
         raise ValueError(f"unknown impl {impl!r} (expected 'eager'|'fused')")
     if col_chunks and col_chunks > 1:
-        size = ncol // col_chunks
-        parts = []
-        for i in range(col_chunks):
-            rows = slice(i * size, (i + 1) * size)
-            guess = (None if loglambda_guess is None
-                     else loglambda_guess[rows])
-            parts.append(step_column_p3(
-                ColumnStateP3(*(t[rows] for t in state)), mp, tps, dt, dz,
-                guess))
-        new = ColumnStateP3(*(torch.cat(f, dim=0)
-                              for f in zip(*(p[0] for p in parts))))
-        return new, torch.cat([p[1] for p in parts], dim=0)
+        from ..perf import chunked_cells
+
+        return chunked_cells(
+            lambda s, g: step_column_p3(s, mp, tps, dt, dz, g),
+            col_chunks)(state, loglambda_guess)
 
     from ..ops import m2 as CM2
     from ..ops import p3 as P3

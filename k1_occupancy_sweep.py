@@ -48,16 +48,12 @@ def _kernel(name, device):
     generated header and a ``bind`` of a build for the default parameter
     block, the source's own build, the packed full-size state and the plain
     step's result on it."""
-    from chip_smoke import (
-        AFFINE,
-        DT,
-        DZ,
-        NCOL,
-        NLEV,
-        _device_state,
-        _device_state_2m,
-    )
+    from chip_smoke import AFFINE, DT, DZ, NCOL, NLEV
     from cloudmicrophysics_tpu_torch.kernels import column1m, column2m
+    from cloudmicrophysics_tpu_torch.models.bench_states import (
+        device_state,
+        device_state_2m,
+    )
     from cloudmicrophysics_tpu_torch.parameters import (
         ThermodynamicsParameters,
         microphysics_1m_params,
@@ -70,7 +66,7 @@ def _kernel(name, device):
         K, mp = column1m, microphysics_1m_params()
         tv = terminal_velocity_params()
         params = K.kernel_params(mp, tps, tv)
-        packed = K.pack_state(_device_state(NCOL, NLEV, device))
+        packed = K.pack_state(device_state(NCOL, NLEV, device))
         return SimpleNamespace(
             K=K, header=K.header(params), bind=K.bind,
             lib=K._library(params), packed=packed,
@@ -78,7 +74,7 @@ def _kernel(name, device):
                                               q_tot_affine=AFFINE))
     K, mp = column2m, microphysics_2m_params()
     params, variant = K.kernel_params_2m(mp, tps), K._variant(mp)
-    packed = K.pack_state_2m(_device_state_2m(NCOL, NLEV, device))
+    packed = K.pack_state_2m(device_state_2m(NCOL, NLEV, device))
     return SimpleNamespace(
         K=K, header=K.header(params, variant),
         bind=lambda lib: K.bind(lib, variant),

@@ -360,3 +360,72 @@ def test_entry_points_default_to_the_gpu(device):
     assert all(t.device.type == "cuda" for t in st)
     _assert_close_p3(ColumnP3Step(mp, TPS, DT, DZ)(st),
                      K5.step_column_p3_plain(st, mp, TPS, DT, DZ))
+
+
+# ---------------------------------------------------------------------------
+# The roofline's kernels (kernels/roof.py): K6 and the expf probe, bit for
+# bit against their plain versions, and the perf harness on the card
+# ---------------------------------------------------------------------------
+
+def _roof_inputs(device):
+    """(label, tensor, output or None): a packed state, a ragged one whose
+    numel is 3 more than a multiple of 4, a view of it offset by one
+    element with a fresh output (every element on the scalar path) and
+    with an output offset alike (scalar head and tail around float4s), and
+    K6c's all-ones input."""
+    ragged = K.pack_state(_state(1001, 33, device))
+    offset = ragged.reshape(-1)[1:]
+    return [
+        ("(7, 512, 128)", K.pack_state(_state(512, 128, device)), None),
+        ("ragged (7, 1001, 33)", ragged, None),
+        ("offset view, fresh output", offset, None),
+        ("offset view, offset output", offset,
+         torch.empty(offset.numel() + 1, device=device)[1:]),
+        ("all ones", torch.ones(7, 512, 128, device=device), None),
+    ]
+
+
+def test_copy_kernel_is_bit_identical(device):
+    from cloudmicrophysics_tpu_torch.kernels import roof as R
+
+    for s in (R.scale_of(3), torch.tensor(1.0 + 1e-6 * 5)):
+        for label, x, out in _roof_inputs(device):
+            got = R.copy_step(x, s, out=out)
+            assert out is None or got is out
+            assert torch.equal(got, R.copy_step_plain(x, s)), label
+
+
+def test_exp_chain_kernel_is_bit_identical(device):
+    from cloudmicrophysics_tpu_torch.kernels import roof as R
+
+    for i, (label, x, _) in enumerate(_roof_inputs(device)):
+        for chain in (R.CHAIN, 3):
+            assert torch.equal(R.exp_chain_step(x, i, chain),
+                               R.exp_chain_plain(x, i, chain)), label
+
+
+def test_roof_rejections(device):
+    from cloudmicrophysics_tpu_torch.kernels import roof as R
+
+    x = torch.ones(64, 16, device=device)
+    for step in (R.copy_step, R.exp_chain_step):
+        with pytest.raises(NotImplementedError, match="float32"):
+            step(x.double(), 1.0)
+        with pytest.raises(NotImplementedError, match="contiguous"):
+            step(x.t(), 1.0)
+    with pytest.raises(NotImplementedError, match="contiguous"):
+        R.copy_step(x, 1.0, out=torch.empty(16, 64, device=device).t())
+    with pytest.raises(ValueError, match="overlaps"):
+        R.copy_step(x, 1.0, out=x)
+
+
+def test_bench_press_builds_nothing_on_a_repeat_call(device):
+    from cloudmicrophysics_tpu_torch.kernels import roof as R
+    from cloudmicrophysics_tpu_torch.perf import bench_press
+
+    model = Column1MStep(MP, TPS, TV, DT, DZ)
+    packed = K.pack_state(_state(512, 64, device))
+    r = bench_press(model, (packed,), 1e9, name="Column1MStep")
+    assert r.n_traces == 1 and r.ok and r.best_ns > 0
+    r = bench_press(lambda x: R.copy_step(x, 2.0), (packed,), 1e9)
+    assert r.n_traces == 1

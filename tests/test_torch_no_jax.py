@@ -108,7 +108,8 @@ def test_every_module_imports_with_jax_blocked():
             "kernels/column2m", "utils/quadrature", "parameters/p3",
             "parameters/ice_nucleation", "ops/p3", "ops/p3_processes",
             "ops/ice_nucleation", "models/p3_tendencies",
-            "kernels/column_p3"} <= modules
+            "kernels/column_p3", "kernels/roof", "models/bench_states",
+            "perf", "roofline"} <= modules
     assert f"IMPORTED {len(modules)}" in proc.stdout, proc.stdout
 
 
