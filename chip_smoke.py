@@ -116,14 +116,33 @@ then, failing at the first phase that does not hold:
 14. gates the three step modules at full width with ``perf.bench_press``
     (budgets about 1.5 times PERF.md's times: ``Column1MStep`` 6 ms,
     ``Column2MStep`` 6.3 ms, ``ColumnP3Step`` GL-16 warm-started 47 ms;
-    no library built or loaded by a repeat call; no float64 output).
+    no library built or loaded by a repeat call; no float64 output);
+15. drives the 0-D drivers and the point-wise processes under them, which
+    reach no kernel of their own (plain PyTorch): the TPU benchmark's
+    parcel (``benchmarks/bench_suite.py:229-242``: one float32 parcel,
+    condensation, dt 0.1 s, w 1 m/s, 1000 steps a run, each run seeded by
+    the last one's final state) with steps/s by CUDA events, device
+    kernels per step and the device's idle share (``torch.profiler``); two
+    16384-member float32 parcel ensembles, the emulator's dataset parcel
+    (``models/emulator.py:284-346``, per-member parameters as tensors) and
+    the Tully et al. 2023 cirrus (``examples/parcel_tully_2023.py``, its
+    first 3000 steps), each checked finite and non-negative, member 0 held
+    bit for bit against its own run as N = 1, and timed (steps/s and
+    member-steps/s); the Alpert-Knopf box (deterministic and stochastic)
+    and the P3 sandbox, float32 against float64; and, float32 against
+    float64 at full width with times by CUDA events, the 2M reflectivity
+    and effective radius and the 1M reflectivity over the 524288 x 128
+    states, two-mode ARG activation on the 1M state's T and pressure, and
+    ``het_ice_nucleation`` over the P3 state (tolerances ``TOL_*``,
+    reasons in PERF.md §4).
 
-Then it prints the ``expf`` probe's JSON object on a line of its own, the
-card's name and power limit as ``nvidia-smi`` gives them, and, on the line
-before the last, a JSON object with one entry per kernel (K5's with its
-three kernels under ``subkernels``); the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits with a
-non-zero code and prints no result.
+Then it prints the ``expf`` probe's JSON object on a line of its own,
+phase 15's JSON object (``{"zero_d": ...}``, with the card's name and
+power limit) on another, the card's name and power limit as
+``nvidia-smi`` gives them, and, on the line before the last, a JSON object
+with one entry per kernel (K5's with its three kernels under
+``subkernels``); the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits with a non-zero code and prints no result.
 """
 
 import json
@@ -758,6 +777,7 @@ def main():
     launches.update(_run_roofline(K, K2M, K5, R, timing, mufu))
     _run_bench_press(device, K, K2M, Column1MStep, Column2MStep, ColumnP3Step,
                      mp, tps, tv, microphysics_2m_params)
+    zero_d = _run_0d(device, gpu_line)
 
     csrc = "cloudmicrophysics_tpu_torch/kernels/csrc/"
     entries = [
@@ -788,6 +808,7 @@ def main():
         "library_ms": k6["library_ms"]})
     probe["launches"] = launches["probe"]
     print(json.dumps({"probes": [probe]}))
+    print(json.dumps({"zero_d": zero_d}))
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1609,6 +1630,515 @@ def _drive_p3(model, state, K, tag, rollouts=P3_ROLLOUTS):
     print(f"  {tag} launches in this path: {launches} (each = {steps} "
           f"steps: 1 cold + {rollouts} x {P3_STEPS})")
     return first, first_ll, launches, ms
+
+
+# ---------------------------------------------------------------------------
+# The 0-D drivers and the point-wise processes (phase 15)
+# ---------------------------------------------------------------------------
+
+PARCEL_STEPS = 1000     # benchmarks/bench_suite.py:229-242
+ENSEMBLE = 16384        # the P3 cell's column count, one parcel per column
+TULLY_STEPS = 3000      # of the 18000 of examples/parcel_tully_2023.py's
+                        # first period: its trajectory would hold ~12 GB
+# float32 against float64 on the card (PERF.md §4 gives the reasons):
+TOL_DBZ = 1e-3          # reflectivity, absolute dBZ (2M: where every input
+                        # is above the float32 presence thresholds)
+TOL_REFF = 1e-4         # effective radius, relative, there too
+TOL_ACT = 1e-4          # activated number, relative
+TOL_HET = 5e-3          # het_ice_nucleation, relative, where float32 holds J
+TOL_BOX = 2e-3          # deterministic box frozen fraction, absolute
+TOL_BOX_STOCH = 0.08    # stochastic box mean frozen fraction: 5 binomial
+                        # sigma at p = 0.5, 1000 droplets
+TOL_SANDBOX = 1e-6      # P3 sandbox N_ice and thresholds, relative
+
+
+def _kernel_stats(fn):
+    """(device kernels, the union of their spans in ms, the span from the
+    first kernel's start to the last one's end in ms) of one call of ``fn``,
+    by ``torch.profiler``; None when it records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset")))
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + (hi - lo), a
+        hi = max(hi, b)
+    busy += hi - lo
+    return len(spans), busy / 1e3, (hi - spans[0][0]) / 1e3
+
+
+def _check_parcel(tag, traj):
+    """Every field finite, the contents and numbers non-negative."""
+    for name, v in zip(traj._fields, traj):
+        if not bool(v.isfinite().all()):
+            raise AssertionError(f"{tag}: {name} not finite")
+        if name.startswith(("q_", "N_")) and bool((v < 0).any()):
+            raise AssertionError(f"{tag}: {name} negative "
+                                 f"(min {float(v.min()):.3e})")
+
+
+def _event_ms(fn):
+    """Milliseconds of one call of ``fn`` by CUDA events, and its result."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _parcel_bench(device, PM):
+    """The TPU benchmark's parcel: one float32 parcel, condensation only,
+    dt 0.1 s, w 1 m/s, 1000 steps, the trajectory's final state seeding the
+    next run; steps/s by CUDA events, device kernels per step and the
+    device's idle share."""
+    import torch
+
+    def f(v):
+        return torch.full((), v, dtype=torch.float32, device=device)
+
+    params = PM.parcel_params(condensation_growth="Condensation",
+                              const_dt=0.1, w=1.0)
+    y = PM.ParcelState(S_l=f(1.02), p_air=f(8e4), T=f(278.0), q_vap=f(6e-3),
+                       q_liq=f(1e-3), q_ice=f(0.0), N_aer=f(1e8),
+                       N_liq=f(1e8), N_ice=f(0.0), ln_inpc=f(0.0))
+
+    def run(y, n=PARCEL_STEPS):
+        traj = PM.run_parcel(y, 0.0, n * params.const_dt, params)
+        return traj, PM.ParcelState(*(v[-1] for v in traj))
+
+    _, y = run(y, 50)                                  # warm-up
+    times = []
+    for _ in range(2):
+        ms, (traj, y) = _event_ms(lambda: run(y))
+        _check_parcel("parcel", traj)
+        times.append(ms)
+    n_prof = 50
+    kernels, busy_ms, span_ms = _kernel_stats(lambda: run(y, n_prof))
+    ms_step = min(times) / PARCEL_STEPS
+    out = {
+        "steps": PARCEL_STEPS, "ms_per_run": times,
+        "steps_per_s": PARCEL_STEPS / (min(times) * 1e-3),
+        "steps_per_s_median": PARCEL_STEPS / (float(np.median(times)) * 1e-3),
+        "kernels_per_step": kernels / n_prof,
+        "device_busy_ms_per_step": busy_ms / n_prof,
+        "idle_share": 1.0 - (busy_ms / n_prof) / ms_step,
+        "idle_share_under_profiler": 1.0 - busy_ms / span_ms,
+        "final_S_l": float(y.S_l), "final_T": float(y.T)}
+    print(f"  parcel (the TPU bench's, float32, {PARCEL_STEPS} steps a run): "
+          f"{out['steps_per_s']:.6g} steps/s best of 2 "
+          f"(median {out['steps_per_s_median']:.6g}; ms per run {times}), "
+          f"{out['kernels_per_step']:.4g} device kernels per step, busy "
+          f"{out['device_busy_ms_per_step'] * 1e3:.4g} us per step, idle "
+          f"share {out['idle_share']:.4f} ({out['idle_share_under_profiler']:.4f}"
+          f" under the profiler)")
+    return out
+
+
+def _same_member(tag, whole, one, member):
+    """Member ``member`` of an ensemble trajectory against its single run
+    (over the single run's steps), bit for bit."""
+    import torch
+
+    n = one.T.shape[0]
+    diff = [name for name, a, b in zip(whole._fields, whole, one)
+            if not torch.equal(a[:n, member:member + 1], b)]
+    if diff:
+        raise AssertionError(f"{tag}: member {member} differs from its "
+                             f"single run in {diff}")
+
+
+def _ensemble_report(tag, n_steps, ms, member_steps, extra=""):
+    rate = n_steps / (ms * 1e-3)
+    print(f"  {tag}: {ENSEMBLE} members x {n_steps} steps in {ms:.6g} ms: "
+          f"{rate:.6g} steps/s, {rate * ENSEMBLE:.6g} member-steps/s; member "
+          f"0 bit-identical to its single run (N = 1) over {member_steps} "
+          f"steps{extra}")
+    return {"members": ENSEMBLE, "steps": n_steps, "ms": ms,
+            "steps_per_s": rate, "member_steps_per_s": rate * ENSEMBLE,
+            "member0_bit_identical_steps": member_steps}
+
+
+def _liquid_ensemble(device, PM, TDI, tps):
+    """The emulator's dataset parcel (models/emulator.py:284-346): AeroAct
+    and condensation on Sulfate, per-member r_nuc, sigma_g, N_aer_act,
+    kappa, w, T0 and p0 drawn from seed 0 over its ranges, just-saturated
+    initial conditions, t_end 20 s at dt 0.2 s."""
+    import dataclasses
+
+    import torch
+
+    from cloudmicrophysics_tpu_torch.parameters.aerosol_species import Sulfate
+
+    rng = np.random.default_rng(0)
+    n = ENSEMBLE
+    r_dry = 10 ** rng.uniform(-8.2, -6.8, (n, 2))
+    stdev = rng.uniform(1.4, 2.4, (n, 2))
+    N_m = 10 ** rng.uniform(6.5, 9.0, (n, 2))
+    kappa = rng.uniform(0.1, 1.2, (n, 2))
+    w = 10 ** rng.uniform(-1.0, 0.7, n)
+    T0 = rng.uniform(270.0, 300.0, n)
+    p0 = rng.uniform(7e4, 1.02e5, n)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    member = dict(r_nuc=f32(r_dry[:, 0]), aero_sigma_g=f32(stdev[:, 0]),
+                  N_aer_act=f32(N_m.sum(axis=1)), w=f32(w),
+                  kappa=f32(kappa[:, 0]))
+    T, p = f32(T0), f32(p0)
+    z = torch.zeros_like(T)
+    rho = TDI.air_density(tps, T, p, z, z, z)
+    q_vap = TDI.p2q(tps, T, rho,
+                    TDI.saturation_vapor_pressure_over_liquid(tps, T))
+    S0 = float(np.float32(1.0) + np.float32(1e-4))
+    ic = PM.ParcelState(S_l=torch.full_like(T, S0), p_air=p, T=T,
+                        q_vap=q_vap, q_liq=z, q_ice=z,
+                        N_aer=member["N_aer_act"], N_liq=z, N_ice=z,
+                        ln_inpc=z)
+    base = PM.parcel_params(aerosol_act="AeroAct",
+                            condensation_growth="Condensation",
+                            aerosol=Sulfate(), aero_sigma_g=2.0,
+                            const_dt=0.2)
+
+    def params(sl):
+        m = {k: v[sl] for k, v in member.items()}
+        kap = m.pop("kappa")
+        return dataclasses.replace(base, **m, aerosol=dataclasses.replace(
+            base.aerosol, kappa=kap))
+
+    t_end = 20.0
+    PM.run_parcel(ic, 0.0, t_end, params(slice(None)))      # warm-up
+    ms, traj = _event_ms(lambda: PM.run_parcel(ic, 0.0, t_end,
+                                               params(slice(None))))
+    _check_parcel("liquid ensemble", traj)
+    one = PM.run_parcel(PM.ParcelState(*(v[0:1].clone() for v in ic)), 0.0,
+                        t_end, params(slice(0, 1)))
+    _same_member("liquid ensemble", traj, one, 0)
+    s_max = traj.S_l.max(dim=0).values - 1
+    n_steps = traj.S_l.shape[0] - 1
+    out = _ensemble_report(
+        "liquid ensemble (emulator dataset)", n_steps, ms, n_steps,
+        f"; S_max - 1 median {float(s_max.median()):.4g}, range "
+        f"{float(s_max.min()):.4g}..{float(s_max.max()):.4g}")
+    out["S_max_minus_1_median"] = float(s_max.median())
+    return out
+
+
+def _ice_ensemble(device, PM, TDI, tps):
+    """Tully et al. 2023 cirrus, period 1 (examples/parcel_tully_2023.py):
+    MohlerAF deposition on desert dust with deposition growth, dt 0.1 s;
+    member 0 at the published w = 3.5e-2 m/s, the others at a seeded
+    log-uniform w in [1e-2, 1] m/s; the first TULLY_STEPS steps."""
+    import dataclasses
+
+    import torch
+
+    from cloudmicrophysics_tpu_torch.parameters.aerosol_species import (
+        DesertDust,
+    )
+
+    N_aer, p0, T0, qv0 = 2000e3, 20000.0, 230.0, 3.3e-4
+    # the example's parcel_ic, in float64 on the host
+    R_a = tps.R_d * (1 - qv0) + tps.R_v * qv0
+    e_sl = float(TDI.saturation_vapor_pressure_over_liquid(
+        tps, torch.tensor(T0, dtype=torch.float64)))
+    S0 = qv0 * p0 * tps.R_v / R_a / e_sl
+    values = dict(S_l=S0, p_air=p0, T=T0, q_vap=qv0, q_liq=0.0, q_ice=0.0,
+                  N_aer=N_aer, N_liq=0.0, N_ice=0.0, ln_inpc=0.0)
+    ic = PM.ParcelState(**{k: torch.full((ENSEMBLE,), v, dtype=torch.float32,
+                                         device=device)
+                           for k, v in values.items()})
+    rng = np.random.default_rng(0)
+    w = np.concatenate([[3.5e-2], 10 ** rng.uniform(-2.0, 0.0, ENSEMBLE - 1)])
+    w = torch.as_tensor(w.astype(np.float32), device=device)
+    base = PM.parcel_params(aerosol=DesertDust(), deposition="MohlerAF",
+                            deposition_growth="Deposition",
+                            liq_size_distribution="Monodisperse",
+                            r_nuc=0.5e-4 * 1e-6, const_dt=0.1)
+    t_end = TULLY_STEPS * base.const_dt
+    ms, traj = _event_ms(lambda: PM.run_parcel(
+        ic, 0.0, t_end, dataclasses.replace(base, w=w)))
+    _check_parcel("ice ensemble", traj)
+    one = PM.run_parcel(PM.ParcelState(*(v[0:1].clone() for v in ic)), 0.0,
+                        t_end, dataclasses.replace(base, w=w[0:1]))
+    _same_member("ice ensemble", traj, one, 0)
+    # the comparison covers MohlerAF nucleation and deposition growth only
+    # if member 0 nucleates within the window
+    with_ice = torch.nonzero(one.N_ice[:, 0] > 0)
+    if with_ice.numel() == 0:
+        raise AssertionError("ice ensemble: member 0 nucleates no ice in "
+                             f"its {TULLY_STEPS} steps")
+    first_ice = int(with_ice[0, 0])
+    nucleated = int((traj.N_ice[-1] > 0).sum())
+    out = _ensemble_report(
+        f"ice ensemble (Tully 2023 period 1, first {TULLY_STEPS} steps)",
+        TULLY_STEPS, ms, TULLY_STEPS,
+        f"; {nucleated} members with ice at the end, member 0 N_ice "
+        f"{float(traj.N_ice[-1, 0]):.4g} /m^3, positive from step "
+        f"{first_ice}")
+    out["members_with_ice"] = nucleated
+    out["member0_first_ice_step"] = first_ice
+    return out
+
+
+def _box_and_sandbox(device, BOX, SB, tps):
+    """examples/box_alpert_knopf_2016.py's box (1000 droplets, dt 10 s, 331
+    steps), deterministic and stochastic with a seeded generator, and the
+    P3 sandbox on tests/test_calibration.py's state; float32 against
+    float64 on the card."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.parameters import parameters_p3
+    from cloudmicrophysics_tpu_torch.parameters.aerosol_species import Illite
+
+    A_aero, sigma_g, N0 = 1e-5 * 1e-4, 10.0, 1000
+    T0, cooling, t_end, dt = 256.0, 0.5 / 60, 3310.0, 10.0
+    Aj = np.sort(np.random.default_rng(42).lognormal(
+        np.log(A_aero), np.log(sigma_g), N0))[::-1].copy()
+    N_l, r_l = 500e3, 1e-6
+    q_l = N_l * 4 / 3 * np.pi * r_l**3 * 1000.0 / 1.2
+    det, sto, sand, ms = {}, {}, {}, {}
+    for dtype in (torch.float32, torch.float64):
+        def f(v):
+            return torch.full((), v, dtype=dtype, device=device)
+
+        ms[dtype], traj = _event_ms(lambda: BOX.run_box(
+            BOX.BoxState(f(T0), f(N0 * A_aero), f(float(N0)), f(0.0)), 0.0,
+            t_end, tps, Illite(), cooling, A_aero, dt))
+        det[dtype] = (traj.N_ice / N0).double()
+        _, n_ice = _event_ms(lambda: BOX.run_box_stochastic(
+            T0, torch.as_tensor(Aj, dtype=dtype, device=device), 0.0, t_end,
+            tps, Illite(), cooling, dt,
+            torch.Generator(device=device).manual_seed(7))[2])
+        sto[dtype] = n_ice.double() / N0
+        sand[dtype] = SB.run_p3_sandbox(
+            SB.P3SandboxState(f(100e6), f(1e-3), f(1e-4), f(1e-4 / 200)),
+            0.0, 2.0, 1.0, parameters_p3(), tps, Illite(), T=f(251.0),
+            p_air=f(800e2), q_vap=f(8.1e-4), q_liq=f(q_l), N_liq=f(N_l),
+            r_liq=f(r_l))
+    for tag, frac in (("deterministic", det), ("stochastic", sto)):
+        for dtype, x in frac.items():
+            if not bool(x.isfinite().all()) or bool((x < 0).any()) or bool(
+                    (x > 1 + 1e-6).any()):
+                raise AssertionError(f"box {tag} {dtype}: frozen fraction "
+                                     f"outside [0, 1] or not finite")
+    f32, f64 = torch.float32, torch.float64
+    d_det = float((det[f32] - det[f64]).abs().max())
+    d_sto = abs(float(sto[f32].mean()) - float(sto[f64].mean()))
+    (t32, th32), (t64, th64) = sand[f32], sand[f64]
+    if any(v.dtype != f32 for v in (*t32, *th32)):
+        raise AssertionError("P3 sandbox: a float32 run left float32")
+    d_sand = max(float(((a.double() - b).abs() / b.abs()).max())
+                 for a, b in zip((t32.N_ice, *th32), (t64.N_ice, *th64)))
+    print(f"  box, deterministic: frozen fraction {float(det[f64][-1]):.6g} "
+          f"at the end; float32 {ms[f32] / 331 * 1e3:.4g} us/step; float32 "
+          f"against float64 max |diff| {d_det:.3e} (tolerance {TOL_BOX})")
+    print(f"  box, stochastic: frozen fraction {float(sto[f64][-1]):.6g} at "
+          f"the end; mean over the steps float32 {float(sto[f32].mean()):.6g}"
+          f", float64 {float(sto[f64].mean()):.6g} (tolerance "
+          f"{TOL_BOX_STOCH})")
+    print(f"  P3 sandbox: N_ice {float(t64.N_ice[-1]):.9g}, thresholds "
+          f"{[float(v) for v in th64]}; float32 against float64 max rel "
+          f"{d_sand:.3e} (tolerance {TOL_SANDBOX})")
+    if d_det > TOL_BOX or d_sto > TOL_BOX_STOCH or d_sand > TOL_SANDBOX:
+        raise AssertionError(f"box/sandbox float32 against float64: "
+                             f"{d_det}, {d_sto}, {d_sand}")
+    return {"box_frozen_fraction_end": float(det[f64][-1]),
+            "box_us_per_step_f32": ms[f32] / 331 * 1e3,
+            "box_f32_vs_f64": d_det,
+            "box_stochastic_frozen_fraction_end": float(sto[f64][-1]),
+            "box_stochastic_mean_diff": d_sto, "sandbox_f32_vs_f64": d_sand}
+
+
+def _pointwise(device, tps):
+    """The point-wise processes at full width, float32 against float64 on
+    the card, with times by CUDA events and each float64 call's peak device
+    memory."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models.bench_states import (
+        device_state,
+        device_state_2m,
+        p3_bench_state,
+    )
+    from cloudmicrophysics_tpu_torch.ops import aerosol_activation as AA
+    from cloudmicrophysics_tpu_torch.ops import common as CO
+    from cloudmicrophysics_tpu_torch.ops import diagnostics as CMD
+    from cloudmicrophysics_tpu_torch.ops import ice_nucleation as CMI
+    from cloudmicrophysics_tpu_torch.ops import p3_processes as P3P
+    from cloudmicrophysics_tpu_torch.ops import thermo as TDI
+    from cloudmicrophysics_tpu_torch.parameters import (
+        AirProperties,
+        microphysics_1m_params,
+        microphysics_2m_params,
+    )
+    from cloudmicrophysics_tpu_torch.parameters import aerosol as PA
+    from cloudmicrophysics_tpu_torch.parameters import aerosol_species as SP
+
+    results = {}
+
+    def run(name, fn, args, compare, tol, n_cells):
+        """float32 time and result, float64 result and peak memory, and the
+        float32 error by ``compare`` against ``tol``."""
+        ms = min(_time_ms(lambda: fn(*args), reps=3))
+        r32 = fn(*args)
+        args64 = tuple(a.double() for a in args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        r64 = fn(*args64)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        err, compared = compare(r32, r64, args64)
+        del args64, r64
+        gbs = sum(a.numel() * 4 for a in args) / (ms * 1e-3) / 1e9
+        print(f"  {name} over {n_cells} cells: float32 {ms:.6g} ms "
+              f"({gbs:.4g} GB/s of inputs), float32 against float64 "
+              f"{err:.3e} over {compared} cells (tolerance {tol}); the "
+              f"float64 call's peak {peak:.3g} GiB beyond its inputs")
+        if not (err <= tol) or not bool(torch.isfinite(r32).all()):
+            raise AssertionError(f"{name}: float32 against float64 {err} > "
+                                 f"{tol}, or not finite")
+        results[name] = {"ms": ms, "err": err, "tol": tol,
+                         "f64_peak_gib": peak}
+
+    def dbz_where(mask_fn):
+        def cmp(r32, r64, args64):
+            m = mask_fn(args64, r64)
+            return float((r32.double() - r64).abs()[m].max()), int(m.sum())
+        return cmp
+
+    def rel_where(mask_fn):
+        def cmp(r32, r64, args64):
+            m = mask_fn(args64, r64)
+            d = (r32.double() - r64).abs() / r64.abs()
+            return float(d[m].max()), int(m.sum())
+        return cmp
+
+    eps32 = torch.finfo(torch.float32).eps
+    st2 = device_state_2m(NCOL, NLEV, device)
+    sb = microphysics_2m_params().warm_rain.seifert_beheng
+    args = (st2.q_lcl, st2.q_rai, st2.n_lcl, st2.n_rai, st2.rho)
+    del st2
+    n2 = NCOL * NLEV
+    # below the float32 presence thresholds of the 2M scheme (machine eps)
+    # the float32 call treats a species as absent, by design
+    def present(a, r):
+        return ((a[0] >= eps32) & (a[1] >= eps32) & (a[2] >= eps32)
+                & (a[3] >= eps32))
+
+    run("radar_reflectivity_2m",
+        lambda *a: CMD.radar_reflectivity_2m(sb, *a), args,
+        dbz_where(present), TOL_DBZ, n2)
+    run("effective_radius_2m", lambda *a: CMD.effective_radius_2m(sb, *a),
+        args, rel_where(lambda a, r: present(a, r) & (r > 0)), TOL_REFF, n2)
+    del args
+    st1 = device_state(NCOL, NLEV, device)
+    rain = microphysics_1m_params().precip.rain
+    run("radar_reflectivity_1m",
+        lambda q, rho: CMD.radar_reflectivity_1m(rain, q, rho),
+        (st1.q_rai, st1.rho), dbz_where(lambda a, r: r == r), TOL_DBZ, n2)
+    # two modes (tests/test_aerosol_activation.py): kappa sulfate
+    # accumulation, B sea-salt coarse; the 1M state's T, its dry-air
+    # pressure, saturated vapour (the ARG assumption) and a seeded w
+    su, ss = SP.Sulfate(), SP.Seasalt()
+    ad = PA.AerosolDistribution(modes=(
+        PA.ModeKappa(r_dry=0.05e-6, stdev=2.0, N=100e6, vol_mix_ratio=(1.0,),
+                     mass_mix_ratio=(1.0,), molar_mass=(su.M,),
+                     kappa=(su.kappa,)),
+        PA.ModeB(r_dry=1.5e-6, stdev=2.1, N=1e6, mass_mix_ratio=(1.0,),
+                 soluble_mass_frac=(ss.epsilon,), osmotic_coeff=(ss.phi,),
+                 molar_mass=(ss.M,), dissoc=(ss.nu,),
+                 aerosol_density=(ss.rho,))))
+    ap, aip = PA.AerosolActivationParameters(), AirProperties()
+    w = 10 ** (2 * torch.rand(st1.T.shape, device=device,
+                              generator=torch.Generator(
+                                  device=device).manual_seed(0)) - 1)
+
+    def activated(rho, T, w):
+        p = rho * tps.R_d * T
+        p_vs = TDI.saturation_vapor_pressure_over_liquid(tps, T)
+        q_tot = 1 / (1 - tps.Rv_over_Rd * (p_vs - p) / p_vs)
+        z = torch.zeros_like(T)
+        return AA.total_N_activated(ap, ad, aip, tps, T, p, w, q_tot, z, z)
+
+    run("total_N_activated", activated, (st1.rho, st1.T, w),
+        rel_where(lambda a, r: r > 0), TOL_ACT, n2)
+    del st1, w
+    st3 = p3_bench_state(P3_NCOL, P3_NLEV, device)
+    illite = SP.Illite()
+
+    def rh(q_tot, q_lcl, q_rai, q_ice, T, rho):
+        q_vap = q_tot - q_lcl - q_rai - q_ice
+        return q_vap / TDI.saturation_vapor_specific_content_over_liquid(
+            tps, T, rho)
+
+    def het(q_tot, q_lcl, q_rai, q_ice, n_lcl, T, rho):
+        RH = rh(q_tot, q_lcl, q_rai, q_ice, T, rho)
+        return P3P.het_ice_nucleation(illite, tps, q_lcl, n_lcl, RH, T,
+                                      rho)[0]
+
+    def het_mask(a, r):
+        # where float32 holds J normal and finite (its rate overflows to
+        # inf, and is zeroed, by design)
+        J = CMI.ABIFM_J(illite, rh(*a[:4], a[5], a[6])
+                        - CO.a_w_ice(tps, a[5]))
+        return (J > 1e-20) & (J < 1e37)
+
+    run("het_ice_nucleation", het,
+        (st3.q_tot, st3.q_lcl, st3.q_rai, st3.q_ice, st3.n_lcl, st3.T,
+         st3.rho), rel_where(het_mask), TOL_HET, P3_NCOL * P3_NLEV)
+    return results
+
+
+def _run_0d(device, gpu_line):
+    """Phase 15: the parcel, box and P3-sandbox drivers and the point-wise
+    processes under them on the card. Returns the phase's JSON object."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models import box as BOX
+    from cloudmicrophysics_tpu_torch.models import p3_sandbox as SB
+    from cloudmicrophysics_tpu_torch.models import parcel as PM
+    from cloudmicrophysics_tpu_torch.ops import thermo as TDI
+    from cloudmicrophysics_tpu_torch.parameters import ThermodynamicsParameters
+
+    tps = ThermodynamicsParameters()
+    torch.cuda.empty_cache()
+    print("== 0-D drivers and point-wise processes on the card")
+    parts = {"parcel": lambda: _parcel_bench(device, PM),
+             "liquid_ensemble": lambda: _liquid_ensemble(device, PM, TDI,
+                                                         tps),
+             "ice_ensemble": lambda: _ice_ensemble(device, PM, TDI, tps),
+             "box_and_sandbox": lambda: _box_and_sandbox(device, BOX, SB,
+                                                         tps),
+             "pointwise": lambda: _pointwise(device, tps)}
+    out, wall = {"gpu": gpu_line}, {}
+    for name, part in parts.items():
+        t0 = time.perf_counter()
+        out[name] = part()
+        wall[name] = time.perf_counter() - t0
+    out["wall_s"] = wall
+    print(f"  phase 15 wall seconds by part: "
+          f"{ {k: round(v, 2) for k, v in wall.items()} }")
+    torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Model layer (L5/L6): fused tendency API and the column step."""
 
-from . import column, p3_tendencies, tendencies
+from . import box, column, p3_sandbox, p3_tendencies, parcel, tendencies
 from .column import (
     Column1MStep,
     Column2MStep,
@@ -12,7 +12,16 @@ from .column import (
     step_column_2m,
     step_column_p3,
 )
+from .box import BoxState, run_box, run_box_stochastic
+from .p3_sandbox import P3SandboxState, run_p3_sandbox
 from .p3_tendencies import P3StepAux, ice_tendencies_2m_p3, p3_step_aux
+from .parcel import (
+    ParcelParams,
+    ParcelState,
+    parcel_params,
+    parcel_tendencies,
+    run_parcel,
+)
 from .tendencies import (
     SourceTerms1M,
     Tendencies1M,

@@ -1,11 +1,14 @@
-"""Heterogeneous ice nucleation: the Frostenberg 2023 and Bigg half.
+"""Heterogeneous and homogeneous ice nucleation.
 
-Port of ``cloudmicrophysics_tpu/ops/ice_nucleation.py:109-216`` (reference
-``src/IceNucleation.jl``): the Frostenberg 2023 INP climatology (frequency,
-mean, the budgeted deposition and immersion-cap rates, the depletion
-proxy) and Bigg immersion freezing integrated over the rain and cloud
-PSDs, which the 2M+P3 tendencies read. Mohler 2006, ABIFM/ABDINM, Koop
-2000 and the P3 ``N_i`` closures are not ported yet.
+Port of ``cloudmicrophysics_tpu/ops/ice_nucleation.py`` (reference
+``src/IceNucleation.jl``): Mohler 2006 dust deposition activation,
+water-activity-based deposition (ABDINM) and immersion (ABIFM)
+J-coefficients, the P3 deposition and condensation-freezing ``N_i``
+closures, the Frostenberg 2023 INP climatology (frequency, mean, the
+budgeted deposition and immersion-cap rates, the depletion proxy), Bigg
+immersion freezing integrated over the rain and cloud PSDs, and Koop 2000
+homogeneous nucleation. A dust struct's numeric fields may be Python
+floats or tensors of one value per ensemble member.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from ..parameters import m2 as P2
 from ..parameters.thermodynamics import ThermodynamicsParameters
 from ..utils import distributions as DT
 from ..utils.special import (
+    asarray,
     clamp_to_nonneg,
     eps_numerics_2M_M,
     eps_numerics_2M_N,
@@ -32,6 +36,12 @@ TPS = ThermodynamicsParameters
 PI = math.pi
 
 __all__ = [
+    "dust_activated_number_fraction",
+    "mohler_deposition_rate",
+    "deposition_J",
+    "ABIFM_J",
+    "P3_deposition_N_i",
+    "P3_het_N_i",
     "INP_concentration_frequency",
     "INP_concentration_mean",
     "liquid_freezing_rate_rain",
@@ -39,7 +49,72 @@ __all__ = [
     "immersion_limit_rate",
     "deposition_rate_frostenberg",
     "n_active",
+    "homogeneous_J_cubic",
+    "homogeneous_J_linear",
 ]
+
+
+def _select(cond, a, b, like):
+    """``jnp.where(cond, a, b)`` for two parameter values (Python floats or
+    per-member tensors), taken in ``like``'s dtype."""
+    return torch.where(cond, asarray(a, like), asarray(b, like))
+
+
+# ---------------------------------------------------------------------------
+# Deposition on dust (Mohler 2006; reference src/IceNucleation.jl:44-77)
+# ---------------------------------------------------------------------------
+
+def dust_activated_number_fraction(dust, ip: PIN.Mohler2006, Si, T):
+    """Fraction of dust particles acting as deposition nuclei
+    (Mohler 2006 Table 2). Valid for ``Si < Si_max``."""
+    warm = T > ip.T_thr
+    S0 = _select(warm, dust.S0_warm, dust.S0_cold, T)
+    a = _select(warm, dust.a_warm, dust.a_cold, T)
+    frac = torch.exp(a * (Si - S0)) - 1
+    return clamp_to_nonneg(frac)
+
+
+def mohler_deposition_rate(dust, ip: PIN.Mohler2006, Si, T, dSi_dt, N_aer):
+    """Deposition nucleation rate (Mohler 2006 Eq 5) [1/m^3/s]."""
+    a = _select(T > ip.T_thr, dust.a_warm, dust.a_cold, T)
+    return clamp_to_nonneg(N_aer * a * dSi_dt)
+
+
+# ---------------------------------------------------------------------------
+# Water-activity-based J coefficients
+# ---------------------------------------------------------------------------
+
+def deposition_J(dust, delta_a_w):
+    """Deposition nucleation rate coefficient J [1/m^2/s] (China et al. 2017;
+    reference src/IceNucleation.jl:92-102)."""
+    logJ = dust.deposition_m * delta_a_w + dust.deposition_c
+    return 10.0 ** (logJ + 4)  # cm^-2 s^-1 -> m^-2 s^-1
+
+
+def ABIFM_J(dust, delta_a_w):
+    """ABIFM immersion freezing J [1/m^2/s] (Knopf & Alpert 2013;
+    reference src/IceNucleation.jl:124-134)."""
+    logJ = dust.ABIFM_m * delta_a_w + dust.ABIFM_c
+    return 10.0 ** (logJ + 4)
+
+
+# ---------------------------------------------------------------------------
+# P3-style nucleation (reference src/IceNucleation.jl:162-205)
+# ---------------------------------------------------------------------------
+
+def P3_deposition_N_i(ip: PIN.MorrisonMilbrandt2014, T):
+    """Cooper-curve deposition nucleation number [1/m^3]
+    (Thompson et al. 2004 Eq 2)."""
+    T_p = torch.clamp(T, min=ip.T_dep_thres)
+    N_i = 1000.0 * ip.c1 * torch.exp(ip.c2 * (ip.T0 - T_p))
+    return torch.where(T < ip.T0, N_i, torch.zeros_like(N_i))
+
+
+def P3_het_N_i(ip: PIN.MorrisonMilbrandt2014, T, N_l, V_l, dt):
+    """Heterogeneous condensation freezing (Pruppacher & Klett Eq 9-51)."""
+    T_s = ip.T0 - T
+    return N_l * (1 - torch.exp(-ip.het_B * V_l * dt
+                                * torch.exp(ip.het_a * T_s)))
 
 
 # ---------------------------------------------------------------------------
@@ -151,3 +226,22 @@ def liquid_freezing_rate_cloud(opt: PIN.RainFreezing,
     cond = (n > en) & (q > em) & (T < tps.T_freeze - 4)
     z = torch.zeros_like(dn_frz)
     return torch.where(cond, dn_frz, z), torch.where(cond, dq_frz, z)
+
+
+# ---------------------------------------------------------------------------
+# Homogeneous nucleation (Koop 2000; reference src/IceNucleation.jl:543-584)
+# ---------------------------------------------------------------------------
+
+def homogeneous_J_cubic(ip: PIN.Koop2000, delta_a_w):
+    """Koop 2000 cubic fit: J [1/m^3/s]. Valid for
+    ``delta_a_w in [delta_a_w_min, delta_a_w_max]`` (clamped there, as in
+    the JAX package; the reference raises a DomainError)."""
+    da = torch.clamp(delta_a_w, ip.delta_a_w_min, ip.delta_a_w_max)
+    logJ = ip.c1 + ip.c2 * da - ip.c3 * da**2 + ip.c4 * da**3
+    return 10.0 ** (logJ + 6)  # cm^-3 s^-1 -> m^-3 s^-1
+
+
+def homogeneous_J_linear(ip: PIN.Koop2000, delta_a_w):
+    """Linear fit of Koop 2000: J [1/m^3/s]."""
+    logJ = ip.linear_c2 * delta_a_w + ip.linear_c1
+    return 10.0 ** (logJ + 6)

@@ -16,8 +16,10 @@ Port of ``cloudmicrophysics_tpu/ops/p3.py`` (reference P3 files):
 
 Everything is elementwise over cell state; quadrature sums over a leading
 node axis, one node at a time in node order. The shape solver runs a fixed trip count (8 at float32, 10 at
-float64) with no early exit. ``get_distribution_loglambda_all_solutions``
-(experimental, off the column step's path) is not ported yet.
+float64) with no early exit. Off the column step's path:
+``get_distribution_loglambda_from_prognostic``, the experimental
+``get_distribution_loglambda_all_solutions`` and the linear-space
+``gamma_inc_moment``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..utils.special import (
     expm1,
     float_dtype,
     floatmin,
+    gamma,
     gamma_inc,
     lgamma,
     logsumexp,
@@ -72,7 +75,10 @@ __all__ = [
     "logmass_gamma_moment",
     "logLdivN",
     "get_logN0",
+    "gamma_inc_moment",
     "get_distribution_loglambda",
+    "get_distribution_loglambda_all_solutions",
+    "get_distribution_loglambda_from_prognostic",
     "integral_bounds",
     "D_m",
     "IceQuadNodes",
@@ -325,6 +331,21 @@ def loggamma_inc_moment(D1, D2, mu, loglambda, k=0.0, scale=1.0,
     return torch.where(D1 < D2, out, _full(-math.inf, out))
 
 
+def gamma_inc_moment(D1, D2, p, alpha):
+    """``int_D1^D2 D^p e^(-alpha D) dD`` in linear space
+    (reference src/P3_size_distribution.jl:121-133)."""
+    dt = float_dtype(D1, D2, alpha)
+    z = p + 1
+    p1, q1 = gamma_inc(z, alpha * D1)
+    x2 = alpha * D2
+    p2, q2 = gamma_inc(z, x2)
+    dq = torch.clamp(torch.where(x2 < z + 1, p2 - p1, q1 - q2), min=0.0)
+    alpha_safe = torch.clamp(alpha, min=floatmin(dt))
+    out = gamma(z) * dq / alpha_safe**z
+    out = torch.where(D2 > D1, out, torch.zeros_like(out))
+    return torch.where(alpha > 0, out, _full(math.nan, out))
+
+
 def loggamma_moment(mu, loglambda, k=0.0, scale=1.0):
     """``log(scale * int_0^inf D^(mu+k) e^(-lambda D) dD)``
     (reference src/P3_size_distribution.jl:153-157)."""
@@ -512,6 +533,51 @@ def get_distribution_loglambda(state: P3State, loglambda_guess=None,
     root = _brent_fixed(shape_problem, lo, f_lo, hi, f_hi, n_iters)
     root = torch.where(degenerate, endpoint, root)
     return torch.where(empty, _full(-math.inf, root), root)
+
+
+def get_distribution_loglambda_from_prognostic(
+        params: ParametersP3, rho_q_ice, rho_n_ice, rho_q_rim, rho_b_rim,
+        loglambda_guess=None):
+    """Shape solve directly from volumetric prognostics: sugar over
+    :func:`state_from_prognostic` + :func:`get_distribution_loglambda`
+    (reference src/P3_size_distribution.jl
+    ``get_distribution_logλ_from_prognostic``)."""
+    state = state_from_prognostic(params, rho_q_ice, rho_n_ice,
+                                  rho_q_rim, rho_b_rim)
+    return get_distribution_loglambda(state, loglambda_guess)
+
+
+def get_distribution_loglambda_all_solutions(state: P3State,
+                                             n_scan: int = 401):
+    """All candidate ``loglambda`` roots of the shape problem
+    (reference src/P3_size_distribution.jl:365-384; experimental: only the
+    SlopePowerLaw mu(lambda) law can be multi-rooted).
+
+    ``logLdivN`` is evaluated on an ``n_scan``-point grid over
+    ``lambda in [1e2, 1e6]``, and the fixed-iteration Brent solver runs on
+    every adjacent pair, with non-bracketing pairs masked to NaN. Returns
+    an ``(n_scan - 1, *cell)`` tensor of roots (the JAX package's ``vmap``
+    over the grid is a leading axis here)."""
+    dt = float_dtype(state.rho_q_ice, state.rho_n_ice)
+    tiny = floatmin(dt)
+    target = torch.log(torch.clamp(state.rho_q_ice, min=tiny)) \
+        - torch.log(torch.clamp(state.rho_n_ice, min=tiny))
+
+    # jnp.linspace(2, 6, n_scan) as JAX forms it in float64,
+    # start (1 - i/div) + stop i/div with the end point appended
+    div = n_scan - 1
+    step = torch.arange(div, dtype=torch.float64) / div
+    unit = torch.cat([2.0 * (1 - step) + 6.0 * step,
+                      torch.full((1,), 6.0, dtype=torch.float64)])
+    grid = (math.log(10.0) * unit).to(dtype=dt, device=target.device)
+    grid = grid.reshape((n_scan,) + (1,) * target.dim())
+
+    f = logLdivN(state, grid) - target
+    lo, hi = grid[:-1], grid[1:]
+    bracketed = f[:-1] * f[1:] < 0
+    roots = get_distribution_loglambda(state, loglambda_min=lo,
+                                       loglambda_max=hi)
+    return torch.where(bracketed, roots, _full(math.nan, roots))
 
 
 # ---------------------------------------------------------------------------

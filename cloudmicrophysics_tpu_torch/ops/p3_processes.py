@@ -1,19 +1,21 @@
-"""P3 microphysical processes: melting, liquid-ice collisions, and ice
-self-collection.
+"""P3 microphysical processes: heterogeneous nucleation, melting,
+liquid-ice collisions, and ice self-collection.
 
 Port of ``cloudmicrophysics_tpu/ops/p3_processes.py`` (reference
-``src/P3_processes.jl``), the parts the 2M+P3 column step runs:
+``src/P3_processes.jl``):
 
+* :func:`het_ice_nucleation` — ABIFM immersion on cloud drops (``:20-45``);
 * :func:`ice_melt` — ventilation melt integral (``:64-94``);
 * :func:`bulk_liquid_ice_collision_sources` — the nested (ice node x
   liquid node) collision integral with the Musil freezing/shedding split
-  and wet growth, with the default ``rain_inner="quadrature"``
+  and wet growth, with the three rain inner integrals:
+  ``rain_inner="quadrature"`` (the default, the column step's),
+  ``"quadrature_split"`` (split at the velocity-crossover diameter) and
+  ``"closed_form"`` (the reference's incomplete-gamma flux sums)
   (``:152-655``);
-* :func:`ice_self_collection` — the segment-blocked double integral, the
-  default ``inner="blocked"`` (``:676-712``).
-
-Not ported yet: ``rain_inner="quadrature_split"`` and ``"closed_form"``,
-``inner="triangle"`` and ``het_ice_nucleation``.
+* :func:`ice_self_collection` — the double integral, segment-blocked
+  (``inner="blocked"``, the default) or over the full lower triangle
+  (``inner="triangle"``) (``:676-712``).
 
 Every sum over a node axis (liquid nodes, ice nodes, self-collection inner
 nodes) runs one node at a time in node order
@@ -37,8 +39,16 @@ from ..utils.quadrature import (
     sum_nodes,
 )
 from ..utils.quadrature import nodes as _nodes
-from ..utils.special import clamp_to_nonneg, float_dtype, floatmin, machine_eps
+from ..utils.special import (
+    clamp_to_nonneg,
+    float_dtype,
+    floatmin,
+    gamma,
+    gamma_inc,
+    machine_eps,
+)
 from . import common as CO
+from . import ice_nucleation as CMI
 from . import m2 as CM2
 from . import p3 as P3
 from . import thermo as TDI
@@ -52,6 +62,7 @@ __all__ = [
     "collision_cross_section_coeffs",
     "compute_local_rime_density",
     "compute_max_freeze_rate",
+    "het_ice_nucleation",
     "ice_melt",
     "ice_self_collection",
 ]
@@ -71,6 +82,21 @@ def _node_iter(quad: QuadratureRule, a, b):
     zero = torch.zeros_like(scale)
     for yj, wj in zip(y_np.reshape(-1).tolist(), w_np.reshape(-1).tolist()):
         yield scale * yj + mid, torch.where(valid, wj * scale, zero)
+
+
+# ---------------------------------------------------------------------------
+# Heterogeneous nucleation (reference src/P3_processes.jl:20-45)
+# ---------------------------------------------------------------------------
+
+def het_ice_nucleation(aerosol, tps: TPS, q_lcl, N_lcl, RH, T, rho_a):
+    """ABIFM immersion freezing of cloud droplets. Returns
+    ``(dNdt [1/m^3/s], dLdt [kg/m^3/s])``."""
+    J = CMI.ABIFM_J(aerosol, RH - CO.a_w_ice(tps, T))
+    A_aer = 1e-10  # assumed aerosol surface area (reference TODO)
+    JA = torch.where(torch.isfinite(J), J * A_aer, torch.zeros_like(J))
+    dNdt = clamp_to_nonneg(JA * N_lcl)
+    dLdt = clamp_to_nonneg(JA * q_lcl * rho_a)
+    return dNdt, dLdt
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +225,65 @@ class CollisionSources(NamedTuple):
     dB_rim: torch.Tensor    # rime volume tendency [m^3/m^3/s]
 
 
+def _endpoint_ladders(z0, alpha_safe, D):
+    """Unregularized incomplete gammas ``gamma(z0+m, alpha D)`` (lower) and
+    ``Gamma(z0+m, alpha D)`` (upper) for ``m = 0..5``, from one
+    :func:`gamma_inc` evaluation per ladder: the lower ladder runs down
+    from ``z0+5`` by ``gamma(s, y) = (gamma(s+1, y) + y^s e^-y) / s``, the
+    upper one up from ``z0`` by ``Gamma(s+1, y) = s Gamma(s, y) + y^s
+    e^-y``; both recurrences add positive terms only."""
+    tiny = floatmin(float_dtype(alpha_safe, D))
+    y = alpha_safe * D
+    logy = torch.log(torch.clamp(y, min=tiny))
+    P_hi, _ = gamma_inc(z0 + 5.0, y)
+    _, Q_lo = gamma_inc(z0 + 0.0, y)
+    lo = [None] * 6
+    up = [None] * 6
+    lo[5] = P_hi * gamma(z0 + 5.0)
+    up[0] = Q_lo * gamma(z0 + 0.0)
+    for m in range(4, -1, -1):
+        s = z0 + m
+        lo[m] = (lo[m + 1] + torch.exp(s * logy - y)) / s
+    for m in range(5):
+        s = z0 + m
+        up[m + 1] = s * up[m] + torch.exp(s * logy - y)
+    return lo, up, y
+
+
+def _moments_from_ladders(z0, alpha, alpha_safe, lad1, lad2, D1, D2):
+    """``J_m = int_{D1}^{D2} D^(z0-1+m) e^(-alpha D) dD`` for ``m = 0..5``
+    from precomputed endpoint ladders: the lower-gamma difference when the
+    upper endpoint lies left of the peak region, the upper-gamma
+    difference otherwise, floored at 0; 0 for collapsed intervals, NaN for
+    ``alpha <= 0``."""
+    lo1, up1, _ = lad1
+    lo2, up2, y2 = lad2
+    log_alpha = torch.log(alpha_safe)
+    out = []
+    for m in range(6):
+        z = z0 + m
+        d_lo = torch.clamp(lo2[m] - lo1[m], min=0.0)
+        d_up = torch.clamp(up1[m] - up2[m], min=0.0)
+        d = torch.where(y2 < z + 1, d_lo, d_up)
+        J = d * torch.exp(-z * log_alpha)
+        J = torch.where(D2 > D1, J, torch.zeros_like(J))
+        out.append(torch.where(alpha > 0, J, torch.full_like(J, math.nan)))
+    return out
+
+
+def _crossover_diameter(v_target, v_l_fn, D_min, D_max, dt):
+    """Diameter where the liquid velocity equals ``v_target``: the
+    fixed-iteration Brent of the shape solver (reference
+    src/P3_processes.jl:326-339)."""
+    def f(D):
+        return v_l_fn(D) - v_target
+
+    lo = D_min + torch.zeros_like(v_target)
+    hi = D_max + torch.zeros_like(v_target)
+    n_iters = 10 if dt == torch.float64 else 8
+    return P3._brent_fixed(f, lo, f(lo), hi, f(hi), n_iters)
+
+
 def liquid_quadrature(quad: QuadratureRule) -> QuadratureRule:
     """The liquid (inner) axis rule of the collision integral: half the ice
     order with a floor of 8 (Gauss-Legendre) when the ice order exceeds 8,
@@ -217,15 +302,24 @@ def bulk_liquid_ice_collision_sources(
     (ice nodes x liquid nodes) with the Musil freezing/shedding split and
     wet-growth densification (reference src/P3_processes.jl:533-655).
 
-    The cloud and rain inner integrals use Gauss nodes over the per-cell
-    liquid PSD window (``rain_inner="quadrature"``, the JAX package's
-    default): every liquid-node factor (Chen 2022 rain velocity, PSD, drop
-    mass) is evaluated once per liquid node and broadcast across the ice
-    axis. The ``|v_i - v_l|`` kink is integrated through un-split.
+    The cloud inner integral uses Gauss nodes over the per-cell cloud PSD
+    window (:func:`liquid_quadrature`). The rain inner integral
+    (``rain_inner``) is one of
+
+    * ``"quadrature"`` (default): Gauss nodes over the per-cell rain
+      window; every liquid-node factor (Chen 2022 rain velocity, PSD, drop
+      mass) is evaluated once per liquid node and broadcast across the ice
+      axis, and the ``|v_i - v_l|`` kink is integrated through un-split;
+    * ``"quadrature_split"``: Gauss nodes of the full order ``quad`` on
+      each side of the velocity-crossover diameter ``D*`` (fixed-iteration
+      Brent), so each side is smooth; ``D*`` depends on the ice node, so
+      the liquid-node factors are evaluated per (ice node, cell);
+    * ``"closed_form"``: the reference's incomplete-gamma flux sums
+      (``src/P3_processes.jl:326-427``) from shared endpoint ladders, with
+      the rime-volume inner integral by quadrature.
     """
-    if rain_inner != "quadrature":
-        raise NotImplementedError(
-            f"rain_inner={rain_inner!r} is not ported; only 'quadrature'")
+    if rain_inner not in ("quadrature", "quadrature_split", "closed_form"):
+        raise ValueError(f"unknown rain_inner {rain_inner!r}")
     if quad is None:
         quad = default_quadrature()
     liquid_quad = liquid_quadrature(quad)
@@ -283,7 +377,7 @@ def bulk_liquid_ice_collision_sources(
 
     # --- rain inner integral ---
     rain_params = CM2.pdf_rain_parameters(pdf_r, L_r / rho_a, rho_a, N_r)
-    N0r = rain_params.N0r
+    N0r, Dr_mean = rain_params.N0r, rain_params.Dr_mean
     rain_valid = (N0r > 0) & (r_hi > r_lo)
     r_lo_s = torch.where(rain_valid, r_lo, torch.ones_like(r_lo))
     r_hi_s = torch.where(rain_valid, r_hi, 2 * torch.ones_like(r_hi))
@@ -291,23 +385,88 @@ def bulk_liquid_ice_collision_sources(
     def n_r(D):
         return CM2.size_distribution_rain(pdf_r, L_r / rho_a, rho_a, N_r, D)
 
-    # per-cell fixed nodes: every liquid-node factor once on (n_l, *cell),
-    # broadcast across the ice axis; invalid rain windows integrate over
-    # the dummy [1, 2] m window, where n_r underflows to 0, and are masked
-    # below anyway
-    Dl_r, wl_r = _nodes(liquid_quad, r_lo_s, r_hi_s)  # (n_l, *cell)
-    v_l = v_liq(Dl_r)
-    nw_r = (n_r(Dl_r) * wl_r)[:, None]
-    nwm_r = nw_r * m_liq(Dl_r)[:, None]
-    Dlr = Dl_r[:, None]
-    K_n = (k2 * Dlr + k1[None]) * Dlr + k0[None]
-    v_rel = torch.abs(v_i_at_Di[None] - v_l[:, None])
-    dV_r = K_n * v_rel
-    t2 = dV_r * nwm_r
-    t3 = t2 / rho_rim_loc(Di[None], Dlr, v_rel=v_rel)
-    dN_r_col = sum_nodes(dV_r * nw_r)
-    dM_r_col = sum_nodes(t2)
-    dB_r_col = sum_nodes(t3)
+    if rain_inner == "quadrature":
+        # per-cell fixed nodes: every liquid-node factor once on
+        # (n_l, *cell), broadcast across the ice axis; invalid rain windows
+        # integrate over the dummy [1, 2] m window, where n_r underflows to
+        # 0, and are masked below anyway
+        Dl_r, wl_r = _nodes(liquid_quad, r_lo_s, r_hi_s)  # (n_l, *cell)
+        v_l = v_liq(Dl_r)
+        nw_r = (n_r(Dl_r) * wl_r)[:, None]
+        nwm_r = nw_r * m_liq(Dl_r)[:, None]
+        Dlr = Dl_r[:, None]
+        K_n = (k2 * Dlr + k1[None]) * Dlr + k0[None]
+        v_rel = torch.abs(v_i_at_Di[None] - v_l[:, None])
+        dV_r = K_n * v_rel
+        t2 = dV_r * nwm_r
+        t3 = t2 / rho_rim_loc(Di[None], Dlr, v_rel=v_rel)
+        dN_r_col = sum_nodes(dV_r * nw_r)
+        dM_r_col = sum_nodes(t2)
+        dB_r_col = sum_nodes(t3)
+    elif rain_inner == "quadrature_split":
+        # a wrong crossover (no crossing in the window: Brent unbracketed)
+        # only moves the split point of a then-smooth integrand
+        Dstar = _crossover_diameter(v_i_at_Di, v_liq, r_lo_s, r_hi_s, dt)
+        zero = torch.zeros_like(k0)
+        dN_r_col, dM_r_col, dB_r_col = zero, zero, zero
+        lo_b = r_lo_s + torch.zeros_like(Dstar)
+        hi_b = r_hi_s + torch.zeros_like(Dstar)
+        for a, b in ((lo_b, Dstar), (Dstar, hi_b)):
+            Dl_n, w_n = _nodes(quad, a, b)   # (n_l, n_i, *cell)
+            K_n = (k2 * Dl_n + k1[None]) * Dl_n + k0[None]
+            t1 = K_n * torch.abs(v_i_at_Di[None] - v_liq(Dl_n)) * n_r(Dl_n)
+            t2 = t1 * m_liq(Dl_n)
+            t3 = t2 / rho_rim_loc(Di[None], Dl_n, v_i_at_Di[None])
+            dN_r_col = dN_r_col + sum_nodes(t1 * w_n)
+            dM_r_col = dM_r_col + sum_nodes(t2 * w_n)
+            dB_r_col = dB_r_col + sum_nodes(t3 * w_n)
+    else:
+        # closed form: flux sums per velocity term from two-sided gamma
+        # ladders; the six consecutive moment exponents (pexp in {0, 3} x
+        # polynomial k in {0, 1, 2}) share endpoint ladders (reference flux
+        # structure: src/P3_processes.jl:344-415)
+        Dstar = _crossover_diameter(v_i_at_Di, v_liq, r_lo_s, r_hi_s, dt)
+        tiny = floatmin(dt)
+        lam_r = 1 / torch.clamp(Dr_mean, min=tiny)
+
+        def segment_moment_diffs(z0, alpha):
+            alpha_safe = torch.clamp(alpha, min=tiny)
+            lad_lo = _endpoint_ladders(z0, alpha_safe, r_lo_s)
+            lad_st = _endpoint_ladders(z0, alpha_safe, Dstar)
+            lad_hi = _endpoint_ladders(z0, alpha_safe, r_hi_s)
+            JA = _moments_from_ladders(z0, alpha, alpha_safe, lad_lo,
+                                       lad_st, r_lo_s, Dstar)
+            JB = _moments_from_ladders(z0, alpha, alpha_safe, lad_st,
+                                       lad_hi, Dstar, r_hi_s)
+            return [a - b for a, b in zip(JA, JB)]
+
+        JD_v = segment_moment_diffs(1.0, lam_r)
+        JD_j = [segment_moment_diffs(bi[j] + 1, lam_r + ciu[j])
+                for j in range(3)]
+        kpoly = (k0, k1, k2)
+
+        def crossing(pexp):
+            s = v_i_at_Di * sum(kpoly[i] * JD_v[pexp + i] for i in range(3))
+            for j in range(3):
+                s = s - aiu[j] * sum(kpoly[i] * JD_j[j][pexp + i]
+                                     for i in range(3))
+            return s
+
+        mfac = rho_w * PI / 6
+        dN_r_col = N0r * crossing(0)
+        dM_r_col = N0r * mfac * crossing(3)
+
+        # rain rime-volume inner integral by quadrature
+        Dl_r, wl_r = _nodes(quad, r_lo, r_hi)
+        Dlr = Dl_r[:, None]
+        wlr = wl_r[:, None]
+        n_r_v = CM2.size_distribution_rain(pdf_r, L_r / rho_a, rho_a, N_r,
+                                           Dlr)
+        K_r = k0[None] + k1[None] * Dlr + k2 * Dlr**2
+        dV_r = K_r * torch.abs(v_i_at_Di[None] - v_liq(Dlr))
+        t3_r = dV_r * n_r_v * m_liq(Dlr) \
+            / rho_rim_loc(Di[None], Dlr, v_i_at_Di[None])
+        dB_r_col = sum_nodes(t3_r * wlr)
 
     bad = ~(torch.isfinite(dN_r_col) & torch.isfinite(dM_r_col)) \
         | ~rain_valid
@@ -386,8 +545,13 @@ def ice_self_collection(state: P3.P3State, loglambda, vel, rho_a, quad=None,
     """Aggregation loss rate of ice number [1/m^3/s] — the symmetric
     double integral ``1/2 ∬ n(D1) n(D2) K(D1, D2) |v(D1) - v(D2)|``
     (reference src/P3_processes.jl:676-712), computed as the ordered-pair
-    integral over ``D2 < D1``, segment-blocked on the step-shared node
-    table (``inner="blocked"``, the JAX package's default):
+    integral over ``D2 < D1``.
+
+    ``inner="triangle"``: inner Gauss-Legendre nodes over the full
+    ``[D_lo, D1]`` at half the ice order (floor 4), for every outer node.
+
+    ``inner="blocked"`` (the default) is segment-blocked on the step-shared
+    node table:
 
     * cross-segment blocks (``D2`` in a strictly lower mass-law segment
       than ``D1``) factorize ``K (v1 - v2)`` over ``K = pi (r1 + r2)^2``
@@ -402,9 +566,8 @@ def ice_self_collection(state: P3.P3State, loglambda, vel, rho_a, quad=None,
     segments of ``quad.n`` nodes each, in segment order; another layout
     raises ``ValueError``.
     """
-    if inner != "blocked":
-        raise NotImplementedError(
-            f"inner={inner!r} is not ported; only 'blocked'")
+    if inner not in ("blocked", "triangle"):
+        raise ValueError(f"unknown inner {inner!r}")
     if quad is None:
         quad = default_quadrature()
     dt = float_dtype(rho_a, loglambda)
@@ -412,6 +575,9 @@ def ice_self_collection(state: P3.P3State, loglambda, vel, rho_a, quad=None,
     if nodes is None:
         nodes = P3.ice_quadrature_nodes(vel, rho_a, state, loglambda,
                                         machine_eps(dt), quad)
+    if inner == "triangle":
+        return _self_collection_triangle(state, loglambda, vel, rho_a, quad,
+                                         nodes)
 
     n = quad.n
     n_seg = len(nodes.bnds) - 1
@@ -466,3 +632,22 @@ def ice_self_collection(state: P3.P3State, loglambda, vel, rho_a, quad=None,
             acc = acc + K * torch.abs(v1_s - v2) * n_i(D2) * w2
         total = total + sum_nodes(acc * nw[sl_o])
     return total
+
+
+def _self_collection_triangle(state, loglambda, vel, rho_a, quad, nodes):
+    """``inner="triangle"`` of :func:`ice_self_collection`: inner nodes over
+    ``[D_lo, D1]`` at half the ice order (floor 4), accumulated one inner
+    node at a time."""
+    n_i = P3.size_distribution(state, loglambda)
+    v_ice = P3.ice_particle_terminal_velocity(vel, rho_a, state)
+    inner_quad = GaussLegendre(max(quad.n // 2, 4))
+    D1 = nodes.D
+    r1 = torch.sqrt(P3.ice_area(state, D1) / PI)
+    acc = torch.zeros_like(D1)
+    for D2, w2 in _node_iter(inner_quad, nodes.bnds[0] + torch.zeros_like(D1),
+                             D1):
+        v2 = v_ice(D2)
+        r2 = torch.sqrt(P3.ice_area(state, D2) / PI)
+        K = PI * (r1 + r2) ** 2
+        acc = acc + K * torch.abs(nodes.v - v2) * n_i(D2) * w2
+    return sum_nodes(acc * nodes.n * nodes.w)

@@ -1,11 +1,14 @@
 """Parameter layer (L1): frozen dataclasses with host-side precompute."""
 
 from . import (
+    aerosol,
+    aerosol_species,
     common,
     convert,
     ice_nucleation,
     m1,
     m2,
+    modal_nucleation,
     p3,
     terminal_velocity,
     thermodynamics,
@@ -18,10 +21,13 @@ from .common import (
     microphysics_0m_params,
 )
 from .convert import (
+    box_state_from_numpy,
     column_state_2m_from_numpy,
     column_state_from_numpy,
     column_state_p3_from_numpy,
     from_tree,
+    p3_sandbox_state_from_numpy,
+    parcel_state_from_numpy,
 )
 from .ice_nucleation import (
     Frostenberg2023,
@@ -35,6 +41,11 @@ from .ice_nucleation import (
 )
 from .m1 import Microphysics1MParams, microphysics_1m_params
 from .m2 import Microphysics2MParams, microphysics_2m_params, sb2006
+from .modal_nucleation import (
+    H2SO4NucleationParameters,
+    MixedNucleationParameters,
+    OrganicNucleationParameters,
+)
 from .p3 import (
     IceNumberAdjustment,
     P3IceParams,

@@ -10,6 +10,10 @@ the 2M rain velocity type (a field typed ``object``) from its keys, and,
 for a 2M set with P3 ice, the quadrature order, the aspect-ratio option
 and the slope law (``SlopePowerLaw`` or ``SlopeConstant``, again from the
 keys). A ``Tabulated`` rule's node/weight tables are copied as float64.
+An aerosol distribution's modes (``ModeB`` or ``ModeKappa``) and a parcel's
+aerosol species follow from their keys too; species whose fields have the
+same names (the dusts) are told apart by their default values, and take
+the tree's values whichever class is picked.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import numpy as np
 import torch
 
 from ..utils.quadrature import Tabulated
+from . import aerosol_species
+from .aerosol import AerosolDistribution, ModeB, ModeKappa
 from .common import Microphysics0MParams, microphysics_0m_params
 from .m1 import Microphysics1MParams, microphysics_1m_params
 from .m2 import Microphysics2MParams, microphysics_2m_params
@@ -32,7 +38,9 @@ from .terminal_velocity import (
 )
 
 __all__ = ["from_tree", "column_state_from_numpy",
-           "column_state_2m_from_numpy", "column_state_p3_from_numpy"]
+           "column_state_2m_from_numpy", "column_state_p3_from_numpy",
+           "parcel_state_from_numpy", "box_state_from_numpy",
+           "p3_sandbox_state_from_numpy"]
 
 # Factories of the classes whose nested fields have no defaults; any other
 # class is built with ``cls()``. The default instance is the template whose
@@ -46,6 +54,8 @@ _TEMPLATES = {
 
 def from_tree(cls: type, tree: Mapping[str, Any]):
     """The port's ``cls`` with every field taken from ``tree``."""
+    from ..models.parcel import ParcelParams, parcel_params
+
     if cls is Microphysics1MParams:
         template = microphysics_1m_params(**tree["processes"])
     elif cls is Microphysics2MParams:
@@ -56,11 +66,52 @@ def from_tree(cls: type, tree: Mapping[str, Any]):
             with_ice=ice is not None,
             rain_velocity=_rain_velocity(warm["terminal_velocity"]),
             **({} if ice is None else _p3_options(ice)))
+    elif cls is AerosolDistribution:
+        return AerosolDistribution(modes=tuple(
+            _by_fields((ModeB, ModeKappa), m) for m in tree["modes"]))
+    elif cls in (ModeB, ModeKappa):
+        return _by_fields((cls,), tree)
+    elif cls is ParcelParams:
+        options = {f.name: tree[f.name] for f in dataclasses.fields(cls)
+                   if isinstance(f.default, str)}
+        aerosol = tree["aerosol"]
+        template = parcel_params(
+            **options, aerosol=None if aerosol is None else _species(aerosol)())
     elif cls in _TEMPLATES:
         template = _TEMPLATES[cls]()
     else:
         template = cls()
     return _fill(template, tree)
+
+
+def _by_fields(classes, tree: Mapping[str, Any]):
+    """The first of ``classes`` whose field names are the tree's keys,
+    built from the tree's values (tuples of floats kept as tuples)."""
+    def value(v):
+        if isinstance(v, (tuple, list, np.ndarray)):
+            return tuple(float(x) for x in np.ravel(v))
+        return float(v)
+
+    for c in classes:
+        names = [f.name for f in dataclasses.fields(c)]
+        if set(names) == set(tree):
+            return c(**{n: value(tree[n]) for n in names})
+    raise ValueError(f"no class of {[c.__name__ for c in classes]} has the "
+                     f"fields {sorted(tree)}")
+
+
+def _species(tree: Mapping[str, Any]) -> type:
+    """The aerosol species class with the tree's field names: the one whose
+    defaults are the tree's values where there is one, else the first."""
+    classes = [c for c in vars(aerosol_species).values()
+               if dataclasses.is_dataclass(c) and isinstance(c, type)
+               and {f.name for f in dataclasses.fields(c)} == set(tree)]
+    if not classes:
+        raise ValueError(f"no aerosol species has the fields {sorted(tree)}")
+    exact = [c for c in classes
+             if all(float(tree[f.name]) == f.default
+                    for f in dataclasses.fields(c))]
+    return (exact or classes)[0]
 
 
 def _rain_velocity(tree: Mapping[str, Any]) -> str:
@@ -118,6 +169,12 @@ def _fill(obj, tree: Mapping[str, Any]):
     return dataclasses.replace(obj, **changes)
 
 
+def _state_from_numpy(cls, arrays, device, dtype):
+    return cls(*(
+        torch.as_tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
+        for name in cls._fields))
+
+
 def column_state_from_numpy(arrays: Mapping[str, np.ndarray],
                             device: torch.device | str = "cuda",
                             dtype: torch.dtype | None = None):
@@ -126,9 +183,7 @@ def column_state_from_numpy(arrays: Mapping[str, np.ndarray],
     keyed by field name (dtype kept unless given)."""
     from ..models.column import ColumnState
 
-    return ColumnState(*(
-        torch.as_tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
-        for name in ColumnState._fields))
+    return _state_from_numpy(ColumnState, arrays, device, dtype)
 
 
 def column_state_2m_from_numpy(arrays: Mapping[str, np.ndarray],
@@ -139,9 +194,7 @@ def column_state_2m_from_numpy(arrays: Mapping[str, np.ndarray],
     keyed by field name (dtype kept unless given)."""
     from ..models.column import ColumnState2M
 
-    return ColumnState2M(*(
-        torch.as_tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
-        for name in ColumnState2M._fields))
+    return _state_from_numpy(ColumnState2M, arrays, device, dtype)
 
 
 def column_state_p3_from_numpy(arrays: Mapping[str, np.ndarray],
@@ -152,6 +205,38 @@ def column_state_p3_from_numpy(arrays: Mapping[str, np.ndarray],
     keyed by field name (dtype kept unless given)."""
     from ..models.column import ColumnStateP3
 
-    return ColumnStateP3(*(
-        torch.as_tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
-        for name in ColumnStateP3._fields))
+    return _state_from_numpy(ColumnStateP3, arrays, device, dtype)
+
+
+def parcel_state_from_numpy(arrays: Mapping[str, np.ndarray],
+                            device: torch.device | str = "cuda",
+                            dtype: torch.dtype | None = None):
+    """A :class:`models.parcel.ParcelState` of tensors on ``device`` (the
+    GPU unless ``device="cpu"`` is asked for) from a dict of numpy arrays
+    keyed by field name (dtype kept unless given). An ensemble is a state
+    whose fields have shape ``(N,)``."""
+    from ..models.parcel import ParcelState
+
+    return _state_from_numpy(ParcelState, arrays, device, dtype)
+
+
+def box_state_from_numpy(arrays: Mapping[str, np.ndarray],
+                         device: torch.device | str = "cuda",
+                         dtype: torch.dtype | None = None):
+    """A :class:`models.box.BoxState` of tensors on ``device`` (the GPU
+    unless ``device="cpu"`` is asked for) from a dict of numpy arrays keyed
+    by field name (dtype kept unless given)."""
+    from ..models.box import BoxState
+
+    return _state_from_numpy(BoxState, arrays, device, dtype)
+
+
+def p3_sandbox_state_from_numpy(arrays: Mapping[str, np.ndarray],
+                                device: torch.device | str = "cuda",
+                                dtype: torch.dtype | None = None):
+    """A :class:`models.p3_sandbox.P3SandboxState` of tensors on ``device``
+    (the GPU unless ``device="cpu"`` is asked for) from a dict of numpy
+    arrays keyed by field name (dtype kept unless given)."""
+    from ..models.p3_sandbox import P3SandboxState
+
+    return _state_from_numpy(P3SandboxState, arrays, device, dtype)

@@ -12,9 +12,12 @@ here they are PyTorch's own, except the Lanczos ``_lgamma_pos`` that
 The module ends with ``logsumexp`` and the regularised ratios the P3 state
 reads (``cloudmicrophysics_tpu/utils/special.py:569-633``).
 
-Forward only: the JAX package's ``custom_jvp`` rules of :func:`gamma_inc`
-and :func:`gamma_inc_inv` (closed-form derivative in ``x``/``p``, NaN for
-a tangent in ``a``) are not ported yet.
+The JAX package's ``custom_jvp`` rules of :func:`gamma_inc` and
+:func:`gamma_inc_inv` are ``torch.autograd.Function`` s here, with the same
+contract: a closed-form derivative in ``x`` (``p`` for the inverse), and a
+NaN derivative in ``a``. Autograd records no graph where no argument
+requires grad, so the values are the same whether a gradient is asked for
+or not.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import math
 import torch
 
 __all__ = [
+    "asarray",
     "atanh",
     "cbrt",
     "clamp_to_nonneg",
@@ -64,6 +68,16 @@ def float_dtype(*args) -> torch.dtype:
         if dt.is_floating_point:
             return dt
     return torch.float64
+
+
+def asarray(value, like: torch.Tensor) -> torch.Tensor:
+    """``value`` (a Python number or a tensor) as a tensor of ``like``'s
+    float dtype on ``like``'s device: the JAX package's
+    ``jnp.asarray(value, dtype)``. A Python number is filled in on the
+    device, so no host-to-device copy (and no wait) is issued."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype=like.dtype, device=like.device)
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def machine_eps(dt: torch.dtype) -> float:
@@ -239,15 +253,49 @@ def _gamma_inc_core(a, x, lgamma_a):
     return torch.where(isnan, nan, P), torch.where(isnan, nan, Q)
 
 
+def _d_lower_dx(a, x):
+    """``dP(a, x)/dx = x^(a-1) e^-x / Gamma(a)``, 0 for ``x <= 0``."""
+    x_safe = torch.clamp(x, min=floatmin(x.dtype))
+    deriv = torch.exp((a - 1) * torch.log(x_safe) - x - _lgamma_pos(a))
+    return torch.where(x > 0, deriv, torch.zeros_like(deriv))
+
+
+class _GammaInc(torch.autograd.Function):
+    """:func:`gamma_inc` with the JAX package's derivative rule
+    (``utils/special.py:370-395``): ``dP/dx = -dQ/dx`` in closed form; the
+    derivative in ``a`` is not implemented, so it is NaN rather than a
+    silently wrong zero (the reference raises)."""
+
+    @staticmethod
+    def forward(a, x):
+        return _gamma_inc_core(a, x, _lgamma_pos(a))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, dP, dQ):
+        a, x = ctx.saved_tensors
+        da = dx = None
+        if ctx.needs_input_grad[0]:
+            da = torch.full_like(a, math.nan)
+        if ctx.needs_input_grad[1]:
+            deriv = _d_lower_dx(a, x)
+            dx = deriv * dP + (-deriv) * dQ
+        return da, dx
+
+
 def gamma_inc(a, x):
     """Regularized incomplete gamma ``(P(a,x), Q(a,x))``.
 
     Fixed-iteration (20 at float32, 30 at float64) series / Lentz continued
     fraction, both evaluated and selected elementwise (reference
-    ``src/Utilities.jl:93-144``).
+    ``src/Utilities.jl:93-144``). Differentiable in ``x``; the derivative
+    in ``a`` is NaN (:class:`_GammaInc`).
     """
     a, x = _as_tensors(a, x)
-    return _gamma_inc_core(a, x, _lgamma_pos(a))
+    return _GammaInc.apply(a, x)
 
 
 def gamma_inc_lower(a, x):
@@ -306,6 +354,85 @@ def _ndtri_acklam(p: torch.Tensor) -> torch.Tensor:
                        torch.where(p_c > 1 - 0.02425, x_hi, x_mid))
 
 
+class _GammaIncInv(torch.autograd.Function):
+    """:func:`gamma_inc_inv` with the JAX package's derivative rule
+    (``utils/special.py:552-566``): ``dx/dp = 1 / (dP/dx)`` by the inverse
+    function theorem (0 where ``dP/dx`` underflows); no derivative in ``q``,
+    whose tangent the JAX rule drops (callers pass ``q = 1 - p``); a NaN
+    derivative in ``a``."""
+
+    @staticmethod
+    def forward(a, p, q, n_iters):
+        dt = a.dtype
+        tiny = floatmin(dt)
+        eps = machine_eps(dt)
+
+        p_safe = torch.clamp(p, min=tiny)
+        q_safe = torch.clamp(q, min=tiny)
+        lgamma_a = _lgamma_pos(a)
+        a_safe = torch.clamp(a, min=tiny)
+        guess_lo = torch.exp((torch.log(p_safe) + _lgamma_pos(a + 1))
+                             / a_safe)
+        z = -_ndtri_acklam(q_safe)
+        t_wh = 1 - 1 / (9 * a_safe) + z / (3 * torch.sqrt(a_safe))
+        guess_ref = a - torch.log(q_safe)
+        guess_hi = torch.where(t_wh > 0.1, a * t_wh**3, guess_ref)
+        L_tail = -torch.log(q_safe)
+        guess_tail = (L_tail
+                      + (a - 1) * torch.log(torch.clamp(L_tail, min=1.0))
+                      - lgamma_a)
+        deep_tail = (L_tail > 60.0) & (guess_tail > 3 * a)
+        guess_hi = torch.where(deep_tail, torch.clamp(guess_tail, min=tiny),
+                               guess_hi)
+        x = torch.where((p < 0.5) | (guess_lo < 0.5), guess_lo, guess_hi)
+        x = torch.clamp(x, min=tiny)
+
+        use_q = p > 0.5
+        one = torch.ones_like(x)
+        done = torch.zeros_like(x, dtype=torch.bool)
+        for _ in range(n_iters):
+            P, Q = _gamma_inc_core(a, x, lgamma_a)
+            f = torch.where(use_q, Q - q, P - p)
+            x_pos = torch.clamp(x, min=tiny)
+            fprime_mag = torch.exp((a - 1) * torch.log(x_pos) - x - lgamma_a)
+            fprime = torch.where(use_q, -fprime_mag, fprime_mag)
+            fp_zero = fprime == 0
+            fprime_safe = torch.where(fp_zero, one, fprime)
+            # f''/f' = (a - 1 - x)/x (sign-independent of residual choice)
+            f2_over_f1 = (a - 1 - x) / x_pos
+            denom = 1 - 0.5 * f / fprime_safe * f2_over_f1
+            step = f / (fprime_safe * denom)
+            # protect against stepping to x <= 0
+            step = torch.where(x - step <= 0, 0.5 * x, step)
+            x_new = x - step
+            done_pre = done | fp_zero
+            x = torch.where(done_pre, x, x_new)
+            done = done_pre | (torch.abs(step) < eps * x_new)
+
+        x = torch.where(p <= 0, torch.zeros_like(x), x)
+        x = torch.where(q <= 0, torch.full_like(x, math.inf), x)
+        isnan = torch.isnan(a) | torch.isnan(p) | torch.isnan(q)
+        return torch.where(isnan, torch.full_like(x, math.nan), x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+
+    @staticmethod
+    def backward(ctx, dx):
+        a, x = ctx.saved_tensors
+        da = dp = None
+        if ctx.needs_input_grad[0]:
+            da = torch.full_like(a, math.nan)
+        if ctx.needs_input_grad[1]:
+            dP_dx = _d_lower_dx(a, x)
+            tiny = floatmin(x.dtype)
+            dx_dp = torch.where(dP_dx > 0, 1.0 / torch.clamp(dP_dx, min=tiny),
+                                torch.zeros_like(dP_dx))
+            dp = dx_dp * dx
+        return da, dp, None, None
+
+
 def gamma_inc_inv(a, p, q, n_iters: int = _HALLEY_ITERS):
     """Inverse of :func:`gamma_inc`: ``x`` such that ``P(a,x) = p``.
 
@@ -314,56 +441,11 @@ def gamma_inc_inv(a, p, q, n_iters: int = _HALLEY_ITERS):
     start where it lands below 1/2 and the Wilson-Hilferty start otherwise
     (the asymptotic tail inversion for ``q`` below ~1e-27), as the JAX
     package does. The ``Q - q`` residual is used for ``p > 0.5``.
+    Differentiable in ``p``; the derivative in ``a`` is NaN
+    (:class:`_GammaIncInv`).
     """
     a, p, q = _as_tensors(a, p, q)
-    dt = a.dtype
-    tiny = floatmin(dt)
-    eps = machine_eps(dt)
-
-    p_safe = torch.clamp(p, min=tiny)
-    q_safe = torch.clamp(q, min=tiny)
-    lgamma_a = _lgamma_pos(a)
-    a_safe = torch.clamp(a, min=tiny)
-    guess_lo = torch.exp((torch.log(p_safe) + _lgamma_pos(a + 1)) / a_safe)
-    z = -_ndtri_acklam(q_safe)
-    t_wh = 1 - 1 / (9 * a_safe) + z / (3 * torch.sqrt(a_safe))
-    guess_ref = a - torch.log(q_safe)
-    guess_hi = torch.where(t_wh > 0.1, a * t_wh**3, guess_ref)
-    L_tail = -torch.log(q_safe)
-    guess_tail = L_tail + (a - 1) * torch.log(torch.clamp(L_tail, min=1.0)) \
-        - lgamma_a
-    deep_tail = (L_tail > 60.0) & (guess_tail > 3 * a)
-    guess_hi = torch.where(deep_tail, torch.clamp(guess_tail, min=tiny),
-                           guess_hi)
-    x = torch.where((p < 0.5) | (guess_lo < 0.5), guess_lo, guess_hi)
-    x = torch.clamp(x, min=tiny)
-
-    use_q = p > 0.5
-    one = torch.ones_like(x)
-    done = torch.zeros_like(x, dtype=torch.bool)
-    for _ in range(n_iters):
-        P, Q = _gamma_inc_core(a, x, lgamma_a)
-        f = torch.where(use_q, Q - q, P - p)
-        x_pos = torch.clamp(x, min=tiny)
-        fprime_mag = torch.exp((a - 1) * torch.log(x_pos) - x - lgamma_a)
-        fprime = torch.where(use_q, -fprime_mag, fprime_mag)
-        fp_zero = fprime == 0
-        fprime_safe = torch.where(fp_zero, one, fprime)
-        # f''/f' = (a - 1 - x)/x (sign-independent of residual choice)
-        f2_over_f1 = (a - 1 - x) / x_pos
-        denom = 1 - 0.5 * f / fprime_safe * f2_over_f1
-        step = f / (fprime_safe * denom)
-        # protect against stepping to x <= 0
-        step = torch.where(x - step <= 0, 0.5 * x, step)
-        x_new = x - step
-        done_pre = done | fp_zero
-        x = torch.where(done_pre, x, x_new)
-        done = done_pre | (torch.abs(step) < eps * x_new)
-
-    x = torch.where(p <= 0, torch.zeros_like(x), x)
-    x = torch.where(q <= 0, torch.full_like(x, math.inf), x)
-    isnan = torch.isnan(a) | torch.isnan(p) | torch.isnan(q)
-    return torch.where(isnan, torch.full_like(x, math.nan), x)
+    return _GammaIncInv.apply(a, p, q, n_iters)
 
 
 # ---------------------------------------------------------------------------

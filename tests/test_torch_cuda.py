@@ -429,3 +429,117 @@ def test_bench_press_builds_nothing_on_a_repeat_call(device):
     assert r.n_traces == 1 and r.ok and r.best_ns > 0
     r = bench_press(lambda x: R.copy_step(x, 2.0), (packed,), 1e9)
     assert r.n_traces == 1
+
+
+# ---------------------------------------------------------------------------
+# The 0-D drivers on the card: an ensemble member against its single run
+# (bit for bit: broadcasting must not change a member's arithmetic), and
+# float32 against float64
+# ---------------------------------------------------------------------------
+
+def _aeroact_ensemble(device, n=256, seed=0):
+    """An emulator-style AeroAct ensemble (models/emulator.py:306-344):
+    the state and its per-member parameters, float32 on ``device``."""
+    from cloudmicrophysics_tpu_torch.models import parcel as PM
+    from cloudmicrophysics_tpu_torch.ops import thermo as TDI
+    from cloudmicrophysics_tpu_torch.parameters.aerosol_species import Sulfate
+
+    rng = np.random.default_rng(seed)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    member = dict(r_nuc=f32(10 ** rng.uniform(-8.2, -6.8, n)),
+                  aero_sigma_g=f32(rng.uniform(1.4, 2.4, n)),
+                  N_aer_act=f32(10 ** rng.uniform(6.5, 9.0, n)),
+                  kappa=f32(rng.uniform(0.1, 1.2, n)),
+                  w=f32(10 ** rng.uniform(-1.0, 0.7, n)))
+    T, p = f32(rng.uniform(270.0, 300.0, n)), f32(rng.uniform(7e4, 1.02e5, n))
+    z = torch.zeros_like(T)
+    rho = TDI.air_density(TPS, T, p, z, z, z)
+    q_vap = TDI.p2q(TPS, T, rho,
+                    TDI.saturation_vapor_pressure_over_liquid(TPS, T))
+    ic = PM.ParcelState(S_l=torch.full_like(T, 1.0001), p_air=p, T=T,
+                        q_vap=q_vap, q_liq=z, q_ice=z,
+                        N_aer=member["N_aer_act"], N_liq=z, N_ice=z,
+                        ln_inpc=z)
+    base = PM.parcel_params(aerosol_act="AeroAct", aerosol=Sulfate(),
+                            condensation_growth="Condensation", const_dt=0.2)
+    return ic, base, member
+
+
+def _with_members(base, member, sl):
+    import dataclasses
+
+    m = {k: v[sl] for k, v in member.items()}
+    kappa = m.pop("kappa")
+    return dataclasses.replace(base, **m, aerosol=dataclasses.replace(
+        base.aerosol, kappa=kappa))
+
+
+def test_parcel_member_is_bit_identical_to_its_single_run(device):
+    from cloudmicrophysics_tpu_torch.models import parcel as PM
+
+    ic, base, member = _aeroact_ensemble(device)
+    whole = PM.run_parcel(ic, 0.0, 10.0, _with_members(base, member,
+                                                       slice(None)))
+    for i in (0, 7, 255):
+        sl = slice(i, i + 1)
+        one = PM.run_parcel(PM.ParcelState(*(v[sl].clone() for v in ic)),
+                            0.0, 10.0, _with_members(base, member, sl))
+        for name, a, b in zip(PM.ParcelState._fields, whole, one):
+            assert torch.equal(a[:, sl], b), (i, name)
+    assert all(bool(torch.isfinite(v).all()) for v in whole)
+
+
+def test_parcel_float32_agrees_with_float64_on_the_card(device):
+    """The TPU benchmark's parcel (benchmarks/bench_suite.py:229-242), 300
+    steps: float32 within rtol 1e-4 of float64 (float32 Euler rounding of
+    T and p accumulates to ~3e-5 relative over 1000 steps on the CPU)."""
+    from cloudmicrophysics_tpu_torch.models import parcel as PM
+
+    params = PM.parcel_params(condensation_growth="Condensation",
+                              const_dt=0.1, w=1.0)
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        f = lambda v: torch.tensor(v, dtype=dtype, device=device)  # noqa: E731
+        ic = PM.ParcelState(f(1.02), f(8e4), f(278.0), f(6e-3), f(1e-3),
+                            f(0.0), f(1e8), f(1e8), f(0.0), f(0.0))
+        runs[dtype] = PM.run_parcel(ic, 0.0, 30.0, params)
+    for a, b in zip(runs[torch.float32], runs[torch.float64]):
+        torch.testing.assert_close(a.double(), b, rtol=1e-4,
+                                   atol=1e-12 * float(b.abs().max()))
+
+
+def test_box_and_sandbox_float32_against_float64(device):
+    """The Alpert-Knopf box (frozen fraction within 2e-3: float32 rounding
+    of T accumulates over the steps) and the P3 sandbox, float32 through
+    (rtol 1e-6, about eight float32 ulps: a few roundings in the
+    thresholds)."""
+    from cloudmicrophysics_tpu_torch.models import box as BOX
+    from cloudmicrophysics_tpu_torch.models import p3_sandbox as SB
+    from cloudmicrophysics_tpu_torch.parameters import parameters_p3
+    from cloudmicrophysics_tpu_torch.parameters.aerosol_species import Illite
+
+    frozen, sand = {}, {}
+    N_l, r_l = 500e3, 1e-6
+    q_l = N_l * 4 / 3 * np.pi * r_l**3 * 1000.0 / 1.2
+    for dtype in (torch.float32, torch.float64):
+        f = lambda v: torch.tensor(v, dtype=dtype, device=device)  # noqa: E731
+        traj = BOX.run_box(BOX.BoxState(f(256.0), f(1e-6), f(1000.0),
+                                        f(0.0)), 0.0, 1000.0, TPS, Illite(),
+                           0.5 / 60, 1e-9, 10.0)
+        frozen[dtype] = traj.N_ice / 1000.0
+        sand[dtype] = SB.run_p3_sandbox(
+            SB.P3SandboxState(f(100e6), f(1e-3), f(1e-4), f(1e-4 / 200)),
+            0.0, 2.0, 1.0, parameters_p3(), TPS, Illite(), T=f(251.0),
+            p_air=f(800e2), q_vap=f(8.1e-4), q_liq=f(q_l), N_liq=f(N_l),
+            r_liq=f(r_l))
+    torch.testing.assert_close(frozen[torch.float32].double(),
+                               frozen[torch.float64], rtol=0, atol=2e-3)
+    (t32, th32), (t64, th64) = sand[torch.float32], sand[torch.float64]
+    assert all(v.dtype == torch.float32 for v in (*t32, *th32))
+    torch.testing.assert_close(t32.N_ice.double(), t64.N_ice, rtol=1e-6,
+                               atol=0)
+    for a, b in zip(th32, th64):
+        torch.testing.assert_close(a.double(), b, rtol=1e-6, atol=0)

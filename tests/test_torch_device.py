@@ -1,6 +1,6 @@
 """The port's entry points put their tensors on the GPU unless the CPU is
-asked for: the state converters and the three column-step modules default
-to ``device="cuda"``. Where no GPU is present that default fails with
+asked for: the state converters (column, parcel, box and P3 sandbox
+states) and the three column-step modules default to ``device="cuda"``. Where no GPU is present that default fails with
 PyTorch's own error rather than falling back to the CPU; with
 ``device="cpu"`` they build CPU tensors. The 1M and 2M modules keep their
 parameter block on the host wherever they step (their kernels are built
@@ -14,11 +14,17 @@ import torch
 
 import cloudmicrophysics_tpu_torch.parameters as TP
 from cloudmicrophysics_tpu_torch.models import column as TC
+from cloudmicrophysics_tpu_torch.models.box import BoxState
+from cloudmicrophysics_tpu_torch.models.p3_sandbox import P3SandboxState
+from cloudmicrophysics_tpu_torch.models.parcel import ParcelState
 
 CONVERTERS = [
     (TP.column_state_from_numpy, TC.ColumnState),
     (TP.column_state_2m_from_numpy, TC.ColumnState2M),
     (TP.column_state_p3_from_numpy, TC.ColumnStateP3),
+    (TP.parcel_state_from_numpy, ParcelState),
+    (TP.box_state_from_numpy, BoxState),
+    (TP.p3_sandbox_state_from_numpy, P3SandboxState),
 ]
 
 

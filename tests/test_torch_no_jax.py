@@ -1,7 +1,7 @@
 """The port runs without JAX: importing it and stepping a column on the CPU
 loads no ``jax`` module, every module of the package imports with JAX
-blocked, the 2M + P3 column step runs with JAX blocked, and no module of
-the package imports one."""
+blocked, the 2M + P3 column step and a short parcel run with JAX blocked,
+and no module of the package imports one."""
 
 import os
 import re
@@ -109,7 +109,11 @@ def test_every_module_imports_with_jax_blocked():
             "parameters/ice_nucleation", "ops/p3", "ops/p3_processes",
             "ops/ice_nucleation", "models/p3_tendencies",
             "kernels/column_p3", "kernels/roof", "models/bench_states",
-            "perf", "roofline"} <= modules
+            "perf", "roofline", "parameters/aerosol",
+            "parameters/aerosol_species", "parameters/modal_nucleation",
+            "ops/aerosol_activation", "ops/nucleation", "ops/diagnostics",
+            "ops/susceptibility", "models/parcel", "models/box",
+            "models/p3_sandbox"} <= modules
     assert f"IMPORTED {len(modules)}" in proc.stdout, proc.stdout
 
 
@@ -141,6 +145,34 @@ print("JAX_MODULES", mods)
 
 def test_p3_step_runs_with_jax_blocked():
     proc = _run(_P3_SCRIPT)
+    assert "JAX_MODULES []" in proc.stdout, proc.stdout
+
+
+_PARCEL_SCRIPT = _BLOCK + """
+import torch
+from cloudmicrophysics_tpu_torch.models import parcel as PM
+from cloudmicrophysics_tpu_torch.parameters import parcel_state_from_numpy
+from cloudmicrophysics_tpu_torch.parameters.aerosol_species import Sulfate
+ic = parcel_state_from_numpy(dict(
+    S_l=1.005, p_air=8e4, T=285.0, q_vap=8e-3, q_liq=0.0, q_ice=0.0,
+    N_aer=1e8, N_liq=0.0, N_ice=0.0, ln_inpc=0.0), device="cpu",
+    dtype=torch.float64)
+params = PM.parcel_params(aerosol_act="AeroAct", aerosol=Sulfate(),
+                          aero_sigma_g=2.0, r_nuc=5e-8,
+                          condensation_growth="Condensation", const_dt=0.1,
+                          w=1.0)
+traj = PM.run_parcel(ic, 0.0, 2.0, params)
+assert traj.S_l.shape == (21,)
+assert all(bool(torch.isfinite(v).all()) for v in traj)
+assert float(traj.N_liq[-1]) > 0
+mods = sorted(m for m in sys.modules if m.split(".")[0] in
+              ("jax", "jaxlib", "cloudmicrophysics_tpu"))
+print("JAX_MODULES", mods)
+"""
+
+
+def test_parcel_runs_with_jax_blocked():
+    proc = _run(_PARCEL_SCRIPT)
     assert "JAX_MODULES []" in proc.stdout, proc.stdout
 
 

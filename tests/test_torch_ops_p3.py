@@ -1,8 +1,10 @@
 """The port's P3 operators against the JAX package at float64:
 utils/special (logsumexp, the regularised ratios), ops/p3 (state, regime
 laws, shape solve, integration bounds, node table, fall speeds),
-ops/p3_processes (collisions, self-collection, melt) and the F23/Bigg half
-of ops/ice_nucleation.
+ops/p3_processes (collisions in all three rain inner modes,
+self-collection blocked and triangle, melt) and the F23/Bigg half of
+ops/ice_nucleation; also the shape solve from prognostics, the
+all-solutions scan and the linear-space ``gamma_inc_moment``.
 
 Every quantity is computed once per package on the same NumPy-built
 inputs (one jitted JAX program, GL-8) and compared as its own test case.
@@ -18,6 +20,18 @@ last-bit differences of the residual. Both packages run the same
 algorithm, so the inputs are a seeded draw whose cells all converge (seed
 0); many other draws of the same ranges hold a cell where one package
 stops short and the other does not (see ROADMAP.md §3).
+
+The split and closed-form rain inner integrals place their split point by
+the same fixed-iteration Brent, over a rain window that spans seven
+decades of diameter. There no draw converges everywhere: in each of 40
+seeded draws of these ranges about 7 % of the (ice node, cell) pairs stop
+short after ten iterations, and there the 6e-14 differences of the ice
+fall speed table flip an interpolation step at the sixth iteration and
+move the split point by up to 1e-3 relative. The integral depends on the
+split point only through the quadrature error (split) or at second order
+(closed form): the rain terms of those two modes drift by at most 1.5e-7
+relative over seeds 0-3 (5.7e-8 on this draw), so they are held to
+rtol 1e-6 (``RTOL_SPLIT``); every other quantity to 1e-9.
 """
 
 import dataclasses
@@ -44,6 +58,7 @@ from cloudmicrophysics_tpu_torch.utils import quadrature as TQ
 from cloudmicrophysics_tpu_torch.utils import special as TS
 
 RTOL, ATOL_REL = 1e-9, 1e-12
+RTOL_SPLIT = 1e-6   # the split point's drift (module docstring)
 TPS_J, TPS_T = JP.ThermodynamicsParameters(), TP.ThermodynamicsParameters()
 MP_J = JP.microphysics_2m_params(with_ice=True, quadrature_order=8)
 MP_T = TP.from_tree(TP.Microphysics2MParams, dataclasses.asdict(MP_J))
@@ -125,6 +140,26 @@ def _ops(P3, PP, IN, PT, mp, tps, a, wrap):
         out[f"collisions.{f}"] = getattr(coll, f)
     out["ice_self_collection"] = PP.ice_self_collection(
         aux.state, aux.loglam, vel, rho, quad=ice.quad, nodes=nodes)
+    # the off-path modes: the split and closed-form rain inner integrals,
+    # the triangle self-collection
+    for mode in ("quadrature_split", "closed_form"):
+        coll = PP.bulk_liquid_ice_collision_sources(
+            aux.state, aux.loglam, ice.cloud_pdf, ice.rain_pdf, L_c, N_c,
+            L_r, N_r, mp.warm_rain.air_properties, tps, vel, rho, T,
+            quad=ice.quad, rain_inner=mode, ice_nodes=nodes)
+        for f in coll._fields:
+            out[f"collisions[{mode}].{f}"] = getattr(coll, f)
+    out["ice_self_collection[triangle]"] = PP.ice_self_collection(
+        aux.state, aux.loglam, vel, rho, quad=ice.quad, nodes=nodes,
+        inner="triangle")
+    out["loglambda_from_prognostic"] = \
+        P3.get_distribution_loglambda_from_prognostic(
+            ice.scheme, x["q_ice"] * rho, x["n_ice"] * rho,
+            x["q_rim"] * rho, x["b_rim"] * rho, guess)
+    out["loglambda_all_solutions"] = \
+        P3.get_distribution_loglambda_all_solutions(ps, n_scan=41)
+    out["gamma_inc_moment"] = P3.gamma_inc_moment(
+        D[:-1], D[1:], 1.5, 10 ** (3.5 + x["guess_offset"]))
     dN, dL = PP.ice_melt(vel, mp.warm_rain.air_properties, tps, T, rho,
                          aux.state, aux.loglam, quad=ice.quad, nodes=nodes)
     out["ice_melt.dNdt"], out["ice_melt.dLdt"] = dN, dL
@@ -172,8 +207,21 @@ def test_p3_op_matches_jax(results, key):
     np.testing.assert_array_equal(np.isinf(got), np.isinf(want), err_msg=key)
     fin = np.isfinite(want)
     atol = ATOL_REL * float(np.max(np.abs(want[fin]), initial=0.0))
-    np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL, atol=atol,
+    split = key.startswith(("collisions[quadrature_split]",
+                            "collisions[closed_form]"))
+    np.testing.assert_allclose(got[fin], want[fin],
+                               rtol=RTOL_SPLIT if split else RTOL, atol=atol,
                                err_msg=key)
+
+
+def test_all_solutions_bracket_alike(results):
+    """The all-solutions scan marks the same grid pairs as non-bracketing
+    (NaN) in both packages, and every cell with ice has a root."""
+    out, ref = results
+    got = out["loglambda_all_solutions"].numpy()
+    want = ref["loglambda_all_solutions"]
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isfinite(want[:, 1:]).any(axis=0).all()
 
 
 def test_cells_without_ice_solve_to_minus_inf(results):
@@ -207,10 +255,12 @@ def test_liquid_axis_is_halved_before_the_mode_branch():
     assert TPP.liquid_quadrature(q8) is q8
     assert TPP.self_collection_inner_orders(16) == (4, 4, 4, 6)
     assert TPP.self_collection_inner_orders(8) == (4, 4, 4, 6)
-    with pytest.raises(NotImplementedError, match="closed_form"):
+    # every rain inner integral of the JAX package is ported; another name
+    # is refused before any work
+    with pytest.raises(ValueError, match="rain_inner"):
         TPP.bulk_liquid_ice_collision_sources(
             None, None, None, None, None, None, None, None, None, None, None,
-            None, None, rain_inner="closed_form")
+            None, None, rain_inner="closed")
 
 
 def test_logsumexp_and_regularised_ratios_match_jax():

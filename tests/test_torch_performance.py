@@ -13,10 +13,10 @@ shared 8-core machine (where one function's best time varied up to
 threefold between runs), and never under 5 ms, so that several test
 workers sharing the cores do not make them flaky: they catch a catastrophic regression (per-element Python loops, an
 accidental float64 promotion), not drift. The card's speed is tracked by
-``chip_smoke.py`` and the roofline. The JAX suite's budgets of functions
-the port does not have yet (aerosol activation, ``het_ice_nucleation``,
-diagnostics, H2SO4 nucleation, the parcel) come with those modules
-(ROADMAP.md §1).
+``chip_smoke.py`` and the roofline. The budgets of aerosol activation,
+``het_ice_nucleation``, the 2M reflectivity and effective radius, the
+Liu-Hallett radius, H2SO4 nucleation and one parcel step are set by the
+same rule (``TestZeroDBudgets``).
 """
 
 import pytest
@@ -322,3 +322,88 @@ class TestBroadenedBudgets:
                            (M1.conv_q_sno_to_q_rai, 15)):
             bench_press(lambda mic, th, fn=fn: fn(mp, TPS, mic, th),
                         (mic, th), budget * MS, name=fn.__name__)
+
+
+class TestZeroDBudgets:
+    """The JAX suite's budgets of the aerosol, nucleation, diagnostics and
+    parcel entry points (``tests/test_performance.py:101, 172, 197, 212,
+    351, 372``)."""
+
+    def test_aerosol_activation(self):
+        from cloudmicrophysics_tpu_torch.ops import aerosol_activation as AA
+        from cloudmicrophysics_tpu_torch.parameters.aerosol import (
+            AerosolActivationParameters,
+            AerosolDistribution,
+            ModeKappa,
+        )
+
+        ap = AerosolActivationParameters()
+        aip = P.AirProperties()
+        mode = ModeKappa(r_dry=5e-8, stdev=2.0, N=1e8, vol_mix_ratio=(1.0,),
+                         mass_mix_ratio=(1.0,), molar_mass=(0.13214,),
+                         kappa=(0.53,))
+        ad = AerosolDistribution(modes=(mode,))
+        bench_press(
+            lambda T, p, w, qt: AA.total_N_activated(
+                ap, ad, aip, TPS, T, p, w, qt, 0.0, 0.0),
+            (full(285.0), full(9e4), full(0.5), full(8e-3)), 35 * MS,
+            name="arg_activation")
+
+    def test_het_ice_nucleation(self):
+        from cloudmicrophysics_tpu_torch.ops import p3_processes as P3P
+        from cloudmicrophysics_tpu_torch.parameters.aerosol_species import (
+            Illite,
+        )
+
+        bench_press(
+            lambda ql, Nl, RH, T, rho: P3P.het_ice_nucleation(
+                Illite(), TPS, ql, Nl, RH, T, rho),
+            (full(1e-4), full(1e8), full(1.0), full(251.0), full(1.1)),
+            6 * MS, name="het_ice_nucleation")
+
+    def test_reflectivity_and_r_eff_2m(self):
+        from cloudmicrophysics_tpu_torch.ops import diagnostics as CMD
+
+        sb = P.microphysics_2m_params().warm_rain.seifert_beheng
+        args = (full(1e-3), full(5e-4), full(9e7), full(9e5), full(1.1))
+        bench_press(
+            lambda ql, qr, Nl, Nr, rho: CMD.radar_reflectivity_2m(
+                sb, ql, qr, Nl, Nr, rho), args, 15 * MS,
+            name="radar_reflectivity_2m")
+        bench_press(
+            lambda ql, qr, Nl, Nr, rho: CMD.effective_radius_2m(
+                sb, ql, qr, Nl, Nr, rho), args, 15 * MS,
+            name="effective_radius_2m")
+
+    def test_h2so4_nucleation_rate(self):
+        from cloudmicrophysics_tpu_torch.ops import nucleation as NPF
+
+        mn = P.H2SO4NucleationParameters()
+        bench_press(
+            lambda c, T: NPF.h2so4_nucleation_rate(
+                c, full(1.0), full(1.0), T, mn),
+            (full(1e6), full(208.0)), 12 * MS,
+            name="h2so4_nucleation_rate")
+
+    def test_liu_hallett_r_eff(self):
+        from cloudmicrophysics_tpu_torch.ops import diagnostics as CMD
+
+        bench_press(
+            lambda rho, ql, Nl: CMD.effective_radius_liu_hallet_97(
+                1000.0, rho, ql, Nl),
+            (full(1.1), full(1e-3), full(1e8)), 5 * MS,
+            name="liu_hallett_r_eff")
+
+    def test_parcel_single_step(self):
+        from cloudmicrophysics_tpu_torch.models import parcel as PM
+
+        params = PM.parcel_params(condensation_growth="Condensation",
+                                  const_dt=0.1, w=1.0)
+        y = PM.ParcelState(S_l=full(1.02), p_air=full(8e4), T=full(278.0),
+                           q_vap=full(6e-3), q_liq=full(1e-3),
+                           q_ice=full(0.0), N_aer=full(1e8),
+                           N_liq=full(1e8), N_ice=full(0.0),
+                           ln_inpc=full(0.0))
+        bench_press(
+            lambda y: PM.parcel_tendencies(params, y, 0.0, full(0.0)),
+            (y,), 40 * MS, name="parcel_single_step")
