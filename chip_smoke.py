@@ -18,8 +18,9 @@ then, failing at the first phase that does not hold:
    ``kernels/column1m.py``, ``column2m.py`` and ``column_p3.py``, and
    ``column2m.cu``, whose parameters and variant are compiled in, once for
    each 2M parameter block and variant phase 7 runs: default,
-   ``is_limited=False``, Chen 2022); and the registers and resident blocks
-   per SM of K6 (``copy_scale``) and the probe (``exp_chain``), both in
+   ``is_limited=False``, Chen 2022; both 1M and 2M sources once more for
+   phase 16's calibrated sets); and the registers and resident blocks per
+   SM of K6 (``copy_scale``) and the probe (``exp_chain``), both in
    ``roof.cu``;
 3. compares both 1M kernel entry points (packed, K1, and unpacked, K2)
    with their plain PyTorch versions on the card at (4096, 128), ragged
@@ -134,11 +135,33 @@ then, failing at the first phase that does not hold:
     and effective radius and the 1M reflectivity over the 524288 x 128
     states, two-mode ARG activation on the 1M state's T and pressure, and
     ``het_ice_nucleation`` over the P3 state (tolerances ``TOL_*``,
-    reasons in PERF.md §4).
+    reasons in PERF.md §4);
+16. drives calibration, the activation emulators and the calibrated
+    parameter sets, which reach no kernel of their own apart from K1 and
+    K3 (plain PyTorch, float64 Kalman updates, the GP's Cholesky solve by
+    ``torch.linalg``), with the K1 and K3 launch counters set to 0 just
+    before and read just after: EKI on ``tests/test_calibration.py``'s
+    linear map and on its ABIFM perfect model (``calibrate_abifm`` with
+    25 members and 8 iterations, float64, over the chamber's 120 s), UKI
+    on both (the ABIFM route at 5 sigma points, 8 iterations, over the
+    test's 60 s, against the same call on the CPU, rtol 1e-6 on theta),
+    the synthetic-``.edf`` AIDA workflow; the ARG datasets on the card
+    (16384 training samples, 4096 validation) and the three families
+    fitted to them (the MLP, 2000 full-batch Adam steps on all, with its
+    device kernels and device time a step; the GP on the first 4096; 300
+    depth-5 trees on all, fitted twice and compared, their first 20 trees
+    against the CPU fit), each held to ``tests/test_calibration.py``'s
+    gates (the trees' train RMSE on a forest of the first 2048); the
+    parcel-labelled dataset at 16384 members; and the shipped
+    ``CliMA_1M`` and ``SB2006_limiters`` sets through ``Column1MStep``
+    and ``Column2MStep`` (their own K1 and K3 builds, started with phase
+    2's), bit for bit against the plain step at (4096, 128) and at full
+    size, with their ms/step.
 
 Then it prints the ``expf`` probe's JSON object on a line of its own,
 phase 15's JSON object (``{"zero_d": ...}``, with the card's name and
-power limit) on another, the card's name and power limit as
+power limit) on another, phase 16's (``{"calibration": ...}``, likewise)
+on another, the card's name and power limit as
 ``nvidia-smi`` gives them, and, on the line before the last, a JSON object
 with one entry per kernel (K5's with its three kernels under
 ``subkernels``); the last line is ``{"ok": true, "device": {...}}``.
@@ -580,6 +603,15 @@ def main():
     jobs += [(f"{K2M.SOURCE} ({tag}, {b}: {' '.join(K2M.BUILDS[b])})",
               lambda p=p, v=v, b=b: K2M._library(p, v, b))
              for tag, p, v, b in blocks2m]
+    # phase 16's calibrated parameter sets: one more K1 and one more K3
+    cal1, cal2 = _calibrated_params(tps)
+    jobs += [(f"{K.SOURCE} ({CONFIG_SETS[0]}, kernel: "
+              f"{' '.join(K.BUILDS['kernel'])})",
+              lambda: K._library(K.kernel_params(cal1, tps, tv), "kernel")),
+             (f"{K2M.SOURCE} ({CONFIG_SETS[1]}, kernel: "
+              f"{' '.join(K2M.BUILDS['kernel'])})",
+              lambda: K2M._library(K2M.kernel_params_2m(cal2, tps),
+                                   K2M._variant(cal2), "kernel"))]
     with ThreadPoolExecutor(len(jobs)) as pool:
         builds = dict(zip([j[0] for j in jobs],
                           pool.map(timed_build, [j[1] for j in jobs])))
@@ -778,6 +810,7 @@ def main():
     _run_bench_press(device, K, K2M, Column1MStep, Column2MStep, ColumnP3Step,
                      mp, tps, tv, microphysics_2m_params)
     zero_d = _run_0d(device, gpu_line)
+    calibration = _run_calibration(device, gpu_line, K, K2M)
 
     csrc = "cloudmicrophysics_tpu_torch/kernels/csrc/"
     entries = [
@@ -809,6 +842,7 @@ def main():
     probe["launches"] = launches["probe"]
     print(json.dumps({"probes": [probe]}))
     print(json.dumps({"zero_d": zero_d}))
+    print(json.dumps({"calibration": calibration}))
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2137,6 +2171,478 @@ def _run_0d(device, gpu_line):
     out["wall_s"] = wall
     print(f"  phase 15 wall seconds by part: "
           f"{ {k: round(v, 2) for k, v in wall.items()} }")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Calibration, emulators and calibrated parameter sets (phase 16)
+# ---------------------------------------------------------------------------
+
+# tests/test_calibration.py's chamber: its state and its parcel's options
+CHAMBER = dict(T0=251.0, p0=80000.0, N_liq=1e8, r_liq=1e-6)
+CHAMBER_KWARGS = dict(heterogeneous="ABIFM",
+                      condensation_growth="Condensation", const_dt=1.0,
+                      w=0.5)
+CHAMBER_WINDOW = 120.0          # s, the AIDA test's window (EKI, AIDA)
+UKI_WINDOW = 60.0               # s, the UKI test's window
+ABIFM_TRUE = (54.48, -10.67)    # Illite's (m, c)
+ABIFM_PRIOR = dict(noise_std=0.02, prior_mean=(50.0, -9.0),
+                   prior_std=(8.0, 2.0))
+N_TRAIN, N_VAL, N_GP = 16384, 4096, 4096
+MLP_STEPS = 2000
+TREES = dict(n_trees=300, depth=5, learning_rate=0.12)
+TREES_CPU = 20                  # the CPU fit's trees: the card fit's first 20
+TREES_GATE_SAMPLES = 2048       # the trees' train-RMSE gate's dataset size
+RTOL_UKI = 1e-6                 # UKI on the card against the CPU, theta
+CONFIG_SETS = ("CliMA_1M", "SB2006_limiters")
+
+
+def _calibrated_params(tps):
+    """The shipped CliMA_1M and SB2006_limiters sets through the override
+    pipeline: a 1M and a 2M parameter block, each one more build."""
+    from cloudmicrophysics_tpu_torch.parameters import (
+        calibrated_overrides,
+        microphysics_1m_params_from_overrides,
+        microphysics_2m_params_from_overrides,
+    )
+
+    return (microphysics_1m_params_from_overrides(
+                calibrated_overrides(CONFIG_SETS[0])),
+            microphysics_2m_params_from_overrides(
+                calibrated_overrides(CONFIG_SETS[1])))
+
+
+def _chamber_ic(device, tps):
+    """tests/test_calibration.py's chamber state, float64 on ``device``."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models import parcel as PM
+    from cloudmicrophysics_tpu_torch.ops import thermo as TDI
+
+    T0, p0, Nl, r0 = (CHAMBER[k] for k in ("T0", "p0", "N_liq", "r_liq"))
+    e = float(TDI.saturation_vapor_pressure_over_liquid(
+        tps, torch.tensor(T0, dtype=torch.float64, device=device)))
+    md, mv = (p0 - e) / tps.R_d / T0, e / tps.R_v / T0
+    ml = Nl * 4 / 3 * np.pi * 1000 * r0**3
+    values = dict(S_l=1.0, p_air=p0, T=T0, q_vap=mv / (md + mv + ml),
+                  q_liq=ml / (md + mv + ml), q_ice=0.0, N_aer=0.0, N_liq=Nl,
+                  N_ice=0.0, ln_inpc=0.0)
+    return PM.ParcelState(**{k: torch.tensor(v, dtype=torch.float64,
+                                             device=device)
+                             for k, v in values.items()}), e
+
+
+def _chamber_run(ic, m, c, t_end=CHAMBER_WINDOW):
+    """The chamber parcel with Illite's ABIFM (m, c): its trajectory and
+    its frozen fractions at the 5 observation times (numpy)."""
+    import dataclasses
+
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models import parcel as PM
+    from cloudmicrophysics_tpu_torch.parameters.aerosol_species import Illite
+
+    aerosol = dataclasses.replace(Illite(), ABIFM_m=m, ABIFM_c=c)
+    traj = PM.run_parcel(ic, 0.0, t_end,
+                         PM.parcel_params(aerosol=aerosol, **CHAMBER_KWARGS))
+    frozen = (traj.N_ice / torch.clamp(traj.N_liq + traj.N_ice, min=1.0)
+              ).cpu().numpy()
+    return traj, frozen[np.linspace(0, len(frozen) - 1, 5).astype(int)]
+
+
+def _linear_map(seed, device):
+    import torch
+
+    A = torch.as_tensor(np.random.default_rng(seed).normal(size=(6, 2)),
+                        device=device)
+    return (lambda t: t @ A.T), (A @ torch.tensor(
+        [2.0, -1.5], dtype=torch.float64, device=device)).cpu().numpy()
+
+
+def _cal_eki(device, tps):
+    """EKI on tests/test_calibration.py's linear map, then the ABIFM
+    perfect model with calibrate_abifm's defaults (25 members, 8
+    iterations) over the chamber's 120 s."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models import calibration as CAL
+
+    forward, y = _linear_map(0, device)
+    lin = CAL.eki_calibrate(forward, [0.0, 0.0], [2.0, 2.0], y,
+                            np.eye(6) * 1e-6, n_ensemble=30, n_iterations=10,
+                            device=device)
+    theta = lin.theta.cpu().numpy()
+    if not np.allclose(theta, [2.0, -1.5], atol=0.05) or not (
+            float(lin.errors[-1]) < float(lin.errors[0])):
+        raise AssertionError(f"EKI linear map: theta {theta}, misfits "
+                             f"{lin.errors.tolist()}")
+    ic, _ = _chamber_ic(device, tps)
+    _, y_obs = _chamber_run(ic, *ABIFM_TRUE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = CAL.calibrate_abifm(ic, CHAMBER_WINDOW, CHAMBER_KWARGS, y_obs,
+                              device=device, **ABIFM_PRIOR)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    m, c = (float(v) for v in res.theta)
+    _, fit = _chamber_run(ic, m, c)
+    errors = res.errors.tolist()
+    if not (np.allclose(fit, y_obs, atol=0.05) and errors[-1] <= errors[0]):
+        raise AssertionError(f"EKI ABIFM: fit {fit} against {y_obs}, "
+                             f"misfits {errors}")
+    # an iteration is one forward map (the 25-member parcel over the
+    # window) and one Kalman update of a few small products
+    n_steps = int(CHAMBER_WINDOW / CHAMBER_KWARGS["const_dt"])
+    out = {"linear_theta": theta.tolist(), "theta": [m, c],
+           "y_obs": y_obs.tolist(), "y_fit": fit.tolist(), "misfits": errors,
+           "s_per_iteration": seconds / res.iterations,
+           "ms_per_parcel_step_25_members":
+               seconds / res.iterations / n_steps * 1e3}
+    print(f"  EKI linear map: theta {theta}; ABIFM (25 members, 8 "
+          f"iterations, {CHAMBER_WINDOW:g} s): (m, c) = ({m:.6g}, {c:.6g}) "
+          f"(true {ABIFM_TRUE}), frozen fractions {fit} against {y_obs}, "
+          f"misfit {errors[0]:.4g} -> {errors[-1]:.4g}; "
+          f"{out['s_per_iteration']:.4g} s per iteration, "
+          f"{out['ms_per_parcel_step_25_members']:.4g} ms per forward-map "
+          f"parcel step (with the update)")
+    return out
+
+
+def _cal_uki(device, tps):
+    """UKI on tests/test_calibration.py's linear map, and calibrate_abifm's
+    UKI route (5 sigma points, 8 iterations, the test's 60 s) on the card
+    and on the CPU."""
+    from cloudmicrophysics_tpu_torch.models import calibration as CAL
+
+    forward, y = _linear_map(3, device)
+    lin = CAL.uki_calibrate(forward, [0.0, 0.0], [2.0, 2.0], y,
+                            np.eye(6) * 1e-6, n_iterations=15, device=device)
+    theta = lin.theta.cpu().numpy()
+    if not np.allclose(theta, [2.0, -1.5], atol=0.02):
+        raise AssertionError(f"UKI linear map: theta {theta}")
+    runs = {}
+    for where in (device, "cpu"):
+        ic, _ = _chamber_ic(where, tps)
+        _, y_obs = _chamber_run(ic, *ABIFM_TRUE, t_end=UKI_WINDOW)
+        t0 = time.perf_counter()
+        runs[str(where)] = CAL.calibrate_abifm(
+            ic, UKI_WINDOW, CHAMBER_KWARGS, y_obs, n_iterations=8,
+            method="UKI", device=where, **ABIFM_PRIOR), \
+            time.perf_counter() - t0
+    (card, s_card), (host, s_host) = runs[str(device)], runs["cpu"]
+    if card.ensemble.shape != (2, 5):
+        raise AssertionError(f"UKI: {card.ensemble.shape[1]} sigma points")
+    gap = float(((card.theta.cpu() - host.theta).abs()
+                 / host.theta.abs()).max())
+    errors = card.errors.tolist()
+    if gap > RTOL_UKI or not errors[-1] <= errors[0]:
+        raise AssertionError(f"UKI ABIFM: card {card.theta.tolist()} against "
+                             f"CPU {host.theta.tolist()} (gap {gap:.3g}), "
+                             f"misfits {errors}")
+    print(f"  UKI linear map: theta {theta}; ABIFM (5 sigma points, 8 "
+          f"iterations, {UKI_WINDOW:g} s): card {card.theta.tolist()} in {s_card:.4g} s, CPU "
+          f"float64 {host.theta.tolist()} in {s_host:.4g} s, largest "
+          f"relative gap {gap:.3g} (tolerance {RTOL_UKI:g})")
+    return {"linear_theta": theta.tolist(), "theta": card.theta.tolist(),
+            "theta_cpu": host.theta.tolist(), "gap": gap, "misfits": errors,
+            "s_card": s_card, "s_cpu": s_host}
+
+
+def _cal_aida(device, tps):
+    """tests/test_calibration.py's synthetic-.edf chamber workflow: a
+    120 s chamber parcel written as an AIDA file (into the ignored build
+    directory), unpacked, and calibrated by EKI."""
+    from cloudmicrophysics_tpu_torch.kernels import _build
+    from cloudmicrophysics_tpu_torch.models import aida as AIDA
+
+    ic, e0 = _chamber_ic(device, tps)
+    traj, _ = _chamber_run(ic, *ABIFM_TRUE)
+    p, T, N_ice = (v.cpu().numpy() for v in (traj.p_air, traj.T,
+                                             traj.N_ice))
+    lines = ["# header"] * 225 + [
+        f"{float(i):.1f} {p[i] / 100:.3f} {T[i]:.3f} {e0:.3f} 0 "
+        f"{N_ice[i] / 1e6:.6e}" for i in range(len(p))]
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    edf = _build.BUILD_DIR / "synthetic_aida.edf"
+    edf.write_text("\n".join(lines) + "\n")
+    prof = AIDA.unpack_aida_edf(edf)
+    t0 = time.perf_counter()
+    res = AIDA.calibrate_abifm_aida(
+        prof, 0.0, CHAMBER_WINDOW, CHAMBER["N_liq"], CHAMBER["N_liq"],
+        CHAMBER["r_liq"], n_ensemble=20, n_iterations=6, device=device,
+        **ABIFM_PRIOR)
+    seconds = time.perf_counter() - t0
+    errors = res.errors.tolist()
+    ratio = errors[-1] / errors[0]
+    if not ratio < 1e-3:
+        raise AssertionError(f"AIDA: misfit ratio {ratio:.3g}, {errors}")
+    print(f"  AIDA synthetic chamber: (m, c) = {res.theta.tolist()}, misfit "
+          f"ratio {ratio:.3g} (gate 1e-3), {seconds:.4g} s")
+    return {"theta": res.theta.tolist(), "misfit_ratio": ratio,
+            "s": seconds}
+
+
+def _activation_gate(EM, model, params, ap, aip, tps, device):
+    """The largest |emulated - exact ARG| / N over tests/test_calibration.py's
+    three two-mode states."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.ops import aerosol_activation as AA
+    from cloudmicrophysics_tpu_torch.parameters.aerosol import (
+        AerosolDistribution,
+        ModeKappa,
+    )
+
+    worst = 0.0
+    for N1, N2, r, w, T, p in ((1e8, 5e8, 5e-8, 1.0, 290.0, 9e4),
+                               (5e7, 2e8, 8e-8, 0.5, 283.0, 8.5e4),
+                               (3e8, 1e8, 4e-8, 2.0, 295.0, 9.5e4)):
+        ad = AerosolDistribution(modes=tuple(
+            ModeKappa(r_dry=r, stdev=2.0, N=N, vol_mix_ratio=(1.0,),
+                      mass_mix_ratio=(1.0,), molar_mass=(0.13214,),
+                      kappa=(0.53,)) for N in (N1, N2)))
+        em = EM.N_activated_per_mode_emulated(model, params, ap, ad, aip, tps,
+                                              T, p, w, 0.01, 0.0, 0.0)
+        ex = AA.N_activated_per_mode(
+            ap, ad, aip, tps, *(torch.tensor(v, dtype=torch.float64,
+                                             device=device)
+                                for v in (T, p, w, 0.01)), 0.0, 0.0)
+        worst = max(worst, *(abs(float(e) - float(x)) / N
+                             for e, x, N in zip(em, ex, (N1, N2))))
+    return worst
+
+
+def _cal_emulators(device, tps, n_train=N_TRAIN, n_val=N_VAL, n_gp=N_GP,
+                   mlp_steps=MLP_STEPS, trees=TREES, trees_cpu=TREES_CPU):
+    """The ARG datasets on the card and the three families fitted to them,
+    each held to tests/test_calibration.py's gates."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models import emulator as EM
+    from cloudmicrophysics_tpu_torch.parameters import AirProperties
+    from cloudmicrophysics_tpu_torch.parameters.aerosol import (
+        AerosolActivationParameters,
+    )
+
+    ap, aip = AerosolActivationParameters(), AirProperties()
+    t0 = time.perf_counter()
+    X, y = EM.generate_training_data(ap, aip, tps, n_samples=n_train, seed=1,
+                                     device=device)
+    X2, y2 = EM.generate_training_data(ap, aip, tps, n_samples=n_val, seed=2,
+                                       device=device)
+    out = {"datasets_s": time.perf_counter() - t0}
+
+    def timed(fit):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = fit()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - start
+
+    def val_rmse(model, params):
+        pred = EM._predict(model, params, X2).detach().cpu().numpy()
+        return float(np.sqrt(np.mean((pred - y2) ** 2)))
+
+    # the process's first training step costs seconds (the libraries'
+    # first use), timed apart from the fit
+    _, warm = timed(lambda: EM.train_emulator(X[:64], y[:64], n_steps=2,
+                                              device=device))
+    (mlp, mlp_p, loss), s = timed(lambda: EM.train_emulator(
+        X, y, hidden=(64, 64), n_steps=mlp_steps, device=device))
+    # device kernels and busy time per Adam step: 30 steps less 10
+    stats = [_kernel_stats(lambda n=n: EM.train_emulator(
+        X, y, n_steps=n, device=device)) for n in (10, 30)]
+    kernels, busy = ((None, None) if None in stats else
+                     ((b - a) / 20 for a, b in zip(stats[0][:2],
+                                                   stats[1][:2])))
+    out["mlp"] = {"loss": loss, "val_rmse": val_rmse(mlp, mlp_p),
+                  "activation_err": _activation_gate(EM, mlp, mlp_p, ap, aip,
+                                                     tps, device), "s": s,
+                  "ms_per_step": s / mlp_steps * 1e3, "first_call_s": warm,
+                  "kernels_per_step": kernels,
+                  "device_busy_ms_per_step": busy}
+    (gp, gp_p, rmse), s = timed(lambda: EM.train_emulator_gp(
+        X[:n_gp], y[:n_gp], device=device))
+    out["gp"] = {"train_rmse": rmse, "val_rmse": val_rmse(gp, gp_p),
+                 "activation_err": _activation_gate(EM, gp, gp_p, ap, aip,
+                                                    tps, device), "s": s}
+    (tr, tr_p, rmse), s = timed(lambda: EM.train_emulator_trees(
+        X, y, device=device, **trees))
+    again, s2 = timed(lambda: EM.train_emulator_trees(
+        X, y, device=device, **trees)[1])
+    (_, cpu_p, _), s_cpu = timed(lambda: EM.train_emulator_trees(
+        X, y, device="cpu", **dict(trees, n_trees=trees_cpu)))
+    # the train-RMSE gate is tests/test_calibration.py's, for a forest of
+    # its size fitted to its 2048 samples: 300 depth-5 trees fit 16384
+    # samples less closely (the JAX fit's algorithm, split for split)
+    (_, _, rmse_gate), _ = timed(lambda: EM.train_emulator_trees(
+        X[:TREES_GATE_SAMPLES], y[:TREES_GATE_SAMPLES], device=device,
+        **trees))
+    differ = ((tr_p["features"][:trees_cpu].cpu() != cpu_p["features"])
+              | (tr_p["thresholds"][:trees_cpu].cpu()
+                 != cpu_p["thresholds"]))
+    out["trees"] = {
+        "train_rmse": rmse_gate, "train_rmse_all": rmse,
+        "val_rmse": val_rmse(tr, tr_p),
+        "activation_err": _activation_gate(EM, tr, tr_p, ap, aip, tps,
+                                           device),
+        "s": s, "s_second_fit": s2,
+        "deterministic": all(torch.equal(tr_p[k], again[k]) for k in tr_p),
+        "splits_differing_from_cpu": int(differ.sum()),
+        "splits_compared": differ.numel(), "s_cpu": s_cpu}
+    for fam, gates in (("mlp", dict(loss=0.01, val_rmse=0.1,
+                                     activation_err=0.15)),
+                       ("gp", dict(train_rmse=0.05, val_rmse=0.1,
+                                   activation_err=0.15)),
+                       ("trees", dict(train_rmse=0.05, val_rmse=0.1,
+                                      activation_err=0.15))):
+        r = out[fam]
+        print(f"  {fam}: " + ", ".join(
+            f"{k} {r[k]:.4g} (gate {g:g})" for k, g in gates.items())
+            + f"; fit {r['s']:.4g} s")
+        bad = [k for k, g in gates.items() if not r[k] < g]
+        if bad:
+            raise AssertionError(f"emulator {fam}: {bad} missed its gate")
+    print(f"  mlp: {out['mlp']['ms_per_step']:.4g} ms per Adam step, "
+          + ("device time not measured (the profiler saw none)"
+             if kernels is None else f"{kernels:.4g} device kernels and "
+             f"{busy:.4g} ms of device time a step (torch.profiler)")
+          + f"; a first 2-step call before the fit {warm:.4g} s")
+    t = out["trees"]
+    print(f"  trees: second fit {t['s_second_fit']:.4g} s, "
+          + ("equal to the first" if t["deterministic"] else "DIFFERS")
+          + f"; train RMSE over all {n_train} samples "
+          f"{t['train_rmse_all']:.4g} (train_rmse above: the first "
+          f"{TREES_GATE_SAMPLES})"
+          + f"; {t['splits_differing_from_cpu']} of {t['splits_compared']} "
+          f"splits of the first {trees_cpu} trees differ from the CPU fit "
+          f"({t['s_cpu']:.4g} s)")
+    if not t["deterministic"]:
+        raise AssertionError("two tree fits on the card differ")
+    return out
+
+
+def _cal_parcel_dataset(device, tps, n=ENSEMBLE):
+    """generate_parcel_training_data at ``n`` members, its defaults (t_end
+    20 s, dt 0.2 s), with the ARG labels of the same samples."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models import emulator as EM
+    from cloudmicrophysics_tpu_torch.parameters import AirProperties
+    from cloudmicrophysics_tpu_torch.parameters.aerosol import (
+        AerosolActivationParameters,
+    )
+
+    ap, aip = AerosolActivationParameters(), AirProperties()
+    EM.generate_parcel_training_data(ap, aip, tps, n_samples=n, t_end=0.4,
+                                     device=device)             # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    X, y, y_arg = EM.generate_parcel_training_data(
+        ap, aip, tps, n_samples=n, return_arg_labels=True, device=device)
+    seconds = time.perf_counter() - t0
+    steps = int(round(20.0 / 0.2))
+    corr = float(np.corrcoef(y, y_arg)[0, 1])
+    out = {"members": n, "steps": steps, "s": seconds,
+           "member_steps_per_s": n * steps / seconds,
+           "label_std": float(y.std()), "corr_with_arg": corr}
+    print(f"  parcel dataset: {n} members x {steps} steps in {seconds:.4g} s "
+          f"({out['member_steps_per_s']:.6g} member-steps/s), labels std "
+          f"{y.std():.4g}, correlation with ARG {corr:.4g}")
+    if not (np.isfinite(X).all() and np.all((y >= 0) & (y <= 1))
+            and y.std() > 0.01 and corr > 0.5):
+        raise AssertionError("parcel dataset missed its gates")
+    return out
+
+
+def _cal_config(device, K, K2M, tps, tv):
+    """The calibrated 1M and 2M sets through Column1MStep and Column2MStep:
+    bit for bit against the plain step at (4096, 128) and at full size,
+    and the full-size ms/step of each."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models.bench_states import (
+        device_state,
+        device_state_2m,
+    )
+    from cloudmicrophysics_tpu_torch.models.column import (
+        Column1MStep,
+        Column2MStep,
+    )
+
+    mp1, mp2 = _calibrated_params(tps)
+    bits, out = [0, 0], {}
+    for key, model, state, pack, plain, label in (
+            ("K1", Column1MStep(mp1, tps, tv, DT, DZ, device=device),
+             device_state, K.pack_state,
+             lambda s: K.step_column_1m_packed_plain(s, mp1, tps, tv, DT, DZ),
+             CONFIG_SETS[0]),
+            ("K3", Column2MStep(mp2, tps, DT, DZ, device=device),
+             device_state_2m, K2M.pack_state_2m,
+             lambda s: K2M.step_column_2m_packed_plain(s, mp2, tps, DT, DZ),
+             CONFIG_SETS[1])):
+        for ncol in (4096, NCOL):
+            packed = pack(state(ncol, NLEV, device, seed=7))
+            _same(f"{key} {label} ({ncol}, {NLEV})", model(packed),
+                  plain(packed), bits)
+        ms = min(_time_ms(lambda: model(packed), reps=5))
+        out[key] = {"set": label, "ms_per_step": ms}
+        print(f"  {key} with {label}: {ms:.6g} ms/step at ({NCOL}, {NLEV})")
+        del packed
+    print(f"  calibrated blocks bit-identical to the plain step in {bits[0]} "
+          f"of {bits[1]} comparisons")
+    if bits[0] != bits[1]:
+        raise AssertionError("a calibrated block's kernel differs from the "
+                             "plain step")
+    out["bit_identical"] = bits
+    return out
+
+
+def _run_calibration(device, gpu_line, K, K2M):
+    """Phase 16: calibration (EKI, UKI, AIDA), the three activation
+    emulators and the calibrated parameter sets on the card, with the K1
+    and K3 launch counters set to 0 just before and read just after.
+    Returns the phase's JSON object."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.parameters import (
+        ThermodynamicsParameters,
+        terminal_velocity_params,
+    )
+
+    tps, tv = ThermodynamicsParameters(), terminal_velocity_params()
+    torch.cuda.empty_cache()
+    print("== calibration, emulators and calibrated parameter sets")
+    print(f"  float32 matmul precision {torch.get_float32_matmul_precision()}"
+          f", TF32 matmul {torch.backends.cuda.matmul.allow_tf32}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matrix products are on")
+    counters = {"K1": K.step_column_1m_fused_packed,
+                "K3": K2M.step_column_2m_fused_packed}
+    for fn in counters.values():
+        fn.launches = 0
+    parts = {"eki": lambda: _cal_eki(device, tps),
+             "uki": lambda: _cal_uki(device, tps),
+             "aida": lambda: _cal_aida(device, tps),
+             "emulators": lambda: _cal_emulators(device, tps),
+             "parcel_dataset": lambda: _cal_parcel_dataset(device, tps),
+             "config": lambda: _cal_config(device, K, K2M, tps, tv)}
+    out, wall = {"gpu": gpu_line}, {}
+    for name, part in parts.items():
+        t0 = time.perf_counter()
+        out[name] = part()
+        wall[name] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    out["wall_s"] = wall
+    print(f"  launches in this path: {out['launches']}")
+    print(f"  phase 16 wall seconds by part: "
+          f"{ {k: round(v, 2) for k, v in wall.items()} }, total "
+          f"{sum(wall.values()):.4g}")
+    if not all(out["launches"].values()):
+        raise AssertionError(f"a kernel of phase 16 never launched: "
+                             f"{out['launches']}")
     torch.cuda.empty_cache()
     return out
 

@@ -1,6 +1,23 @@
-"""Model layer (L5/L6): fused tendency API and the column step."""
+"""Model layer (L5/L6): fused tendency API, the column steps, the 0-D
+drivers, calibration and the activation emulators."""
 
-from . import box, column, p3_sandbox, p3_tendencies, parcel, tendencies
+from . import (
+    aida,
+    box,
+    calibration,
+    column,
+    emulator,
+    p3_sandbox,
+    p3_tendencies,
+    parcel,
+    tendencies,
+)
+from .calibration import (
+    EKIResult,
+    calibrate_abifm,
+    eki_calibrate,
+    uki_calibrate,
+)
 from .column import (
     Column1MStep,
     Column2MStep,

@@ -4,6 +4,7 @@ from . import (
     aerosol,
     aerosol_species,
     common,
+    config,
     convert,
     ice_nucleation,
     m1,
@@ -20,14 +21,27 @@ from .common import (
     WaterProperties,
     microphysics_0m_params,
 )
+from .config import (
+    NAME_MAP,
+    aerosol_activation_params_from_overrides,
+    calibrated_overrides,
+    calibrated_toml_path,
+    load_toml_overrides,
+    microphysics_1m_params_from_overrides,
+    microphysics_2m_params_from_overrides,
+    sb2006_from_overrides,
+)
 from .convert import (
     box_state_from_numpy,
     column_state_2m_from_numpy,
     column_state_from_numpy,
     column_state_p3_from_numpy,
     from_tree,
+    gp_params_from_numpy,
+    mlp_params_from_flax,
     p3_sandbox_state_from_numpy,
     parcel_state_from_numpy,
+    trees_params_from_numpy,
 )
 from .ice_nucleation import (
     Frostenberg2023,

@@ -14,6 +14,10 @@ An aerosol distribution's modes (``ModeB`` or ``ModeKappa``) and a parcel's
 aerosol species follow from their keys too; species whose fields have the
 same names (the dusts) are told apart by their default values, and take
 the tree's values whichever class is picked.
+
+:func:`mlp_params_from_flax`, :func:`gp_params_from_numpy` and
+:func:`trees_params_from_numpy` take the JAX package's fitted emulator
+parameters (as numpy) into the port's ``models.emulator`` families.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ from .terminal_velocity import (
 __all__ = ["from_tree", "column_state_from_numpy",
            "column_state_2m_from_numpy", "column_state_p3_from_numpy",
            "parcel_state_from_numpy", "box_state_from_numpy",
-           "p3_sandbox_state_from_numpy"]
+           "p3_sandbox_state_from_numpy", "mlp_params_from_flax",
+           "gp_params_from_numpy", "trees_params_from_numpy"]
 
 # Factories of the classes whose nested fields have no defaults; any other
 # class is built with ``cls()``. The default instance is the template whose
@@ -240,3 +245,41 @@ def p3_sandbox_state_from_numpy(arrays: Mapping[str, np.ndarray],
     from ..models.p3_sandbox import P3SandboxState
 
     return _state_from_numpy(P3SandboxState, arrays, device, dtype)
+
+
+def mlp_params_from_flax(flax_params: Mapping[str, Any],
+                         device: torch.device | str = "cuda"):
+    """The :class:`models.emulator.ActivationMLP` parameter dict (float32
+    tensors on ``device``, the GPU unless ``device="cpu"`` is asked for) of
+    the JAX package's fitted flax parameters, ``{"params": {"Dense_i":
+    {"kernel", "bias"}}}`` (the ``"params"`` level may be left out). flax
+    keeps a kernel as ``(in, out)``, ``nn.Linear`` its weight as
+    ``(out, in)``."""
+    tree = flax_params.get("params", flax_params)
+    out = {}
+    for i in range(len(tree)):
+        dense = tree[f"Dense_{i}"]
+        out[f"layers.{i}.weight"] = torch.as_tensor(
+            np.asarray(dense["kernel"], np.float32).T.copy(), device=device)
+        out[f"layers.{i}.bias"] = torch.as_tensor(
+            np.array(dense["bias"], np.float32), device=device)
+    return out
+
+
+def gp_params_from_numpy(params: Mapping[str, Any],
+                         device: torch.device | str = "cuda"):
+    """The :class:`models.emulator.GPRegressor` params dict (float32
+    tensors on ``device``) from the JAX package's ``{X_train, alpha,
+    y_mean, x_mean, x_std}``."""
+    return {k: torch.as_tensor(np.array(v, np.float32), device=device)
+            for k, v in params.items()}
+
+
+def trees_params_from_numpy(params: Mapping[str, Any],
+                            device: torch.device | str = "cuda"):
+    """The :class:`models.emulator.BoostedTreesRegressor` params dict
+    (int64 features, float32 thresholds, leaves and bias, on ``device``)
+    from the JAX package's ``{features, thresholds, leaves, bias}``."""
+    return {k: torch.as_tensor(
+        np.array(v, np.int64 if k == "features" else np.float32),
+        device=device) for k, v in params.items()}

@@ -1,6 +1,8 @@
-"""Numerics utilities (L0): special functions and parameter-struct machinery."""
+"""Numerics utilities (L0): special functions, parameter-struct machinery,
+struct display and data artifacts."""
 
-from . import distributions, param, quadrature, special
+from . import artifacts, distributions, param, quadrature, show, special
+from .artifacts import AIDA_ice_nucleation, ArtifactMissingError, artifacts_dir
 from .param import paramclass, replace, static_field
 from .special import (
     clamp_to_nonneg,
@@ -11,3 +13,4 @@ from .special import (
     fac,
     float_dtype,
 )
+from .show import field_units, show_params

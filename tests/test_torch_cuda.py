@@ -13,7 +13,10 @@ rtol 3e-5 / atol 1e-10, tests/test_kernels.py:192-198); tilings must agree
 bit for bit (each cell is computed by the same code whatever block steps
 it), and so must K5a's log lambda and the plain shape solve (the
 fixed-trip Brent stops at another iterate on a last-bit change). The 1M
-and 2M kernels (K1-K4) are held to their plain step bit for bit.
+and 2M kernels (K1-K4) are held to their plain step bit for bit, also
+with the shipped calibrated TOML parameter sets. The 0-D drivers, the
+boosted-trees fit and the UKI calibration run on the card against
+float64 or the CPU (tolerances at each test).
 """
 
 import json
@@ -543,3 +546,80 @@ def test_box_and_sandbox_float32_against_float64(device):
                                atol=0)
     for a, b in zip(th32, th64):
         torch.testing.assert_close(a.double(), b, rtol=1e-6, atol=0)
+
+
+def _emulator_data(device, n=2048):
+    from cloudmicrophysics_tpu_torch.models import emulator as EM
+    from cloudmicrophysics_tpu_torch.parameters import AirProperties
+    from cloudmicrophysics_tpu_torch.parameters.aerosol import (
+        AerosolActivationParameters,
+    )
+
+    return EM.generate_training_data(AerosolActivationParameters(),
+                                     AirProperties(), TPS, n_samples=n,
+                                     seed=1, device=device)
+
+
+def test_trees_fit_is_deterministic_on_the_card(device):
+    """Two fits on the card are equal (a one-hot product per level, no
+    atomics). Against the CPU fit a split may differ only where two
+    candidates' float64 scores tie to rounding, after which every later
+    tree differs too; the first tree, fitted to the same residuals on
+    both, has the same splits."""
+    from cloudmicrophysics_tpu_torch.models import emulator as EM
+
+    X, y = _emulator_data(device)
+    fits = [EM.train_emulator_trees(X, y, n_trees=50, depth=5,
+                                    device=device)[1] for _ in range(2)]
+    assert all(torch.equal(fits[0][k], fits[1][k]) for k in fits[0])
+    cpu = EM.train_emulator_trees(X, y, n_trees=50, depth=5, device="cpu")[1]
+    assert torch.equal(fits[0]["features"][0].cpu(), cpu["features"][0])
+    assert torch.equal(fits[0]["thresholds"][0].cpu(), cpu["thresholds"][0])
+
+
+def test_uki_on_the_card_agrees_with_the_cpu(device):
+    """calibrate_abifm's UKI route over a 40 s chamber parcel, float64:
+    theta within rtol 1e-6 of the CPU run (the card's transcendentals
+    round apart from the CPU's by ~1e-16)."""
+    from cloudmicrophysics_tpu_torch.models import calibration as CAL
+    from cloudmicrophysics_tpu_torch.models import parcel as PM
+
+    ic = PM.ParcelState(S_l=1.0, p_air=8e4, T=251.0, q_vap=7.3e-4,
+                        q_liq=3.6e-6, q_ice=0.0, N_aer=0.0, N_liq=1e8,
+                        N_ice=0.0, ln_inpc=0.0)
+    kwargs = dict(heterogeneous="ABIFM", condensation_growth="Condensation",
+                  const_dt=1.0, w=0.5)
+    y_obs = [0.0, 0.01, 0.05, 0.15, 0.3]
+    kw = dict(noise_std=0.02, prior_mean=(50.0, -9.0), prior_std=(8.0, 2.0),
+              n_iterations=3, method="UKI")
+    card = CAL.calibrate_abifm(ic, 40.0, kwargs, y_obs, device=device, **kw)
+    host = CAL.calibrate_abifm(ic, 40.0, kwargs, y_obs, device="cpu", **kw)
+    assert card.theta.device.type == "cuda"
+    torch.testing.assert_close(card.theta.cpu(), host.theta, rtol=1e-6,
+                               atol=0)
+
+
+def test_calibrated_toml_blocks_through_k1_and_k3(device):
+    """The shipped CliMA_1M and SB2006_limiters sets, loaded through the
+    override pipeline, each build their own K1 or K3 library, bit for bit
+    with the plain step."""
+    from cloudmicrophysics_tpu_torch.parameters import (
+        calibrated_overrides,
+        microphysics_1m_params_from_overrides,
+        microphysics_2m_params_from_overrides,
+    )
+
+    mp1 = microphysics_1m_params_from_overrides(
+        calibrated_overrides("CliMA_1M"))
+    model = Column1MStep(mp1, TPS, TV, DT, DZ, device=device)
+    assert not torch.equal(model.params, Column1MStep(
+        MP, TPS, TV, DT, DZ, device=device).params)
+    packed = K.pack_state(_state(512, 128, device))
+    assert torch.equal(model(packed), K.step_column_1m_packed_plain(
+        packed, mp1, TPS, TV, DT, DZ))
+    mp2 = microphysics_2m_params_from_overrides(
+        calibrated_overrides("SB2006_limiters"))
+    model2 = Column2MStep(mp2, TPS, DT, DZ, device=device)
+    packed2 = K2.pack_state_2m(_state_2m(512, 128, device))
+    assert torch.equal(model2(packed2), K2.step_column_2m_packed_plain(
+        packed2, mp2, TPS, DT, DZ))

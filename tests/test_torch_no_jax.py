@@ -1,7 +1,8 @@
 """The port runs without JAX: importing it and stepping a column on the CPU
 loads no ``jax`` module, every module of the package imports with JAX
-blocked, the 2M + P3 column step and a short parcel run with JAX blocked,
-and no module of the package imports one."""
+blocked, the 2M + P3 column step, a short parcel run, a short EKI, a
+trees fit and a TOML override load run with JAX blocked, and no module of
+the package imports one."""
 
 import os
 import re
@@ -62,7 +63,8 @@ import sys
 
 class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "cloudmicrophysics_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "cloudmicrophysics_tpu",
+                                  "flax", "optax"):
             raise ImportError("blocked: " + name)
 
 
@@ -113,7 +115,9 @@ def test_every_module_imports_with_jax_blocked():
             "parameters/aerosol_species", "parameters/modal_nucleation",
             "ops/aerosol_activation", "ops/nucleation", "ops/diagnostics",
             "ops/susceptibility", "models/parcel", "models/box",
-            "models/p3_sandbox"} <= modules
+            "models/p3_sandbox", "models/calibration", "models/aida",
+            "models/emulator", "parameters/config", "utils/show",
+            "utils/artifacts"} <= modules
     assert f"IMPORTED {len(modules)}" in proc.stdout, proc.stdout
 
 
@@ -178,7 +182,41 @@ def test_parcel_runs_with_jax_blocked():
 
 def test_no_module_imports_jax_or_the_jax_package():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|cloudmicrophysics_tpu)\b", re.M)
+        r"^\s*(import|from)\s+(jax|jaxlib|cloudmicrophysics_tpu|flax|optax)"
+        r"\b", re.M)
     offenders = [str(p.relative_to(PKG)) for p in PKG.rglob("*.py")
                  if pattern.search(p.read_text())]
     assert offenders == []
+
+
+_CALIBRATION_SCRIPT = _BLOCK + """
+import numpy as np
+import torch
+from cloudmicrophysics_tpu_torch.models import calibration as CAL
+from cloudmicrophysics_tpu_torch.models import emulator as EM
+from cloudmicrophysics_tpu_torch import parameters as P
+A = torch.as_tensor(np.random.default_rng(0).normal(size=(6, 2)))
+y = A @ torch.tensor([2.0, -1.5], dtype=torch.float64)
+res = CAL.eki_calibrate(lambda t: t @ A.T, [0.0, 0.0], [2.0, 2.0], y,
+                        np.eye(6) * 1e-6, n_ensemble=30, n_iterations=10,
+                        device="cpu")
+assert np.allclose(res.theta.numpy(), [2.0, -1.5], atol=0.05)
+X, yy = EM.generate_training_data(
+    P.aerosol.AerosolActivationParameters(), P.AirProperties(),
+    P.ThermodynamicsParameters(), n_samples=256, seed=1, device="cpu")
+model, params, rmse = EM.train_emulator_trees(X, yy, n_trees=20, depth=4,
+                                              device="cpu")
+assert params["leaves"].shape == (20, 16) and rmse < 0.2
+mp = P.microphysics_1m_params_from_overrides(
+    P.calibrated_overrides("CliMA_1M"))
+assert mp.terminal_velocity.rain.chiv != P.microphysics_1m_params(
+    ).terminal_velocity.rain.chiv
+mods = sorted(m for m in sys.modules if m.split(".")[0] in
+              ("jax", "jaxlib", "cloudmicrophysics_tpu", "flax", "optax"))
+print("JAX_MODULES", mods)
+"""
+
+
+def test_calibration_emulator_and_config_run_with_jax_blocked():
+    proc = _run(_CALIBRATION_SCRIPT)
+    assert "JAX_MODULES []" in proc.stdout, proc.stdout
