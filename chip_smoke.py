@@ -156,12 +156,30 @@ then, failing at the first phase that does not hold:
     ``CliMA_1M`` and ``SB2006_limiters`` sets through ``Column1MStep``
     and ``Column2MStep`` (their own K1 and K3 builds, started with phase
     2's), bit for bit against the plain step at (4096, 128) and at full
-    size, with their ms/step.
+    size, with their ms/step;
+17. shards the column steps over ``torch.distributed``
+    (``cloudmicrophysics_tpu_torch.parallel``), with each path's launch
+    counter set to 0 just before each sharded run and read just after:
+    (a) in this process, a one-rank NCCL group: ``Column1MStep`` on the 1M
+    state (K2) and ``step_column_2m(impl="fused")`` on the 2M state (K3),
+    both at 524288 x 128, and ``ColumnP3Step`` at GL-16 on the P3 state
+    at 16384 x 128 (K5, cold then warm-started), each sharded with
+    ``shard_columns`` and held two steps bit for bit against the unsharded
+    module, then timed against it by CUDA events (rollouts of 10 steps,
+    the best of 4 of each, in turns), with the host time to enqueue a step
+    of each and the device's idle share over sharded steps; (b) two ranks
+    sharing the card over gloo (NCCL refuses two ranks on one GPU), each
+    stepping half the columns of (a)'s inputs through the same three
+    paths, their shards gathered on the CPU and held bit for bit against
+    (a), and the pair's ms/step by the host clock between barriers (the
+    two ranks time-slice one card: not a scaling number); (c)
+    ``parallel.dryrun.dryrun_multichip(2)`` on the same two ranks.
 
 Then it prints the ``expf`` probe's JSON object on a line of its own,
 phase 15's JSON object (``{"zero_d": ...}``, with the card's name and
 power limit) on another, phase 16's (``{"calibration": ...}``, likewise)
-on another, the card's name and power limit as
+on another, phase 17's (``{"sharded": ...}``, likewise) on another, the
+card's name and power limit as
 ``nvidia-smi`` gives them, and, on the line before the last, a JSON object
 with one entry per kernel (K5's with its three kernels under
 ``subkernels``); the last line is ``{"ok": true, "device": {...}}``.
@@ -811,6 +829,7 @@ def main():
                      mp, tps, tv, microphysics_2m_params)
     zero_d = _run_0d(device, gpu_line)
     calibration = _run_calibration(device, gpu_line, K, K2M)
+    sharded = _run_sharded(device, gpu_line)
 
     csrc = "cloudmicrophysics_tpu_torch/kernels/csrc/"
     entries = [
@@ -843,6 +862,7 @@ def main():
     print(json.dumps({"probes": [probe]}))
     print(json.dumps({"zero_d": zero_d}))
     print(json.dumps({"calibration": calibration}))
+    print(json.dumps({"sharded": sharded}))
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2645,6 +2665,311 @@ def _run_calibration(device, gpu_line, K, K2M):
                              f"{out['launches']}")
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Column sharding over torch.distributed (phase 17)
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 10        # steps of a timed rollout, queued back to back
+SHARD_ORDER = ("unsharded", "sharded", "sharded", "unsharded") * 2
+SHARD_IDLE_CALLS = 10   # steps under torch.profiler for the idle share
+SHARD_RANKS = 2         # ranks of (b) and (c), sharing card 0 over gloo
+
+
+def _shard_paths(device):
+    """The paths phase 17 shards, at full width: (tag, kernel, step, first
+    input, launch counter). A step maps its input to the next one: a
+    ``ColumnState`` through ``Column1MStep`` (K2), a ``ColumnState2M``
+    through ``step_column_2m(impl="fused")`` (K3, each rank packing its
+    shard), and a ``(ColumnStateP3, log lambda)`` pair through
+    ``ColumnP3Step`` at GL-16 (K5; the first input's guess is None, so the
+    first step is cold and the next ones warm-started)."""
+    from cloudmicrophysics_tpu_torch.kernels import column1m as K
+    from cloudmicrophysics_tpu_torch.kernels import column2m as K2M
+    from cloudmicrophysics_tpu_torch.kernels import column_p3 as K5
+    from cloudmicrophysics_tpu_torch.models.bench_states import (
+        device_state,
+        device_state_2m,
+        p3_bench_state,
+    )
+    from cloudmicrophysics_tpu_torch.models.column import (
+        Column1MStep,
+        ColumnP3Step,
+        step_column_2m,
+    )
+    from cloudmicrophysics_tpu_torch.parameters import (
+        ThermodynamicsParameters,
+        microphysics_1m_params,
+        microphysics_2m_params,
+        terminal_velocity_params,
+    )
+
+    tps = ThermodynamicsParameters()
+    m1 = Column1MStep(microphysics_1m_params(), tps,
+                      terminal_velocity_params(), DT, DZ, device=device)
+    mp2 = microphysics_2m_params()
+    m3 = ColumnP3Step(microphysics_2m_params(with_ice=True,
+                                             quadrature_order=16),
+                      tps, DT, DZ, device=device)
+    return [
+        ("1M", "K2", m1, lambda: device_state(NCOL, NLEV, device),
+         K.step_column_1m_fused),
+        ("2M", "K3",
+         lambda s: step_column_2m(s, mp2, tps, DT, DZ, impl="fused"),
+         lambda: device_state_2m(NCOL, NLEV, device),
+         K2M.step_column_2m_fused_packed),
+        ("P3", "K5", lambda x: m3(*x),
+         lambda: (p3_bench_state(P3_NCOL, P3_NLEV, device), None),
+         K5.step_column_p3_fused),
+    ]
+
+
+def _rollout(step, x, n):
+    for _ in range(n):
+        x = step(x)
+    return x
+
+
+def _local(tree, device=None):
+    """``tree`` with each DTensor replaced by this rank's shard, moved to
+    ``device`` when given."""
+    from cloudmicrophysics_tpu_torch.parallel import is_dtensor
+    from cloudmicrophysics_tpu_torch.perf import _map
+
+    return _map(lambda t: (t.to_local() if is_dtensor(t) else t).to(
+        device or t.device), tree)
+
+
+def _identical(a, b):
+    import torch
+
+    from cloudmicrophysics_tpu_torch.perf import _leaves
+
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _host_ms(step, x, calls=SHARD_STEPS):
+    """Host milliseconds to enqueue a step (no synchronize between the
+    calls), the best of ``calls``."""
+    import torch
+
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        step(x)
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best * 1e3
+
+
+def _shard_rank(out_dir):
+    """Phase 17 (b) and (c) on one of two ranks that share card 0 over
+    gloo. (b): each path on this rank's half of the columns of (a)'s input
+    (``shard_columns`` over the global input, which (a) saved into
+    ``out_dir`` and which is read here mapped, so each rank reads the
+    pages of its half), two steps (P3: cold, then warm), then a rollout of
+    ``SHARD_STEPS`` steps timed for the pair by the host clock between two
+    barriers; saves this rank's shard of the two steps' result (its
+    tensors, on the CPU), its launch count and the pair's ms/step into
+    ``out_dir``. (c): ``dryrun_multichip(2)`` on the same two ranks; rank
+    0 saves its row."""
+    import torch
+    import torch.distributed as dist
+
+    from cloudmicrophysics_tpu_torch.parallel import (
+        column_mesh,
+        shard_columns,
+    )
+    from cloudmicrophysics_tpu_torch.parallel.dryrun import (
+        check_sharded,
+        dryrun_multichip,
+    )
+    from cloudmicrophysics_tpu_torch.perf import _leaves
+
+    out_dir = Path(out_dir)
+    # the card dryrun.spawn set for this rank
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = column_mesh()
+    rank = dist.get_rank()
+    for tag, _, step, _, counter in _shard_paths(device):
+        x = torch.load(out_dir / f"{tag}_input.pt", mmap=True,
+                       weights_only=False)   # written by (a) in this run
+        xs = shard_columns(x, mesh)
+        torch.cuda.synchronize()
+        counter.launches = 0
+        out = _rollout(step, xs, 2)
+        dist.barrier()
+        t0 = time.perf_counter()
+        _rollout(step, out, SHARD_STEPS)
+        torch.cuda.synchronize()
+        dist.barrier()
+        pair_s = time.perf_counter() - t0
+        launches = counter.launches
+        check_sharded(f"{tag} rank {rank}", out)
+        torch.save({"out": list(_leaves(_local(out, "cpu"))),
+                    "launches": launches,
+                    "pair_ms_per_step": pair_s * 1e3 / SHARD_STEPS},
+                   out_dir / f"{tag}_{rank}.pt")
+        del x, xs, out
+        torch.cuda.empty_cache()
+    row = dryrun_multichip(SHARD_RANKS)
+    if rank == 0:
+        (out_dir / "dryrun.json").write_text(json.dumps(row))
+
+
+def _run_sharded(device, gpu_line):
+    """Phase 17: the column steps sharded over ``torch.distributed``.
+    (a) one rank, NCCL, world 1, full width: K2, K3 and K5 through the
+    sharded entry points, each two steps bit for bit against the unsharded
+    module, timed against it by CUDA events (rollouts of ``SHARD_STEPS``
+    steps in the order ``SHARD_ORDER``; the best of each), with the host
+    time to enqueue a step and the device's idle share over sharded
+    steps, and the launch counter of each path set to 0 just before each
+    sharded run and read just after; (b) two ranks sharing card 0 over
+    gloo, each on half the columns of (a)'s inputs, the two steps' shards
+    gathered on the CPU bit for bit against (a), and the pair's ms/step;
+    (c) ``dryrun_multichip(2)`` on the same two ranks. Returns the phase's
+    JSON object."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from cloudmicrophysics_tpu_torch.parallel import (
+        column_mesh,
+        shard_columns,
+    )
+    from cloudmicrophysics_tpu_torch.parallel.dryrun import spawn
+    from cloudmicrophysics_tpu_torch.perf import _cat
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    print("== phase 17: column sharding over torch.distributed")
+    result, wall = {"gpu": gpu_line, "world1": {}, "two_ranks": {}}, {}
+    refs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        mesh = column_mesh()                   # a one-rank NCCL group
+        try:
+            print(f"  (a) {mesh}, backend {dist.get_backend()}, world "
+                  f"{dist.get_world_size()}")
+            for tag, kernel, step, first, counter in _shard_paths(device):
+                t0 = time.perf_counter()
+                x = first()
+                torch.save(_local(x, "cpu"), tmp / f"{tag}_input.pt")
+                wall[f"a {tag} state"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                result["world1"][tag] = _world1_path(
+                    tag, kernel, step, x, counter,
+                    shard_columns(x, mesh), refs)
+                wall[f"a {tag} steps"] = time.perf_counter() - t0
+                del x
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+        t0 = time.perf_counter()
+        spawn(_shard_rank, SHARD_RANKS, "cuda", (str(tmp),))
+        wall["b, c ranks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for tag in refs:
+            parts = [torch.load(tmp / f"{tag}_{r}.pt")
+                     for r in range(SHARD_RANKS)]
+            if not _identical(_cat([p["out"] for p in parts]), refs[tag]):
+                raise AssertionError(f"{tag}: the two ranks' gathered shards "
+                                     f"differ from the one-rank result")
+            launches = [p["launches"] for p in parts]
+            if launches != [2 + SHARD_STEPS] * SHARD_RANKS:
+                raise AssertionError(f"{tag}: launches per rank {launches}, "
+                                     f"{2 + SHARD_STEPS} steps driven")
+            pair = max(p["pair_ms_per_step"] for p in parts)
+            result["two_ranks"][tag] = {
+                "bit_identical": True, "launches": launches,
+                "pair_ms_per_step": pair,
+                "pair_over_one_rank":
+                    pair / result["world1"][tag]["ms_per_step"]["sharded"],
+                "note": "two ranks time-slice one card: not a scaling "
+                        "number"}
+            print(f"  (b) {tag}: {SHARD_RANKS} gloo ranks on one card, "
+                  f"gathered shards bit-identical to (a); launches per rank "
+                  f"{launches}; the pair {pair:.6g} ms/step (host clock "
+                  f"between barriers; not a scaling number)")
+        result["dryrun"] = json.loads((tmp / "dryrun.json").read_text())
+        wall["b gather"] = time.perf_counter() - t0
+    print(f"  (c) dryrun_multichip({SHARD_RANKS}) on the card: "
+          f"{result['dryrun']}")
+    result["wall_s"] = wall
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 17 wall seconds by part: "
+          f"{ {k: round(v, 2) for k, v in wall.items()} }, total "
+          f"{result['phase_s']:.4g}")
+    return result
+
+
+def _world1_path(tag, kernel, step, x, counter, xs, refs):
+    """Phase 17 (a) for one path: ``step`` on the input ``x`` and on its
+    one-rank sharding ``xs``, two steps each, bit for bit; their rollouts
+    timed in turns; the host time to enqueue a step; the idle share over
+    sharded steps; the sharded launches against the sharded steps driven.
+    Keeps the unsharded result on the CPU in ``refs[tag]`` and returns the
+    path's JSON row."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.parallel.dryrun import check_sharded
+
+    counts = [0, 0]      # launches in the sharded runs, sharded steps driven
+
+    def counted(fn, steps):
+        torch.cuda.synchronize()
+        counter.launches = 0
+        value = fn()
+        counts[0] += counter.launches
+        counts[1] += steps
+        return value
+
+    ref = _rollout(step, x, 2)
+    out = counted(lambda: _rollout(step, xs, 2), 2)
+    check_sharded(f"{tag} world 1", out)
+    if not _identical(_local(out), ref):
+        raise AssertionError(f"{tag}: the sharded steps differ from the "
+                             f"unsharded module's")
+    runs = {"unsharded": lambda: _rollout(step, ref, SHARD_STEPS),
+            "sharded": lambda: _rollout(step, out, SHARD_STEPS)}
+    times = {"unsharded": [], "sharded": []}
+    for name in SHARD_ORDER:
+        timed = lambda: _time_ms(runs[name], reps=1, warmup=0)
+        times[name] += (counted(timed, SHARD_STEPS) if name == "sharded"
+                        else timed())
+    host = {"unsharded": _host_ms(step, ref),
+            "sharded": counted(lambda: _host_ms(step, out), SHARD_STEPS)}
+    trace = lambda: _idle_share(lambda: step(out), SHARD_IDLE_CALLS)
+    idle = counted(trace, SHARD_IDLE_CALLS)
+    if idle is None:    # a trace of this phase has come back without device
+        idle = counted(trace, SHARD_IDLE_CALLS)    # time once: trace again
+    if counts[0] != counts[1] or not counts[0]:
+        raise AssertionError(f"{tag}: {kernel} launched {counts[0]} times in "
+                             f"the sharded runs, {counts[1]} steps driven")
+    ms = {k: min(v) / SHARD_STEPS for k, v in times.items()}
+    row = {"kernel": kernel, "bit_identical": True, "launches": counts[0],
+           "ms_per_step": ms,
+           "sharded_over_unsharded": ms["sharded"] / ms["unsharded"],
+           "samples_ms_per_step": {k: [t / SHARD_STEPS for t in v]
+                                   for k, v in times.items()},
+           "host_ms_per_step": host, "idle_share_sharded": idle}
+    print(f"  (a) {tag} ({kernel}): two steps bit-identical to the "
+          f"unsharded module; ms/step unsharded {ms['unsharded']:.6g}, "
+          f"sharded {ms['sharded']:.6g} (ratio "
+          f"{row['sharded_over_unsharded']:.6g}); host ms to enqueue a step "
+          f"{host}; device idle share over {SHARD_IDLE_CALLS} sharded steps "
+          + ("not measured, the profiler saw no device time" if idle is None
+             else f"{idle:.6g}")
+          + f"; {kernel} launches {counts[0]} (= sharded steps driven)")
+    refs[tag] = _local(ref, "cpu")
+    return row
 
 
 if __name__ == "__main__":

@@ -9,6 +9,8 @@ package (which stays the reference it is tested against), with
 * ``ops/``        — process rates (thermo, common, 0M, 1M, NonEq, 2M, P3,
                     ice nucleation)
 * ``models/``     — fused tendencies and the 1M, 2M and 2M + P3 column steps
+* ``parallel/``   — column sharding over a ``torch.distributed`` device
+                    mesh (column data parallelism)
 * ``kernels/``    — hand-written CUDA kernels for the fused hot path, each
                     beside its plain PyTorch version
 
@@ -18,4 +20,4 @@ the first time it is launched on a CUDA tensor.
 
 __version__ = "0.1.0"
 
-from . import kernels, models, ops, parameters, utils
+from . import kernels, models, ops, parallel, parameters, utils

@@ -39,6 +39,7 @@ import math
 import torch
 
 from ..models.column import ColumnState, step_column_1m
+from ..parallel.comms import is_dtensor
 from ..parameters.m1 import Microphysics1MOptions, Microphysics1MParams
 from ..parameters.terminal_velocity import TerminalVelocityParams
 from ..parameters.thermodynamics import ThermodynamicsParameters
@@ -418,8 +419,21 @@ def host_params(params, mp, tps, tv) -> torch.Tensor:
     return _build.host_block(params, len(PARAM_NAMES))
 
 
-def _check_cuda(tensors, where: str) -> torch.device:
+def _check_cuda(tensors, where: str) -> torch.device | None:
+    """The CUDA device a launch's fields lie on, or None when they lie on
+    the CPU (the wrapper takes the plain version). Raises ``ValueError``
+    for a ``DTensor`` (its ``data_ptr`` is not its shard's storage: a
+    column-sharded state steps through the entry points of
+    ``models/column.py``, which hand each rank's shard to the wrapper), and
+    for CUDA fields that differ in device or dtype or are not contiguous;
+    ``NotImplementedError`` for another device type."""
+    if any(is_dtensor(t) for t in tensors):
+        raise ValueError(f"{where}: a DTensor cannot be launched on; pass "
+                         f"each rank's local shard (DTensor.to_local) or "
+                         f"step through models/column.py")
     device = tensors[0].device
+    if device.type == "cpu":
+        return None
     if device.type != "cuda":
         raise NotImplementedError(
             f"{where}: no kernel for device type {device.type!r}")
@@ -457,11 +471,11 @@ def step_column_1m_fused(state: ColumnState, mp, tps, tv, dt, dz,
         if t.shape != (ncol, nlev):
             raise ValueError(f"every field must be {(ncol, nlev)}, "
                              f"got {tuple(t.shape)}")
-    if state.rho.device.type == "cpu":
+    device = _check_cuda(list(state), "step_column_1m_fused")
+    if device is None:
         return step_column_1m_plain(state, mp, tps, tv, dt, dz, mode=mode,
                                     nsub=nsub, sediment_cloud=sediment_cloud,
                                     q_tot_affine=q_tot_affine)
-    device = _check_cuda(list(state), "step_column_1m_fused")
     _check_supported(mp, mode, nlev, state.rho.dtype)
     lib = _library(host_params(params, mp, tps, tv))
     out = ColumnState(*(torch.empty_like(t) for t in state))
@@ -497,11 +511,10 @@ def step_column_1m_fused_packed(packed: torch.Tensor, mp, tps, tv, dt, dz,
                          f"{tuple(packed.shape)}")
     _, ncol, nlev = packed.shape
     _check_tiling(ncol, block_cols)
-    if packed.device.type == "cpu":
+    if _check_cuda([packed], "step_column_1m_fused_packed") is None:
         return step_column_1m_packed_plain(
             packed, mp, tps, tv, dt, dz, mode=mode, nsub=nsub,
             sediment_cloud=sediment_cloud, q_tot_affine=q_tot_affine)
-    _check_cuda([packed], "step_column_1m_fused_packed")
     _check_supported(mp, mode, nlev, packed.dtype)
     out = launch_packed(_library(host_params(params, mp, tps, tv)), packed,
                         dt, dz, block_cols, sediment_cloud, q_tot_affine)

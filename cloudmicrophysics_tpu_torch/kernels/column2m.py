@@ -390,9 +390,9 @@ def step_column_2m_fused(state: ColumnState2M, mp, tps, dt, dz,
         if t.shape != (ncol, nlev):
             raise ValueError(f"every field must be {(ncol, nlev)}, "
                              f"got {tuple(t.shape)}")
-    if state.rho.device.type == "cpu":
-        return step_column_2m_plain(state, mp, tps, dt, dz)
     device = _check_cuda(list(state), "step_column_2m_fused")
+    if device is None:
+        return step_column_2m_plain(state, mp, tps, dt, dz)
     _check_supported(mp, nlev, state.rho.dtype)
     lib = _library(host_params(params, mp, tps), _variant(mp))
     out = ColumnState2M(*(torch.empty_like(t) for t in state))
@@ -425,10 +425,9 @@ def step_column_2m_fused_packed(packed: torch.Tensor, mp, tps, dt, dz,
                          f"{tuple(packed.shape)}")
     _, ncol, nlev = packed.shape
     _check_tiling(ncol, block_cols)
-    if packed.device.type == "cpu":
+    if _check_cuda([packed], "step_column_2m_fused_packed") is None:
         return step_column_2m_packed_plain(packed, mp, tps, dt, dz,
                                            q_tot_affine=q_tot_affine)
-    _check_cuda([packed], "step_column_2m_fused_packed")
     _check_supported(mp, nlev, packed.dtype)
     out = launch_packed(_library(host_params(params, mp, tps), _variant(mp)),
                         packed, dt, dz, block_cols, q_tot_affine)

@@ -557,8 +557,6 @@ def _check_fields(state, loglambda_guess, block_cols, where):
         if t.shape != (ncol, nlev):
             raise ValueError(f"every field must be {(ncol, nlev)}, "
                              f"got {tuple(t.shape)}")
-    if state.rho.device.type == "cpu":
-        return None
     return _check_cuda(tensors, where)
 
 

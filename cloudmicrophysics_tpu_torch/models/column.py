@@ -19,6 +19,14 @@ the surface precipitation rate diagnostic.
 the modules a caller drives: each holds the parameters and its kernel's
 parameter buffer, and steps the state through its fused CUDA kernel (or
 the plain version on the CPU).
+
+Every entry point also takes a state whose fields are column-sharded
+``DTensor``s (:func:`..parallel.shard_columns`): it steps each rank's
+shard through :func:`..parallel.local_columns` and returns ``DTensor``s
+with the same placements, the counterpart of ``jax.jit`` over sharded
+inputs. The shards are unwrapped once, at the entry: nothing below it (the
+kernel wrappers, the tiling, the chunking) sees a ``DTensor`` or the global
+``ncol``.
 """
 
 from __future__ import annotations
@@ -54,6 +62,23 @@ class ColumnState(NamedTuple):
     q_icl: torch.Tensor
     q_rai: torch.Tensor
     q_sno: torch.Tensor
+
+
+def _sharded(state) -> bool:
+    """Whether ``state``'s fields are ``DTensor``s, column-sharded by
+    :func:`..parallel.shard_columns`."""
+    from ..parallel.comms import is_dtensor
+
+    return is_dtensor(state.rho)
+
+
+def _per_shard(step, state, *args):
+    """``step(state, *args)`` on each rank's shard of a column-sharded
+    ``state`` (and of the ``DTensor``s among ``args``), its tensors wrapped
+    back as ``DTensor``s with the same placements."""
+    from ..parallel.comms import local_columns
+
+    return local_columns(step, state.rho.device_mesh)(state, *args)
 
 
 def sedimentation_tendency(rho, q, w, dz):
@@ -93,7 +118,11 @@ def step_column_1m(
     sediment_cloud: bool = True,
 ) -> ColumnState:
     """One explicit Euler step: process rates + sedimentation, in eager
-    PyTorch (the plain version of the fused kernel)."""
+    PyTorch (the plain version of the fused kernel). A column-sharded
+    state steps shard by shard."""
+    if _sharded(state):
+        return _per_shard(lambda s: step_column_1m(
+            s, mp, tps, tv, dt, dz, mode, nsub, sediment_cloud), state)
     # PSD parameters computed ONCE and shared between the process rates and
     # the sedimentation velocities (the clamps mirror
     # microphysics_source_terms_1m so the shared sd is identical)
@@ -179,7 +208,8 @@ class Column1MStep(nn.Module):
     CUDA tensors it launches the fused kernel; on CPU tensors it runs the
     plain version. A thread block steps the largest power of two of
     columns, up to :data:`..kernels.column1m.BLOCK_COLS`, that divides
-    ``ncol``.
+    ``ncol`` (a rank's ``ncol`` for a column-sharded :class:`ColumnState`,
+    which steps shard by shard; a packed state is never sharded).
     """
 
     def __init__(self, mp: Microphysics1MParams, tps: ThermodynamicsParameters,
@@ -198,6 +228,9 @@ class Column1MStep(nn.Module):
         from ..kernels import column1m as K
 
         if isinstance(state, ColumnState):
+            if _sharded(state):
+                return _per_shard(lambda s: self.forward(s, q_tot_affine),
+                                  state)
             step, ncol = K.step_column_1m_fused, state.rho.shape[0]
         else:
             step, ncol = K.step_column_1m_fused_packed, state.shape[1]
@@ -241,9 +274,15 @@ def step_column_2m(state: ColumnState2M, mp, tps: ThermodynamicsParameters,
       package's ``"pallas"``: one CUDA launch per step on CUDA tensors, the
       plain version on CPU tensors. ``block_cols`` is halved until it
       divides ``ncol``.
+
+    A column-sharded state steps shard by shard: each rank packs its own
+    shard, and ``ncol`` is the rank's.
     """
     from ..ops import m2 as CM2
 
+    if _sharded(state):
+        return _per_shard(lambda s: step_column_2m(
+            s, mp, tps, dt, dz, impl, block_cols), state)
     if impl == "fused":
         from ..kernels.column2m import (
             pack_state_2m,
@@ -314,7 +353,9 @@ class Column2MStep(nn.Module):
     packed state only, as in the JAX package. On CUDA tensors it launches
     the fused kernel; on CPU tensors it runs the plain version. A thread
     block steps the largest power of two of columns, up to
-    :data:`..kernels.column2m.BLOCK_COLS`, that divides ``ncol``.
+    :data:`..kernels.column2m.BLOCK_COLS`, that divides ``ncol`` (a rank's
+    ``ncol`` for a column-sharded :class:`ColumnState2M`, which steps shard
+    by shard; a packed state is never sharded).
     """
 
     def __init__(self, mp, tps: ThermodynamicsParameters, dt: float,
@@ -332,6 +373,9 @@ class Column2MStep(nn.Module):
         from ..kernels import column2m as K
 
         if isinstance(state, ColumnState2M):
+            if _sharded(state):
+                return _per_shard(lambda s: self.forward(s, q_tot_affine),
+                                  state)
             if q_tot_affine is not None:
                 raise ValueError("q_tot_affine needs the packed state")
             return K.step_column_2m_fused(
@@ -381,7 +425,10 @@ def step_column_p3(state: ColumnStateP3, mp, tps: ThermodynamicsParameters,
     ``col_chunks``: evaluate the eager step over that many equal chunks of
     columns, one after the other, via :func:`..perf.chunked_cells`
     (identical math; bounds the memory of the node and pair-space
-    tensors). It must divide ``ncol``.
+    tensors). It must divide ``ncol``: a rank's ``ncol`` for a
+    column-sharded state, which is chunked shard by shard (as the JAX
+    package chunks inside ``shard_map``), so the chunk loop never walks
+    one rank's slab while the others wait.
 
     ``impl`` selects the form (identical math): ``"eager"`` (default),
     eager PyTorch on any device, the JAX package's XLA path; ``"fused"``,
@@ -389,7 +436,13 @@ def step_column_p3(state: ColumnStateP3, mp, tps: ThermodynamicsParameters,
     the JAX package's Pallas kernel: three CUDA launches per step on CUDA
     tensors, the plain version on CPU tensors (with the ``block_cols``
     :class:`ColumnP3Step` gives it).
+
+    A column-sharded state (and ``loglambda_guess``, sharded alike) steps
+    shard by shard and returns ``log lambda`` sharded alike.
     """
+    if _sharded(state):
+        return _per_shard(lambda s, g: step_column_p3(
+            s, mp, tps, dt, dz, g, col_chunks, impl), state, loglambda_guess)
     ncol = state.rho.shape[0]
     if col_chunks and ncol % col_chunks:
         raise ValueError(f"col_chunks={col_chunks} does not divide "
@@ -494,7 +547,8 @@ class ColumnP3Step(nn.Module):
     the shape solve. On CUDA tensors it launches the step's three kernels
     (:func:`..kernels.column_p3.step_column_p3_fused`); on CPU tensors it
     runs the plain version. ``block_cols`` is the largest power of two of
-    columns, up to 128, that divides ``ncol``.
+    columns, up to 128, that divides ``ncol``. A column-sharded state (and
+    guess) steps shard by shard, with a rank's ``ncol``.
     """
 
     def __init__(self, mp, tps: ThermodynamicsParameters, dt: float,
@@ -511,6 +565,8 @@ class ColumnP3Step(nn.Module):
     def forward(self, state: ColumnStateP3, loglambda_guess=None):
         from ..kernels.column_p3 import step_column_p3_fused
 
+        if _sharded(state):
+            return _per_shard(self.forward, state, loglambda_guess)
         return step_column_p3_fused(
             state, self.mp, self.tps, self.dt, self.dz, loglambda_guess,
             block_cols=_block_cols(state.rho.shape[0]), params=self.params)

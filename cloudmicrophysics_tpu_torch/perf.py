@@ -19,7 +19,7 @@ budget, zero allocations, type stability, a return-type check). What
 Beside it: :func:`profile_trace` (a ``torch.profiler`` trace of a block),
 :func:`chunked_cells` (a function over equal chunks of the cell axis),
 :func:`hbm_bytes_per_s` (a card's data-sheet memory rate, by its name) and
-:func:`measure` (seconds per iteration of a self-map on the card, the
+:func:`measure` (seconds per iteration of a self-map, on the card the
 roofline's timer).
 """
 
@@ -246,25 +246,33 @@ class Measurement(NamedTuple):
 
 def measure(step: Callable, x0: Any, n_iter: int = 20,
             reps: int = 3) -> Measurement:
-    """Seconds per iteration of ``step`` on the card over ``reps``
-    rollouts of ``n_iter`` iterations, by CUDA events with a synchronize
-    as the fence (the port of ``benchmarks/roofline.py:_measure``).
+    """Seconds per iteration of ``step`` over ``reps`` rollouts of
+    ``n_iter`` iterations, by CUDA events with a synchronize as the fence
+    when a tensor of ``x0`` lies on the card (the port of
+    ``benchmarks/roofline.py:_measure``), by ``perf_counter`` on the CPU.
 
     ``step(x, s)`` is a self-map; ``s`` counts the calls (0.0 for the
     first, untimed one, which builds the kernels) and feeds only where it
     is part of the step's work, as the scales of the roofline's kernels:
     the card caches no dispatch, so nothing needs a bit-fresh input."""
+    on_card = any(t.device.type == "cuda" for t in _leaves(x0))
     x = step(x0, 0.0)
-    torch.cuda.synchronize()
+    _sync(on_card)
     k, per_iter = 1, []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
         for _ in range(n_iter):
             x = step(x, float(k))
             k += 1
-        end.record()
-        torch.cuda.synchronize()
-        per_iter.append(start.elapsed_time(end) * 1e-3 / n_iter)
+        if on_card:
+            end.record()
+            torch.cuda.synchronize()
+            seconds = start.elapsed_time(end) * 1e-3
+        else:
+            seconds = time.perf_counter() - t0
+        per_iter.append(seconds / n_iter)
     return Measurement(min(per_iter), float(np.median(per_iter)), x)

@@ -16,7 +16,9 @@ fixed-trip Brent stops at another iterate on a last-bit change). The 1M
 and 2M kernels (K1-K4) are held to their plain step bit for bit, also
 with the shipped calibrated TOML parameter sets. The 0-D drivers, the
 boosted-trees fit and the UKI calibration run on the card against
-float64 or the CPU (tolerances at each test).
+float64 or the CPU (tolerances at each test). K2, K3 and K5 stepped
+column-sharded on a one-rank NCCL group are bit-identical to the
+unsharded steps.
 """
 
 import json
@@ -623,3 +625,58 @@ def test_calibrated_toml_blocks_through_k1_and_k3(device):
     packed2 = K2.pack_state_2m(_state_2m(512, 128, device))
     assert torch.equal(model2(packed2), K2.step_column_2m_packed_plain(
         packed2, mp2, TPS, DT, DZ))
+
+
+@pytest.fixture
+def one_rank_mesh(device):
+    """A one-rank NCCL group and its ``columns`` mesh on the card,
+    destroyed after the test."""
+    import torch.distributed as dist
+
+    from cloudmicrophysics_tpu_torch.parallel import column_mesh
+
+    mesh = column_mesh()
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _sharded_paths(device):
+    """(kernel counter, step, input) of K2, K3 and K5 (GL-8, cold then
+    warm-started) through the column entry points."""
+    from cloudmicrophysics_tpu_torch.models.column import step_column_2m
+
+    m1 = Column1MStep(MP, TPS, TV, DT, DZ, device=device)
+    mp2 = microphysics_2m_params()
+    m3 = ColumnP3Step(microphysics_2m_params(with_ice=True,
+                                             quadrature_order=8),
+                      TPS, DT, DZ, device=device)
+    return {
+        "K2": (K.step_column_1m_fused, m1, _state(1024, 128, device)),
+        "K3": (K2.step_column_2m_fused_packed,
+               lambda s: step_column_2m(s, mp2, TPS, DT, DZ, impl="fused"),
+               _state_2m(1024, 128, device)),
+        "K5": (K5.step_column_p3_fused, lambda s: m3(*m3(s)),
+               _state_p3(256, 64, device)),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K5"])
+def test_world1_sharded_kernels_are_bit_identical(device, one_rank_mesh,
+                                                  kernel):
+    from cloudmicrophysics_tpu_torch.parallel import is_dtensor, shard_columns
+    from cloudmicrophysics_tpu_torch.perf import _leaves
+
+    counter, step, st = _sharded_paths(device)[kernel]
+    ref = list(_leaves(step(st)))
+    sharded = shard_columns(st, one_rank_mesh)
+    counter.launches = 0
+    out = list(_leaves(step(sharded)))
+    assert counter.launches >= 1
+    assert len(out) == len(ref)
+    for a, b in zip(out, ref):
+        assert is_dtensor(a) and a.to_local().device == device
+        assert torch.equal(a.to_local(), b)
+    with pytest.raises(ValueError, match="DTensor"):
+        K.step_column_1m_fused(shard_columns(_state(64, 16, device),
+                                             one_rank_mesh),
+                               MP, TPS, TV, DT, DZ, block_cols=16)

@@ -1,7 +1,9 @@
 """The port's entry points put their tensors on the GPU unless the CPU is
 asked for: the state converters (column, parcel, box and P3 sandbox
-states), the three column-step modules, and the calibration, emulator
-and emulator-parameter entry points default to ``device="cuda"``. Where
+states), the three column-step modules, the calibration, emulator
+and emulator-parameter entry points, and the process group and mesh of
+``parallel`` (NCCL on the card, gloo on the CPU) default to
+``device="cuda"``. Where
 no GPU is present that default fails with PyTorch's own error rather than
 falling back to the CPU; with ``device="cpu"`` they build CPU tensors.
 The 1M and 2M modules keep their parameter block on the host wherever
@@ -182,3 +184,58 @@ def test_calibration_and_emulators_default_to_cuda(name):
         with pytest.raises((AssertionError, RuntimeError)):
             call()
     assert call(device="cpu").device.type == "cpu"
+
+
+@pytest.fixture
+def no_group(monkeypatch):
+    """No launcher environment, and no process group left up after the
+    test."""
+    import torch.distributed as dist
+
+    from cloudmicrophysics_tpu_torch.parallel import comms
+
+    for name in comms._LAUNCHER_ENV + ("LOCAL_RANK",):
+        monkeypatch.delenv(name, raising=False)
+    assert not dist.is_initialized()
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_initialize_distributed_selects_nccl_unless_the_cpu(no_group):
+    import torch.distributed as dist
+
+    from cloudmicrophysics_tpu_torch.parallel import initialize_distributed
+
+    assert _default(initialize_distributed) == "cuda"
+    one = lambda **kw: initialize_distributed(
+        store=dist.HashStore(), world_size=1, rank=0, **kw)
+    if torch.cuda.is_available():
+        one()
+        assert dist.get_backend() == "nccl"
+        dist.destroy_process_group()
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            one()
+        assert not dist.is_initialized()
+    one(device="cpu")
+    assert dist.get_backend() == "gloo"
+
+
+def test_column_mesh_selects_the_card_unless_the_cpu(no_group):
+    import torch.distributed as dist
+
+    from cloudmicrophysics_tpu_torch.parallel import column_mesh
+
+    assert _default(column_mesh) == "cuda"
+    if torch.cuda.is_available():
+        mesh = column_mesh()
+        assert mesh.device_type == "cuda" and dist.get_backend() == "nccl"
+        dist.destroy_process_group()
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            column_mesh()
+        assert not dist.is_initialized()
+    mesh = column_mesh(device="cpu")
+    assert mesh.device_type == "cpu" and dist.get_backend() == "gloo"
+    assert mesh.mesh_dim_names == ("columns",) and mesh.size() == 1

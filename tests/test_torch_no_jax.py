@@ -1,6 +1,7 @@
 """The port runs without JAX: importing it and stepping a column on the CPU
 loads no ``jax`` module, every module of the package imports with JAX
-blocked, the 2M + P3 column step, a short parcel run, a short EKI, a
+blocked, the 2M column step (also column-sharded on a one-rank gloo
+group), the 2M + P3 column step, a short parcel run, a short EKI, a
 trees fit and a TOML override load run with JAX blocked, and no module of
 the package imports one."""
 
@@ -96,6 +97,14 @@ model = Column2MStep(microphysics_2m_params(rain_velocity="chen2022"),
                      ThermodynamicsParameters(), 1.0, 100.0, device="cpu")
 out = model(pack_state_2m(st))
 assert out.shape == (7, n, k) and bool(torch.isfinite(out).all())
+import torch.distributed as dist
+from cloudmicrophysics_tpu_torch.parallel import (
+    column_mesh, is_dtensor, shard_columns)
+mesh = column_mesh(device="cpu")
+sharded = model(shard_columns(st, mesh))
+assert all(is_dtensor(t) for t in sharded)
+assert all(torch.equal(a.to_local(), b) for a, b in zip(sharded, model(st)))
+dist.destroy_process_group()
 print("IMPORTED", len(names))
 """
 
@@ -117,7 +126,7 @@ def test_every_module_imports_with_jax_blocked():
             "ops/susceptibility", "models/parcel", "models/box",
             "models/p3_sandbox", "models/calibration", "models/aida",
             "models/emulator", "parameters/config", "utils/show",
-            "utils/artifacts"} <= modules
+            "utils/artifacts", "parallel/comms", "parallel/dryrun"} <= modules
     assert f"IMPORTED {len(modules)}" in proc.stdout, proc.stdout
 
 
