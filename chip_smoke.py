@@ -173,7 +173,30 @@ then, failing at the first phase that does not hold:
     paths, their shards gathered on the CPU and held bit for bit against
     (a), and the pair's ms/step by the host clock between barriers (the
     two ranks time-slice one card: not a scaling number); (c)
-    ``parallel.dryrun.dryrun_multichip(2)`` on the same two ranks.
+    ``parallel.dryrun.dryrun_multichip(2)`` on the same two ranks;
+18. drives K1-K4 through the rest of the eager steps' scope (their builds,
+    one per variant, started with phase 2's): it measures how PyTorch's
+    CUDA kernels round float64 ``x / c`` and ``c / x`` for a Python float
+    c; holds, bit for bit against the plain step at (4096, 64) and a ragged
+    (512, 37), K1 and K2 in ``linearized_average`` (dt 10 s, ``nsub`` 1, 2
+    and 4, ``sediment_cloud`` on and off), under each non-default option,
+    each slot disabled, every slot disabled and a mixed set, and at
+    float64 (both modes), K3 and K4 at float64 (each 2M variant), and
+    K1-K4 at 512 and 333 levels; then, at full width (524288 x 128, and
+    131072 x 512 for the levels), drives ``Column1MStep`` in
+    ``linearized_average`` (``nsub`` 1 and 4) and at float64, and
+    ``Column2MStep`` at float64, and both at 512 levels, with the launch
+    counters set to 0 just before each and read just after, each held bit
+    for bit against its plain step (on a 65536-column slice where the plain
+    step's temporaries do not fit) and timed by CUDA events (best single
+    launch and a 30-step rollout, packed and unpacked) beside the default
+    float32 times of this run, with its bound (bytes, and the float32,
+    float64 and MUFU operations of its ``cell_step`` on the least path, the
+    substep loop's body counted ``nsub`` times; float64 at 64 lanes per
+    SM), registers and spills; times each option set's K1 at full width;
+    and holds the float64 K1-K4 to the JAX float64 record of the 1M and 2M
+    steps (``data/column_records_f64.json``), printing the float32
+    kernels' per-field error beside the JAX float32 step's.
 
 Then it prints the ``expf`` probe's JSON object on a line of its own,
 phase 15's JSON object (``{"zero_d": ...}``, with the card's name and
@@ -182,7 +205,8 @@ on another, phase 17's (``{"sharded": ...}``, likewise) on another, the
 card's name and power limit as
 ``nvidia-smi`` gives them, and, on the line before the last, a JSON object
 with one entry per kernel (K5's with its three kernels under
-``subkernels``); the last line is ``{"ok": true, "device": {...}}``.
+``subkernels``, K1-K4's with phase 18's under ``variants``); the last line
+is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits with a non-zero code and prints no result.
 """
 
@@ -206,16 +230,18 @@ class Rates(NamedTuple):
     """The card's published rates: its HBM rate (``perf.hbm_bytes_per_s``
     by its name); its float32 rate outside the tensor cores, 128 lanes per
     SM (an FMA two operations); its special-function units' rate, 16
-    results per SM per clock; and its warp instruction issue rate, one per
-    scheduler, four per SM, per clock (the CUDA C++ Programming Guide's
-    throughput table, compute capability 9.0); each at the card's maximum
-    SM clock as ``nvidia-smi`` reports it."""
+    results per SM per clock; its warp instruction issue rate, one per
+    scheduler, four per SM, per clock; and its float64 rate, 64 lanes per SM
+    (a DFMA two operations) (the CUDA C++ Programming Guide's throughput
+    table, compute capability 9.0); each at the card's maximum SM clock as
+    ``nvidia-smi`` reports it."""
     hbm: float
     fp32: float
     mufu: float
     warp_issue: float
     sms: int
     clock_hz: float
+    fp64: float
 
 
 @functools.lru_cache(maxsize=None)
@@ -232,14 +258,16 @@ def _rates():
                              ).splitlines()[0])
     return Rates(perf.hbm_bytes_per_s(torch.cuda.get_device_name(0)),
                  sms * 256 * clock, sms * 16 * clock, sms * 4 * clock, sms,
-                 clock)
+                 clock, sms * 128 * clock)
 
 
 def _ops_ms(tally):
     """Least ms of an operation count (:class:`opcount.Tally`): its float32
-    operations at the float32 rate or its special-function operations at
-    theirs, the larger."""
-    return max(tally.flops / _rates().fp32, tally.mufu / _rates().mufu) * 1e3
+    operations at the float32 rate, its special-function operations or its
+    float64 operations at theirs, the largest."""
+    r = _rates()
+    return max(tally.flops / r.fp32, tally.mufu / r.mufu,
+               tally.fp64 / r.fp64) * 1e3
 
 
 def _bound(nbytes, tally):
@@ -519,24 +547,36 @@ def _stages(key, K, lib, packed):
     return dict(zip(K.PROBE_STAGES, cycles))
 
 
-def _cell_ops(source, library, kernel):
+# the substep loop of column1m.cu's linearized_average builds
+SUBSTEP_LOOP = "for (int s = 0; s < sub.nsub; ++s)"
+
+
+def _cell_ops(source, library, kernel, tag="", nsub=None):
     """Operations per cell of ``kernel`` in the ``library`` built from
     ``csrc/<source>``: its ``cell_step`` (run once per cell) on its least
     path (kernels/opcount.py), every arm's instructions, and the global
-    loads (``LDG``) among them. Writes the SASS to
-    ``kernels/build/<source>.sass.gz``."""
+    loads (``LDG``) among them; with ``nsub`` (a linearized_average build),
+    the substep loop's body is a region of its own, run ``nsub`` times a
+    cell, and its least path counts that many times. Writes the SASS to
+    ``kernels/build/<source><tag>.sass.gz``."""
     import gzip
 
     from cloudmicrophysics_tpu_torch.kernels import _build, opcount
 
     src = (_build.CSRC_DIR / source).read_text()
     sites = {"cell_step": opcount.function_block(src, "cell_step")}
+    if nsub:
+        sites["substep"] = opcount.block_at(src, SUBSTEP_LOOP)
     sass = opcount.disassemble(library)
-    (_build.BUILD_DIR / f"{Path(source).stem}.sass.gz").write_bytes(
+    (_build.BUILD_DIR / f"{Path(source).stem}{tag}.sass.gz").write_bytes(
         gzip.compress(sass.encode()))
     instrs = [i for i in opcount.parse_sass(sass) if kernel in i.function]
     per_cell, every_arm = opcount.call_site_tally(instrs, sites, source,
                                                   "cell_step")
+    if nsub:
+        body, body_arms = opcount.call_site_tally(instrs, sites, source,
+                                                  "substep")
+        per_cell, every_arm = per_cell + body.scale(nsub), every_arm + body_arms
     groups, _ = opcount.attribute(instrs, sites, source)
     ldg = sum(1 for i, g in zip(instrs, groups)
               if g is not None and i.opcode.startswith("LDG"))
@@ -581,7 +621,8 @@ def main():
     print(f"gpu: {gpu_line}")
     rates = _rates()
     print(f"rates: HBM {rates.hbm:.6g} B/s (data sheet), float32 "
-          f"{rates.fp32:.6g} FLOP/s, MUFU {rates.mufu:.6g}/s, warp issue "
+          f"{rates.fp32:.6g} FLOP/s, float64 {rates.fp64:.6g} FLOP/s, MUFU "
+          f"{rates.mufu:.6g}/s, warp issue "
           f"{rates.warp_issue:.6g}/s ({rates.sms} SMs at "
           f"{rates.clock_hz / 1e9:g} GHz)")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -630,6 +671,9 @@ def main():
               f"{' '.join(K2M.BUILDS['kernel'])})",
               lambda: K2M._library(K2M.kernel_params_2m(cal2, tps),
                                    K2M._variant(cal2), "kernel"))]
+    # phase 18's variants of column1m.cu and column2m.cu
+    jobs += [(f"{src} ({label})", build)
+             for src, label, build in _scope_builds(K, K2M, tps, tv)]
     with ThreadPoolExecutor(len(jobs)) as pool:
         builds = dict(zip([j[0] for j in jobs],
                           pool.map(timed_build, [j[1] for j in jobs])))
@@ -830,6 +874,8 @@ def main():
     zero_d = _run_0d(device, gpu_line)
     calibration = _run_calibration(device, gpu_line, K, K2M)
     sharded = _run_sharded(device, gpu_line)
+    variants = _run_scope(device, K, K2M, Column1MStep, Column2MStep, tps, tv,
+                          timing, bounds)
 
     csrc = "cloudmicrophysics_tpu_torch/kernels/csrc/"
     entries = [
@@ -845,7 +891,8 @@ def main():
          "launches": launches[k], "max_abs_err": max_err[k],
          "ms": timing[k][0], "plain_ms": timing[k][1],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-         "library_ms": None}
+         "library_ms": None, **({"variants": variants[k]}
+                                 if k in variants else {})}
         for k, fn, src, tpu in entries]
     kernels[-1]["subkernels"] = k5["subkernels"]
     kernels.append({
@@ -2970,6 +3017,510 @@ def _world1_path(tag, kernel, step, x, counter, xs, refs):
           + f"; {kernel} launches {counts[0]} (= sharded steps driven)")
     refs[tag] = _local(ref, "cpu")
     return row
+
+
+# ---------------------------------------------------------------------------
+# The K1-K4 scope (phase 18)
+# ---------------------------------------------------------------------------
+
+SCOPE_SHAPES = ((4096, 64, 256), (512, 37, 64))   # (ncol, nlev, block_cols)
+SCOPE_LEVELS = ((256, 512, 32), (256, 333, 16))   # 512, and not a multiple of 32
+NSUBS = (1, 2, 4)
+DT_LIN = 10.0                   # a host model's step, taken in nsub substeps
+LEVELS_NCOL = 131072            # columns of the 512-level cell at full width
+SLICE_NCOL = 65536              # the slice checked where the plain step's
+#                                 temporaries do not fit at full width
+SCOPE_STEPS = 30                # rollout of a timed configuration
+# each non-default option, each slot disabled, every slot disabled, a mix
+ALTERNATIVES = (("cloud_ice_formation", "TemperatureDependent"),
+                ("rain_autoconversion", "PrescribedNd"),
+                ("snow_autoconversion", "WithSupersaturation"),
+                ("snow_deposition_sublimation", "SublimationOnly"))
+MIXED = dict(ALTERNATIVES, cloud_ice_melt=None, rain_snow_accretion=None)
+RECORD_RTOL, RECORD_ATOL_REL = 1e-9, 1e-12   # tests/test_torch_column_records.py
+
+
+def _scope_options(K):
+    """Phase 18's 1M option sets: (label, microphysics_1m_params keywords)."""
+    cases = [(f"{slot}={opt}", {slot: opt}) for slot, opt in ALTERNATIVES]
+    cases += [(f"{slot}=None", {slot: None}) for slot in K.OPTION_CODES]
+    cases += [("every slot None", {slot: None for slot in K.OPTION_CODES}),
+              ("mixed", MIXED)]
+    return cases
+
+
+def _scope_builds(K, K2M, tps, tv):
+    """Phase 18's libraries, built in phase 2's pool: (source, label,
+    build): column1m.cu in linearized_average, for each option set and at
+    float64 in both modes; column2m.cu at float64 for each 2M variant."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.parameters import (
+        microphysics_1m_params,
+        microphysics_2m_params,
+    )
+
+    mp = microphysics_1m_params()
+    out = []
+    for mode, dtype in (("linearized_average", torch.float32),
+                        ("instantaneous", torch.float64),
+                        ("linearized_average", torch.float64)):
+        out.append((K.SOURCE, f"{mode}, {dtype}",
+                    lambda m=mode, d=dtype: K._library(
+                        K.kernel_params(mp, tps, tv, d), "kernel",
+                        K.variant(mp, m))))
+    for label, opts in _scope_options(K):
+        m = microphysics_1m_params(**opts)
+        out.append((K.SOURCE, label, lambda m=m: K._library(
+            K.kernel_params(m, tps, tv), "kernel", K.variant(m))))
+    for tag, opts in BLOCKS_2M:
+        m = microphysics_2m_params(**opts)
+        out.append((K2M.SOURCE, f"{tag}, torch.float64",
+                    lambda m=m: K2M._library(
+                        K2M.kernel_params_2m(m, tps, torch.float64),
+                        K2M._variant(m))))
+    return out
+
+
+def _max_abs(out, ref):
+    return max(float((a.double() - b.double()).abs().max())
+               for a, b in zip(out, ref))
+
+
+def _f64_rounding(device):
+    """How PyTorch's CUDA kernels round float64 ``x / c`` and ``c / x`` for
+    a Python float c: counts of cells equal to the candidate forms."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(5)
+    x = torch.rand(1 << 20, dtype=torch.float64, device=device,
+                   generator=g) * 1e3 + 1e-3
+    rows = []
+    for c in (3.0, 7.0, 10.0, 461.5, 1004.5, 0.1, 2.26e-5):
+        div = x / c
+        ieee = x / torch.full_like(x, c)
+        recip = x * (1.0 / c)
+        rows.append((c, int((div == recip).sum()), int((div == ieee).sum()),
+                     int(((c / x) == (torch.reciprocal(x) * c)).sum())))
+    print(f"  float64 rounding on the card ({x.numel()} cells each): "
+          + "; ".join(f"x / {c:g}: {a} equal x * (1/c), {b} equal IEEE "
+                      f"x / c; c / x: {r} equal reciprocal(x) * c"
+                      for c, a, b, r in rows))
+    return rows
+
+
+def _state64(recipe, ncol, nlev, device, cls):
+    import torch
+
+    return cls(*(torch.from_numpy(a).to(device) for a in recipe(ncol, nlev)))
+
+
+def _scope_parity(device, K, K2M, tps, tv, bits, errs):
+    """Phase 18's parity at small sizes: K1/K2 (packed, unpacked) in
+    linearized_average, under each option set and at float64, K3/K4 at
+    float64, K1-K4 at 512 and 333 levels, each bit for bit against its
+    plain step."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models.bench_states import (
+        device_state,
+        device_state_2m,
+        state_recipe,
+        state_recipe_2m,
+    )
+    from cloudmicrophysics_tpu_torch.models.column import (
+        ColumnState,
+        ColumnState2M,
+    )
+    from cloudmicrophysics_tpu_torch.parameters import (
+        microphysics_1m_params,
+        microphysics_2m_params,
+    )
+
+    def one_1m(name, mp, st, bc, dt=DT, **kw):
+        params = K.kernel_params(mp, tps, tv, st.rho.dtype)
+        ref = K.step_column_1m_plain(st, mp, tps, tv, dt, DZ, **kw)
+        out = K.step_column_1m_fused(st, mp, tps, tv, dt, DZ, block_cols=bc,
+                                     params=params, **kw)
+        pout = K.unpack_state(K.step_column_1m_fused_packed(
+            K.pack_state(st), mp, tps, tv, dt, DZ, block_cols=bc,
+            params=params, **kw))
+        for k, o in (("K2", out), ("K1", pout)):
+            err = _max_abs(o, ref)
+            errs[(k, name)] = max(errs.get((k, name), 0.0), err)
+            if not _same(f"{k} {name} {tuple(st.rho.shape)}, max abs err "
+                         f"{err:.3e}", o, ref, bits):
+                raise AssertionError(f"{k} {name} differs from its plain step")
+
+    def one_2m(name, mp, st, bc):
+        params = K2M.kernel_params_2m(mp, tps, st.rho.dtype)
+        ref = K2M.step_column_2m_plain(st, mp, tps, DT, DZ)
+        out = K2M.step_column_2m_fused(st, mp, tps, DT, DZ, block_cols=bc,
+                                       params=params)
+        pout = K2M.unpack_state_2m(K2M.step_column_2m_fused_packed(
+            K2M.pack_state_2m(st), mp, tps, DT, DZ, block_cols=bc,
+            params=params))
+        for k, o in (("K4", out), ("K3", pout)):
+            err = _max_abs(o, ref)
+            errs[(k, name)] = max(errs.get((k, name), 0.0), err)
+            if not _same(f"{k} {name} {tuple(st.rho.shape)}, max abs err "
+                         f"{err:.3e}", o, ref, bits):
+                raise AssertionError(f"{k} {name} differs from its plain step")
+
+    mp = microphysics_1m_params()
+    for ncol, nlev, bc in SCOPE_SHAPES:
+        st = device_state(ncol, nlev, device, seed=7)
+        for nsub in NSUBS:
+            for sed in (True, False):
+                one_1m(f"linearized_average nsub={nsub}"
+                       + ("" if sed else " sediment_cloud=False"), mp, st, bc,
+                       dt=DT_LIN, mode="linearized_average", nsub=nsub,
+                       sediment_cloud=sed)
+        for label, opts in _scope_options(K):
+            one_1m(label, microphysics_1m_params(**opts), st, bc)
+        st64 = _state64(state_recipe, ncol, nlev, device, ColumnState)
+        one_1m("float64", mp, st64, bc)
+        one_1m("float64 linearized_average nsub=4", mp, st64, bc, dt=DT_LIN,
+               mode="linearized_average", nsub=4)
+        st2 = _state64(state_recipe_2m, ncol, nlev, device, ColumnState2M)
+        for tag, opts in BLOCKS_2M:
+            one_2m(f"float64 {tag}", microphysics_2m_params(**opts), st2,
+                   bc // 16)
+    mp2 = microphysics_2m_params()
+    for ncol, nlev, bc in SCOPE_LEVELS:
+        one_1m(f"{nlev} levels", mp, device_state(ncol, nlev, device, seed=7),
+               bc)
+        one_1m(f"{nlev} levels linearized_average nsub=2", mp,
+               device_state(ncol, nlev, device, seed=7), bc, dt=DT_LIN,
+               mode="linearized_average", nsub=2)
+        one_2m(f"{nlev} levels", mp2, device_state_2m(ncol, nlev, device,
+                                                       seed=7), bc)
+
+
+def _checked_full(tags, step, plain, state, bits, cls, pack, unpack):
+    """One step of a full-width configuration through the packed and the
+    field kernel (``tags``: their names), each held bit for bit against
+    the plain step: at full width where the plain step's temporaries fit
+    on the card, else on the first SLICE_NCOL columns (said so). Returns
+    each kernel's max abs error (packed, fields)."""
+    import torch
+
+    try:
+        ref = plain(state)
+        where = "full width"
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        state = cls(*(t[:SLICE_NCOL].contiguous() for t in state))
+        ref = plain(state)
+        where = (f"the first {SLICE_NCOL} columns (the plain step's "
+                 f"temporaries do not fit at full width)")
+    errs = []
+    for tag, packed in zip(tags, (True, False)):
+        out = unpack(step(pack(state))) if packed else step(state)
+        err = _max_abs(out, ref)
+        if not _same(f"{tag} one step at {where}, max abs err {err:.3e}",
+                     out, ref, bits):
+            raise AssertionError(f"{tag} differs from its plain step")
+        errs.append(err)
+        del out
+    del ref
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _timed(tag, model, x, counter):
+    """Best single launch (10, by CUDA events) and a SCOPE_STEPS rollout of
+    ``model`` on ``x`` (a packed state or a field state), with ``counter``
+    (the wrapper it launches) set to 0 just before and read just after;
+    fails unless every call launched it and the rollout ends finite and
+    non-negative."""
+    import torch
+
+    torch.cuda.synchronize()
+    counter.launches = 0
+    single = min(_time_ms(lambda: model(x), reps=10))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    s = x
+    start.record()
+    for _ in range(SCOPE_STEPS):
+        s = model(s)
+    end.record()
+    end.synchronize()
+    launches = counter.launches
+    if launches != 11 + SCOPE_STEPS:
+        raise AssertionError(f"{tag}: {launches} launches for "
+                             f"{11 + SCOPE_STEPS} calls")
+    fields = s if isinstance(s, tuple) else s.unbind(0)
+    if not all(bool(torch.isfinite(f).all()) for f in fields) or any(
+            bool((f < 0).any()) for f in fields[2:]):
+        raise AssertionError(f"{tag}: rollout not finite or negative")
+    return single, start.elapsed_time(end) / SCOPE_STEPS, launches
+
+
+def _lib_report(lib_path, kernel):
+    """Registers, spills and stack of ``kernel`` from a build's log."""
+    from cloudmicrophysics_tpu_torch.kernels import _build
+
+    ptx = _build.ptxas_report((lib_path.parent / "build.log").read_text())
+    return next((v for f, v in ptx.items() if kernel in f and "stack" in v),
+                {})
+
+
+def _run_scope(device, K, K2M, Column1MStep, Column2MStep, tps, tv, timing,
+               bounds):
+    """Phase 18: the K1-K4 scope beyond the default float32 instantaneous
+    step. Returns each of K1-K4's ``variants`` (name, ms, bound_ms, bound_by,
+    max_abs_err, launches)."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.kernels import _build
+
+    from cloudmicrophysics_tpu_torch.models.bench_states import (
+        state_recipe,
+        state_recipe_2m,
+    )
+    from cloudmicrophysics_tpu_torch.models.column import (
+        ColumnState,
+        ColumnState2M,
+    )
+    from cloudmicrophysics_tpu_torch.parameters import (
+        microphysics_1m_params,
+        microphysics_2m_params,
+    )
+
+    t0 = time.perf_counter()
+    print("== 18. K1-K4 scope: linearized_average, every process option, "
+          "float64, nlev > 256")
+    _f64_rounding(device)
+    bits, errs = [0, 0], {}
+    _scope_parity(device, K, K2M, tps, tv, bits, errs)
+    print(f"  K1-K4 scope bit-identical to the plain step in {bits[0]} of "
+          f"{bits[1]} comparisons")
+    if bits[0] != bits[1]:
+        raise AssertionError("a K1-K4 variant differs from its plain step")
+
+    # ---- full width: the timed configurations ----------------------------
+    mp, mp2 = microphysics_1m_params(), microphysics_2m_params()
+    f32, f64 = torch.float32, torch.float64
+    lin = "linearized_average"
+    configs = [   # (tag, kernel, scheme, dtype, ncol, nlev, model keywords)
+        ("default float32", "1m", f32, NCOL, NLEV, {}),
+        ("linearized_average nsub=1", "1m", f32, NCOL, NLEV,
+         dict(mode=lin, nsub=1)),
+        ("linearized_average nsub=4", "1m", f32, NCOL, NLEV,
+         dict(mode=lin, nsub=4)),
+        ("float64", "1m", f64, NCOL, NLEV, {}),
+        ("512 levels", "1m", f32, LEVELS_NCOL, 512, {}),
+        ("default float32", "2m", f32, NCOL, NLEV, {}),
+        ("float64", "2m", f64, NCOL, NLEV, {}),
+        ("512 levels", "2m", f32, LEVELS_NCOL, 512, {}),
+    ]
+    variants = {k: [] for k in ("K1", "K2", "K3", "K4")}
+    full_bits = [0, 0]
+    states = {}
+    for tag, scheme, dtype, ncol, nlev, kw in configs:
+        key = (scheme, ncol, nlev)
+        if key not in states:
+            states.clear()
+            torch.cuda.empty_cache()
+            recipe = state_recipe if scheme == "1m" else state_recipe_2m
+            states[key] = [np.asarray(a) for a in recipe(ncol, nlev)]
+        cls = ColumnState if scheme == "1m" else ColumnState2M
+        state = cls(*(torch.from_numpy(a).to(dtype).to(device)
+                      for a in states[key]))
+        if scheme == "1m":
+            model = Column1MStep(mp, tps, tv, DT_LIN if kw else DT, DZ,
+                                 device=device, **kw)
+            mod, kp, ku, variant = K, "K1", "K2", K.variant(mp, kw.get(
+                "mode", "instantaneous"))
+            pack, unpack = K.pack_state, K.unpack_state
+            fused, packed_fused = (K.step_column_1m_fused,
+                                   K.step_column_1m_fused_packed)
+            block = model.block(dtype)
+            path = K.library_path(block, "kernel", variant)
+            kernel = "column1m_step_kernel"
+
+            def plain(s, kw=kw, dt=model.dt):
+                return K.step_column_1m_plain(s, mp, tps, tv, dt, DZ, **kw)
+        else:
+            model = Column2MStep(mp2, tps, DT, DZ, device=device)
+            mod, kp, ku, variant = K2M, "K3", "K4", K2M._variant(mp2)
+            pack, unpack = K2M.pack_state_2m, K2M.unpack_state_2m
+            fused, packed_fused = (K2M.step_column_2m_fused,
+                                   K2M.step_column_2m_fused_packed)
+            block = model.block(dtype)
+            path = K2M.library_path(block, variant)
+            limited, chen = variant
+            kernel = f"column2m_step_kernelILb{limited}ELb{chen}E"
+
+            def plain(s):
+                return K2M.step_column_2m_plain(s, mp2, tps, DT, DZ)
+        label = f"{'1M' if scheme == '1m' else '2M'} {tag}"
+        err_p, err_u = _checked_full((f"{kp} {label}", f"{ku} {label}"),
+                                     model, plain, state, full_bits, cls,
+                                     pack, unpack)
+        packed = pack(state)
+        single_p, roll_p, n_p = _timed(f"{kp} {label}", model, packed,
+                                       packed_fused)
+        del packed
+        single_u, roll_u, n_u = _timed(f"{ku} {label}", model, state, fused)
+        per_cell, _, ldg = _cell_ops(mod.SOURCE, path, kernel,
+                                     tag=f"-{scheme}-{tag.replace(' ', '_')}",
+                                     nsub=kw.get("nsub"))
+        cells = ncol * nlev
+        nbytes = 14 * dtype.itemsize * cells
+        bound = _bound(nbytes, per_cell.scale(cells))
+        ptx = _lib_report(path, kernel)
+        attrs = _build.kernel_attrs(_build_lib(mod, block, variant),
+                                    Path(mod.SOURCE).stem, device.index)
+        for k, single, roll, n, err in ((kp, single_p, roll_p, n_p, err_p),
+                                        (ku, single_u, roll_u, n_u, err_u)):
+            default = timing[k][0]
+            print(f"  {k} {label} ({ncol}, {nlev}): {single:.6g} ms/step "
+                  f"(best single launch), rollout {roll:.6g} ms/step over "
+                  f"{SCOPE_STEPS} steps; bound {bound[0]:.6g} ms ({bound[1]}; "
+                  f"{per_cell.flops:g} float32, {per_cell.fp64:g} float64, "
+                  f"{per_cell.mufu:g} MUFU operations per cell on the least "
+                  f"path, {ldg} global loads), {bound[0] / single:.4g} of it; "
+                  f"{attrs['registers']} registers, {attrs['local_bytes']} B "
+                  f"local memory, ptxas {ptx.get('spill_stores', '?')} B "
+                  f"spill stores, {ptx.get('spill_loads', '?')} B spill "
+                  f"loads; default float32 {k} in this run {default:.6g} "
+                  f"ms/step; {n} launches")
+            if bound[0] > single:
+                raise AssertionError(f"{k} {label}: bound above the time")
+            variants[k].append({
+                "name": f"{label} ({ncol}x{nlev})", "ms": single,
+                "rollout_ms": roll, "bound_ms": bound[0],
+                "bound_by": bound[1], "max_abs_err": err,
+                "launches": n, "registers": attrs["registers"],
+                "spill_stores": ptx.get("spill_stores")})
+        del state
+    states.clear()
+    torch.cuda.empty_cache()
+    if full_bits[0] != full_bits[1]:
+        raise AssertionError("a full-width variant differs from its plain step")
+
+    # ---- the option sets at full width -----------------------------------
+    state = ColumnState(*(torch.from_numpy(np.asarray(a)).to(
+        torch.float32).to(device) for a in state_recipe(NCOL, NLEV)))
+    x = K.pack_state(state)
+    for label, opts in _scope_options(K):
+        m = microphysics_1m_params(**opts)
+        model = Column1MStep(m, tps, tv, DT, DZ, device=device)
+        block = model.block(torch.float32)
+        K._library(block, "kernel", K.variant(m))   # built in phase 2
+        path = K.library_path(block, "kernel", K.variant(m))
+        per_cell, _, _ = _cell_ops(K.SOURCE, path, "column1m_step_kernel",
+                                   tag="-1m-options")
+        bound = _bound(14 * 4 * NCOL * NLEV, per_cell.scale(NCOL * NLEV))
+        for k, arg, counter in (("K1", x, K.step_column_1m_fused_packed),
+                                ("K2", state, K.step_column_1m_fused)):
+            single, roll, n = _timed(f"{k} 1M {label}", model, arg, counter)
+            print(f"  {k} {label} ({NCOL}, {NLEV}): {single:.6g} ms/step "
+                  f"(best single launch), rollout {roll:.6g} ms/step over "
+                  f"{SCOPE_STEPS} steps; bound {bound[0]:.6g} ms "
+                  f"({bound[1]}); {n} launches; parity max abs err "
+                  f"{errs[(k, label)]:.3e} (at {SCOPE_SHAPES})")
+            if bound[0] > single:
+                raise AssertionError(f"{k} {label}: bound above the time")
+            variants[k].append({"name": f"1M {label}", "ms": single,
+                                "rollout_ms": roll, "bound_ms": bound[0],
+                                "bound_by": bound[1],
+                                "max_abs_err": errs[(k, label)],
+                                "launches": n})
+    del x, state
+    torch.cuda.empty_cache()
+    timed = {(k, v["name"]) for k, vs in variants.items() for v in vs}
+    for (k, name), err in errs.items():   # the cases of the parity only
+        label = f"{'1M' if k in ('K1', 'K2') else '2M'} {name}"
+        if (k, label) not in timed:
+            variants[k].append({"name": f"{label} (parity only)", "ms": None,
+                                "bound_ms": None, "max_abs_err": err})
+
+    # ---- the float64 records of the 1M and 2M steps ----------------------
+    _scope_records(device, Column1MStep, Column2MStep, tps, tv)
+    print(f"== phase 18: {time.perf_counter() - t0:.1f} s")
+    return variants
+
+
+def _build_lib(mod, block, variant):
+    """The loaded library of ``mod`` (column1m or column2m) for a block and
+    variant."""
+    if mod.SOURCE == "column1m.cu":
+        return mod._library(block, "kernel", variant)
+    return mod._library(block, variant)
+
+
+def _scope_records(device, Column1MStep, Column2MStep, tps, tv):
+    """The float64 K1 and K3 (and K2, K4) against the JAX package's float64
+    record of the 1M and 2M steps (``data/column_records_f64.json``), and
+    the float32 kernels' per-field error beside the JAX float32 step's."""
+    import torch
+
+    import cloudmicrophysics_tpu_torch
+    from cloudmicrophysics_tpu_torch.kernels import column1m as K
+    from cloudmicrophysics_tpu_torch.kernels import column2m as K2M
+    from cloudmicrophysics_tpu_torch.models.column import (
+        ColumnState,
+        ColumnState2M,
+    )
+    from cloudmicrophysics_tpu_torch.parameters import (
+        microphysics_1m_params,
+        microphysics_2m_params,
+    )
+
+    path = (Path(cloudmicrophysics_tpu_torch.__file__).resolve().parent
+            / "data" / "column_records_f64.json")
+    record = json.loads(path.read_text())
+    print(f"  records ({path.name}): {record['what']}")
+    for name, case in record["cases"].items():
+        one_m = case["scheme"] == "1m"
+        cls = ColumnState if one_m else ColumnState2M
+        if one_m:
+            model = Column1MStep(microphysics_1m_params(), tps, tv, case["dt"],
+                                 record["dz"], device=device,
+                                 mode=case["mode"], nsub=case["nsub"])
+        else:
+            model = Column2MStep(microphysics_2m_params(), tps, case["dt"],
+                                 record["dz"], device=device)
+        pack = K.pack_state if one_m else K2M.pack_state_2m
+        unpack = K.unpack_state if one_m else K2M.unpack_state_2m
+        for dtype in (torch.float64, torch.float32):
+            outs = {}
+            for k, packed in ((("K1", "K3"), True), (("K2", "K4"), False)):
+                st = cls(*(torch.tensor(case["state"][f], dtype=dtype,
+                                        device=device) for f in cls._fields))
+                x = pack(st) if packed else st
+                for _ in range(record["steps"]):
+                    x = model(x)
+                outs[k[0] if one_m else k[1]] = unpack(x) if packed else x
+            for k, out in outs.items():
+                row = {}
+                for f, got in zip(cls._fields, out):
+                    want = torch.tensor(case["step"][f], dtype=torch.float64,
+                                        device=device)
+                    scale = float(want.abs().max())
+                    diff = (got.double() - want).abs()
+                    row[f] = float(diff.max()) / scale
+                    if dtype == torch.float64 and not bool(
+                            (diff <= RECORD_ATOL_REL * scale
+                             + RECORD_RTOL * want.abs()).all()):
+                        raise AssertionError(f"{k} float64 {name}: {f} misses "
+                                             f"the record")
+                if dtype == torch.float64:
+                    print(f"  {k} float64 {name}: matches the JAX float64 "
+                          f"record (rtol {RECORD_RTOL}, floor "
+                          f"{RECORD_ATOL_REL} of each field); largest error "
+                          f"over the field's scale {max(row.values()):.3e}")
+                else:
+                    jax = case["jax_float32_error"]
+                    print(f"  {k} float32 {name}, error against the float64 "
+                          f"record over each field's scale (JAX float32 on "
+                          f"the CPU in brackets): " + ", ".join(
+                              f"{f} {e:.3e} ({jax[f]:.3e})"
+                              for f, e in row.items()))
 
 
 if __name__ == "__main__":

@@ -29,7 +29,9 @@ BUILD_DIR = KERNELS_DIR / "build"
 
 # Parity with the eager PyTorch step comes first: no fast math, and no
 # contraction of a*b+c into one FMA, so the kernel rounds operation by
-# operation as the eager code does.
+# operation as the eager code does. A float64 column build replaces
+# --fmad=false by --fmad=true (dtype_flags; csrc/real.cuh says why): its own
+# arithmetic is uncontracted by construction there.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -68,13 +70,51 @@ def index_header(names, guard: str) -> str:
     return "\n".join(lines)
 
 
+# the scalar types a column kernel is built for: the C type of each, and the
+# suffix of its hexadecimal literals
+_C_TYPES = {torch.float32: ("float", "f"), torch.float64: ("double", "")}
+
+
+def check_dtype(dtype: torch.dtype, kernel: str) -> None:
+    """Raise ``NotImplementedError`` unless a column kernel can be built for
+    ``dtype`` (float32 or float64). ``kernel`` names it in the message."""
+    if dtype not in _C_TYPES:
+        raise NotImplementedError(
+            f"the CUDA {kernel} column kernel supports float32 and float64, "
+            f"not {dtype}")
+
+
+def dtype_flags(dtype: torch.dtype) -> tuple:
+    """The nvcc flags a column kernel's build for ``dtype`` adds:
+    ``--fmad=true`` for float64 (its cells compute on csrc/real.cuh's
+    uncontracted Dbl, and the CUDA math library's double pow rounds as in
+    PyTorch's kernels only with contraction on), none for float32."""
+    return ("--fmad=true",) if dtype == torch.float64 else ()
+
+
+def c_type(dtype: torch.dtype) -> str:
+    """The C scalar type of a build for ``dtype``: ``float`` or ``double``."""
+    return _C_TYPES[dtype][0]
+
+
+def c_scalar(dtype: torch.dtype):
+    """The ``ctypes`` type of a scalar argument of a build for ``dtype``."""
+    return ctypes.c_float if dtype == torch.float32 else ctypes.c_double
+
+
 def literal_header(module: str, names, block: torch.Tensor,
                    defines=()) -> str:
     """The generated header of a kernel built for one parameter block:
-    ``#define PC_<name>`` as a hexadecimal float literal of each value of
-    ``block`` (exact), in the order of ``names``, then ``defines`` (pairs of
-    a macro name and its value) and ``N_PARAMS``. ``module``: the kernel's
-    Python module (``kernels/<module>.py``), which names the guard."""
+    ``#define PC_<name>`` as a hexadecimal literal of each value of
+    ``block`` (exact) in the block's dtype (``0x1.8p+1f`` for float32,
+    ``0x1.8p+1`` for float64), in the order of ``names``, then ``defines``
+    (pairs of a macro name and its value) and ``N_PARAMS``. ``module``: the
+    kernel's Python module (``kernels/<module>.py``), which names the
+    guard."""
+    if block.dtype not in _C_TYPES:
+        raise ValueError(f"a parameter block is float32 or float64, not "
+                         f"{block.dtype}")
+    suffix = _C_TYPES[block.dtype][1]
     values = block.numpy()
     if values.shape != (len(names),):
         raise ValueError(f"a parameter block has {len(names)} values")
@@ -83,21 +123,23 @@ def literal_header(module: str, names, block: torch.Tensor,
     guard = f"{module.upper()}_PARAMS_H"
     lines = [f"// Generated from kernels/{module}.py's parameter block; "
              "do not edit.", f"#ifndef {guard}", f"#define {guard}"]
-    lines += [f"#define PC_{name} ({float(v).hex()}f)"
+    lines += [f"#define PC_{name} ({float(v).hex()}{suffix})"
               for name, v in zip(names, values)]
     lines += [f"#define {name} {value}" for name, value in defines]
     lines += [f"#define N_PARAMS {len(names)}", "#endif", ""]
     return "\n".join(lines)
 
 
-def host_block(params: torch.Tensor, n: int) -> torch.Tensor:
+def host_block(params: torch.Tensor, n: int,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``params`` itself when it is a parameter block a kernel can be built
-    for: a contiguous float32 ``(n,)`` tensor on the host. Never copies from
-    a device: a block anywhere but on the CPU raises ``ValueError``."""
-    if (params.device.type != "cpu" or params.dtype != torch.float32
+    for: a contiguous ``(n,)`` tensor of ``dtype`` (the state's) on the
+    host. Never copies from a device: a block anywhere but on the CPU, or
+    of another dtype or shape, raises ``ValueError``."""
+    if (params.device.type != "cpu" or params.dtype != dtype
             or params.shape != (n,) or not params.is_contiguous()):
         raise ValueError(
-            f"params must be the host parameter block: a contiguous float32 "
+            f"params must be the host parameter block: a contiguous {dtype} "
             f"({n},) CPU tensor, not {params.dtype} {tuple(params.shape)} on "
             f"{params.device}")
     return params
@@ -127,7 +169,10 @@ def build(source: str, header_name: str, header_text: str,
     when it already exists."""
     src = CSRC_DIR / source
     shared = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
-    nvcc_flags = NVCC_FLAGS + tuple(flags)
+    base = NVCC_FLAGS
+    if any(f.startswith("--fmad") for f in flags):   # the build's own choice
+        base = tuple(f for f in base if not f.startswith("--fmad"))
+    nvcc_flags = base + tuple(flags)
     key = hashlib.sha256(
         src.read_bytes() + shared + header_text.encode()
         + " ".join(nvcc_flags).encode()).hexdigest()[:16]

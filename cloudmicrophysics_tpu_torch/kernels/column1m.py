@@ -15,20 +15,28 @@ final clamp. Two entry points share it:
   and out (the Pallas ``step_column_1m_pallas_packed``).
 
 A CPU tensor takes the plain version (:func:`step_column_1m_plain`,
-:func:`step_column_1m_packed_plain`). A CUDA tensor launches the kernel,
-or raises ``NotImplementedError`` for what the kernel does not cover:
-modes other than ``"instantaneous"``, option selections other than the
-default :class:`~..parameters.m1.Microphysics1MOptions`, dtypes other than
-float32, and more than 256 levels.
+:func:`step_column_1m_packed_plain`). A CUDA tensor launches the kernel in
+the whole scope of :func:`..models.column.step_column_1m`: both modes
+(``"instantaneous"``, and ``"linearized_average"`` with ``nsub`` substeps),
+every :class:`~..parameters.m1.Microphysics1MOptions` selection, float32 and
+float64, any number of levels (a warp steps a column, so the layout has no
+bound of its own). It raises only for an unknown mode, ``nsub < 1`` in
+``"linearized_average"`` (``ValueError``) and another dtype
+(``NotImplementedError``); ``"instantaneous"`` ignores ``nsub``, as the
+eager step does.
 
-The kernel's parameters are compiled into it: :func:`kernel_params`
-builds the float32 parameter block on the host in float64, and the build
-writes each value as an exact float literal into the generated header
-(:func:`header`), so the library is built once per parameter block (at its
-first launch, cached on disk by the header's hash) and every constant is an
-immediate operand. The wrappers read the block on the host, never from the
-device, which would add a synchronising copy to every step.
-:data:`PARAM_NAMES` is the only definition of the block's order.
+The kernel's parameters, scalar type, mode and options are compiled into
+it. :func:`kernel_params` builds the parameter block of a dtype on the host
+(its values in float64, with the dtype's own thresholds; a process option
+not selected leaves its values 0), and the build writes each value as an
+exact literal of that dtype into the generated header (:func:`header`),
+with the mode and one macro per option slot (:func:`variant`). So the
+library is built once per parameter block, dtype, mode and option set (at
+its first launch, cached on disk by the header's hash), branches on an
+option are decided when it is compiled, and every constant is an immediate
+operand. The wrappers read the block on the host, never from the device,
+which would add a synchronising copy to every step. :data:`PARAM_NAMES`
+is the only definition of the block's order, one list for every variant.
 """
 
 from __future__ import annotations
@@ -40,13 +48,16 @@ import torch
 
 from ..models.column import ColumnState, step_column_1m
 from ..parallel.comms import is_dtensor
-from ..parameters.m1 import Microphysics1MOptions, Microphysics1MParams
+from ..parameters import m1 as P1
+from ..parameters.m1 import Microphysics1MParams
 from ..parameters.terminal_velocity import TerminalVelocityParams
 from ..parameters.thermodynamics import ThermodynamicsParameters
-from ..utils.special import eps_numerics
+from ..utils.special import eps_numerics, machine_eps
 from . import _build
 
 __all__ = [
+    "MODES",
+    "OPTION_CODES",
     "PARAM_NAMES",
     "kernel_params",
     "pack_state",
@@ -55,20 +66,19 @@ __all__ = [
     "step_column_1m_packed_plain",
     "step_column_1m_plain",
     "unpack_state",
+    "variant",
 ]
 
 _FIELDS = ColumnState._fields  # (rho, T, q_tot, q_lcl, q_icl, q_rai, q_sno)
 
-# The levels the kernel is held to: the most its card tests cover.
-MAX_NLEV = 256
 # Columns a thread block steps by default (8 warps, 4 columns each): at
 # 524288 x 128 on an H100 the grid's last, part-empty wave of blocks costs
 # less than with 128 (PERF.md).
 BLOCK_COLS = 32
 
 PARAM_NAMES = (
-    # float32 constants of the dtype
-    "EPS", "TINY", "LOG_EPS", "HALF_MIN", "LOG_TINY",
+    # constants of the dtype
+    "EPS", "TINY", "LOG_EPS", "HALF_MIN", "LOG_TINY", "EPS_MACH",
     # thermodynamics
     "T_0", "LH_V0", "LH_S0", "LH_F0", "DCP_VL", "DCP_VI", "DCP_LI",
     "CP_D", "CPVD", "CPLV", "CPIV", "CV_L", "INV_T_TRIPLE",
@@ -110,28 +120,74 @@ PARAM_NAMES = (
     "INV_N0_LCL", "INV_RHO_W_LCL",
     "AS", "BS", "CS", "ES", "FS", "GS1000", "LOG1000", "INV_N0_ICL_SED",
     "INV_RHO_I_ICL",
+    # linearized_average: the donor floor, the substeps' constant heats
+    "Q_MIN", "LV_OVER_CP", "LS_OVER_CP",
+    # TemperatureDependent cloud ice formation (Frostenberg 2023 INP)
+    "FR_T_FREEZE", "FR_NEG_B", "INV_TEN", "FR_LOG_A", "RHO_I_ICL", "FR_R_MIN",
+    "C4PI_DV",
+    # PrescribedNd rain autoconversion: 1 / (tau (Nc / 1e8)^alpha)
+    "INV_ACNV_PND",
+    # WithSupersaturation snow autoconversion
+    "NEG_R_IS", "R_IS", "R_IS2_DELTA",
 )
 
+# The tendency modes the column step takes (models/tendencies.py; the
+# column step has no use for instantaneous_verbose's source terms).
+MODES = ("instantaneous", "linearized_average")
 
-def _logistic_consts(pp, eps: float):
+# Each Microphysics1MOptions slot's options and their build codes: 0 for a
+# disabled process (None), 1 for the default option, 2 for the alternative.
+OPTION_CODES = {
+    "cloud_liquid_formation": (P1.CLOUD_LIQUID_FORMATION,),
+    "cloud_ice_formation": (P1.CONSTANT_TIMESCALE, P1.TEMPERATURE_DEPENDENT),
+    "cloud_ice_melt": (P1.CLOUD_ICE_MELT,),
+    "rain_autoconversion": (P1.KESSLER_1M, P1.PRESCRIBED_ND),
+    "snow_autoconversion": (P1.NO_SUPERSATURATION, P1.WITH_SUPERSATURATION),
+    "rain_condensation_evaporation": (P1.RAIN_EVAPORATION,),
+    "snow_deposition_sublimation": (P1.DEPOSITION_AND_SUBLIMATION,
+                                    P1.SUBLIMATION_ONLY),
+    "snow_melt": (P1.SNOW_MELT,),
+    "cloud_liquid_rain_accretion": (P1.CLOUD_LIQUID_RAIN_ACCRETION,),
+    "cloud_liquid_snow_accretion": (P1.CLOUD_LIQUID_SNOW_ACCRETION,),
+    "cloud_ice_rain_accretion": (P1.CLOUD_ICE_RAIN_ACCRETION,),
+    "cloud_ice_snow_accretion": (P1.CLOUD_ICE_SNOW_ACCRETION,),
+    "rain_snow_accretion": (P1.RAIN_SNOW_ACCRETION,),
+}
+
+
+def variant(mp: Microphysics1MParams, mode: str = "instantaneous") -> tuple:
+    """The build variant of a parameter set and mode: ``(linearized, code of
+    each option slot in OPTION_CODES order)``. An option the kernel does not
+    know raises ``ValueError``, as the eager step does."""
+    codes = []
+    for slot, options in OPTION_CODES.items():
+        option = getattr(mp.processes, slot)
+        if option is not None and option not in options:
+            raise ValueError(f"unknown {slot} option {option!r}")
+        codes.append(0 if option is None else 1 + options.index(option))
+    return (int(mode == "linearized_average"), *codes)
+
+
+def _logistic_consts(pp, eps: float, dtype: torch.dtype):
     """Host side of ``ops.common.logistic_function_integral``:
-    ``(x0_safe, k, x0 < eps)``; the kernel takes the translation from k as
-    the eager step does, in float32."""
-    x0 = float(torch.tensor(pp.q_threshold, dtype=torch.float32))
+    ``(x0_safe, k, x0 < eps)`` with x0 in ``dtype``, as the eager step holds
+    it; the kernel takes the translation from k as the eager step does."""
+    x0 = float(torch.tensor(pp.q_threshold, dtype=dtype))
     return max(x0, eps), pp.k, float(x0 < eps)
 
 
 def _param_values(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
-                  tv: TerminalVelocityParams) -> dict:
-    """Every float the kernel reads, keyed by :data:`PARAM_NAMES`; the
-    products and logs the eager code folds from Python floats are folded
-    here the same way, in float64. ``INV_<x>`` is ``1/x`` in float64: where
-    the eager step divides a tensor by a Python float, PyTorch's CUDA kernel
-    multiplies by that reciprocal rounded once to float32, and so does the
-    kernel."""
-    f32 = torch.float32
-    eps = eps_numerics(f32)
-    tiny = 1e-25
+                  tv: TerminalVelocityParams,
+                  dtype: torch.dtype = torch.float32) -> dict:
+    """Every value the kernel reads, keyed by :data:`PARAM_NAMES`, with the
+    thresholds of ``dtype``; the products and logs the eager code folds from
+    Python floats are folded here the same way, in float64. ``INV_<x>`` is
+    ``1/x`` in float64: where the eager step divides a tensor by a Python
+    float, PyTorch's CUDA kernel multiplies by that reciprocal rounded once
+    to the tensor's dtype, and so does the kernel. The values of an option
+    slot that is not selected are 0 (the build does not read them)."""
+    eps = eps_numerics(dtype)
+    tiny = 1e-50 if dtype == torch.float64 else 1e-25
     pi = math.pi
     aps = mp.air_properties
     rain, snow, ice = mp.precip.rain, mp.precip.snow, mp.cloud.ice
@@ -140,10 +196,16 @@ def _param_values(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
     small_ice = tv.chen2022.small_ice
     stokes = tv.stokes
 
+    opts = mp.processes
+
+    def param(slot, attr):
+        pp_slot = getattr(pp, slot)
+        return 0.0 if pp_slot is None else getattr(pp_slot, attr)
+
     v = dict(
         EPS=eps, TINY=tiny, LOG_EPS=math.log(eps),
-        HALF_MIN=torch.finfo(f32).min / 2,
-        LOG_TINY=math.log(torch.finfo(f32).tiny),
+        HALF_MIN=torch.finfo(dtype).min / 2,
+        LOG_TINY=math.log(torch.finfo(dtype).tiny), EPS_MACH=machine_eps(dtype),
         T_0=tps.T_0, LH_V0=tps.LH_v0, LH_S0=tps.LH_s0, LH_F0=tps.LH_f0,
         DCP_VL=tps.cp_v - tps.cp_l, DCP_VI=tps.cp_v - tps.cp_i,
         DCP_LI=tps.cp_l - tps.cp_i,
@@ -163,13 +225,14 @@ def _param_values(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
         N0_RAI=rain.pdf.n0, N0_ICL=ice.pdf.n0,
         V0C_RAI=(8.0 / 3.0) / vr.C_drag, RHO_W_VEL_RAI=vr.rho_w,
         GRAV_VEL_RAI=vr.grav, R0_VEL_RAI=vr.r0,
-        TAU_LCL=pp.cloud_liquid_formation.tau_relax,
-        TAU_ICL=pp.cloud_ice_formation.tau_relax,
-        E_LR=pp.cloud_liquid_rain_accretion.e,
-        E_LS=pp.cloud_liquid_snow_accretion.e,
-        E_IR=pp.cloud_ice_rain_accretion.e,
-        E_IS=pp.cloud_ice_snow_accretion.e,
-        E_RS=pp.rain_snow_accretion.e, CD_RS=pp.rain_snow_accretion.coeff_disp,
+        TAU_LCL=param("cloud_liquid_formation", "tau_relax"),
+        TAU_ICL=param("cloud_ice_formation", "tau_relax"),
+        E_LR=param("cloud_liquid_rain_accretion", "e"),
+        E_LS=param("cloud_liquid_snow_accretion", "e"),
+        E_IR=param("cloud_ice_rain_accretion", "e"),
+        E_IS=param("cloud_ice_snow_accretion", "e"),
+        E_RS=param("rain_snow_accretion", "e"),
+        CD_RS=param("rain_snow_accretion", "coeff_disp"),
         A0_RAI=rain.area.a0, CHIA_RAI=rain.area.chia, CHIV_RAI=vr.chiv,
         GACC_RAI=vr.gamma_accr,
         PACC_RAI=rain.area.ae + vr.ve + rain.area.da + vr.dv,
@@ -194,7 +257,26 @@ def _param_values(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
         INV_RHO_W_LCL=1 / mp.cloud.liquid.rho_w,
         LOG1000=math.log(1000.0), INV_N0_ICL_SED=1 / ice.N_0,
         INV_RHO_I_ICL=1 / ice.rho_i,
+        Q_MIN=tps.q_min, LV_OVER_CP=tps.LH_v0 / tps.cp_d,
+        LS_OVER_CP=tps.LH_s0 / tps.cp_d,
     )
+    # the alternative options' values (ops/noneq.py:tau_relax_frostenberg,
+    # ops/m1.py:conv_q_lcl_to_q_rai, conv_q_icl_to_q_sno), 0 when another
+    # option is selected
+    fr = (pp.cloud_ice_formation.frostenberg
+          if opts.cloud_ice_formation == P1.TEMPERATURE_DEPENDENT else None)
+    v.update(FR_T_FREEZE=fr.T_freeze if fr else 0.0,
+             FR_NEG_B=-fr.b if fr else 0.0, INV_TEN=1 / 10,
+             FR_LOG_A=fr.log_a if fr else 0.0, RHO_I_ICL=ice.rho_i,
+             FR_R_MIN=1e-6, C4PI_DV=4 * pi * aps.D_vapor)
+    pnd = (pp.rain_autoconversion
+           if opts.rain_autoconversion == P1.PRESCRIBED_ND else None)
+    v["INV_ACNV_PND"] = (1 / (pnd.tau * (pnd.Nc / 1e8) ** pnd.alpha)
+                         if pnd else 0.0)
+    r_is = (pp.snow_autoconversion.r_ice_snow
+            if opts.snow_autoconversion == P1.WITH_SUPERSATURATION else 0.0)
+    v.update(NEG_R_IS=-r_is, R_IS=r_is,
+             R_IS2_DELTA=r_is**2 / (ice.mass.me + ice.mass.dm))
 
     # lambda_inv of rain, snow, cloud ice (ops/m1.py:_log_lambda_inverse)
     for tag, species in (("RAI", rain), ("SNO", snow), ("ICL", ice)):
@@ -229,12 +311,18 @@ def _param_values(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
         v[f"GVENT_{tag}"] = vel.gamma_vent
     v["SQ_SNO"] = 2 * vs.v0 * vs.chiv / aps.nu_air
 
-    for tag, opt in (("R", pp.rain_autoconversion),
-                     ("S", pp.snow_autoconversion)):
-        x0s, k, x0lt = _logistic_consts(opt, eps)
+    # the logistic (Kessler1M, NoSupersaturation) autoconversions
+    for tag, slot, logistic in (
+            ("R", "rain_autoconversion", P1.KESSLER_1M),
+            ("S", "snow_autoconversion", P1.NO_SUPERSATURATION)):
+        if getattr(opts, slot) == logistic:
+            opt = getattr(pp, slot)
+            x0s, k, x0lt = _logistic_consts(opt, eps, dtype)
+            inv_tau = 1 / opt.tau
+        else:
+            x0s = k = x0lt = inv_tau = 0.0
         v.update({f"ACNV_{tag}_X0S": x0s, f"ACNV_{tag}_K": k,
-                  f"ACNV_{tag}_X0LT": x0lt,
-                  f"INV_ACNV_{tag}_TAU": 1 / opt.tau})
+                  f"ACNV_{tag}_X0LT": x0lt, f"INV_ACNV_{tag}_TAU": inv_tau})
 
     # Chen 2022 small-ice coefficients (ops/common.py), all of rho_i
     A, B, C = small_ice.A, small_ice.B, small_ice.C
@@ -251,16 +339,19 @@ def _param_values(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
 
 
 def kernel_params(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
-                  tv: TerminalVelocityParams) -> torch.Tensor:
-    """The kernel's float32 parameter block, in :data:`PARAM_NAMES` order,
-    on the host (a CPU tensor): the kernel is built for its values."""
-    values = _param_values(mp, tps, tv)
+                  tv: TerminalVelocityParams,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The kernel's parameter block for ``dtype`` (float32 or float64), in
+    :data:`PARAM_NAMES` order, on the host (a CPU tensor of that dtype): the
+    kernel is built for its values."""
+    _build.check_dtype(dtype, "1M")
+    values = _param_values(mp, tps, tv, dtype)
     if set(values) != set(PARAM_NAMES):
         raise AssertionError(
             "kernel parameter list out of sync: "
             f"{sorted(set(values) ^ set(PARAM_NAMES))}")
     return torch.tensor([values[n] for n in PARAM_NAMES],
-                        dtype=torch.float64).to(torch.float32)
+                        dtype=torch.float64).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +402,6 @@ def step_column_1m_packed_plain(packed: torch.Tensor, mp, tps, tv, dt, dz,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 
 
 SOURCE = "column1m.cu"
@@ -324,48 +414,77 @@ BUILDS = {
 }
 # the stages the probe build times, in the order of enum ProbeStage
 PROBE_STAGES = ("load", "cell", "exchange", "store")
+# the variant of the default options in mode "instantaneous"
+DEFAULT_VARIANT = (0,) + (1,) * len(OPTION_CODES)
 
 
-def header(params: torch.Tensor) -> str:
-    """The generated header of a parameter block: ``#define PC_<name>`` as
-    a hexadecimal float literal of each value (exact), in
-    :data:`PARAM_NAMES` order, and ``N_PARAMS``."""
-    return _build.literal_header("column1m", PARAM_NAMES, params)
+def header(params: torch.Tensor, variant=DEFAULT_VARIANT) -> str:
+    """The generated header of a parameter block (float32 or float64) and a
+    build :func:`variant`: ``#define PC_<name>`` as a hexadecimal literal of
+    each value in the block's dtype (exact), in :data:`PARAM_NAMES` order,
+    ``K1_REAL`` (the scalar type), ``K1_LINEARIZED``, ``K1_OPT_<SLOT>`` for
+    each option slot and ``N_PARAMS``."""
+    linearized, *codes = variant
+    if len(codes) != len(OPTION_CODES) or linearized not in (0, 1) or any(
+            c not in range(len(o) + 1)
+            for c, o in zip(codes, OPTION_CODES.values())):
+        raise ValueError(f"not a variant of the 1M kernel: {variant}")
+    defines = [("K1_REAL", _build.c_type(params.dtype)),
+               ("K1_LINEARIZED", int(linearized))]
+    defines += [(f"K1_OPT_{slot.upper()}", int(c))
+                for slot, c in zip(OPTION_CODES, codes)]
+    return _build.literal_header("column1m", PARAM_NAMES, params, defines)
 
 
-def library_path(params: torch.Tensor, build: str = "kernel"):
+def library_path(params: torch.Tensor, build: str = "kernel",
+                 variant=DEFAULT_VARIANT):
     """The file of one of the kernel library's :data:`BUILDS` for the
-    parameter block ``params`` (built if needed)."""
-    return _build.build(SOURCE, "column1m_params.h", header(params),
-                        BUILDS[build])
+    parameter block ``params`` and ``variant`` (built if needed)."""
+    return _build.build(SOURCE, "column1m_params.h", header(params, variant),
+                        BUILDS[build] + _build.dtype_flags(params.dtype))
+
+
+def library_key(params: torch.Tensor, variant=DEFAULT_VARIANT,
+                build: str = "kernel"):
+    """What tells two libraries apart: the block's dtype and bytes, the
+    variant (mode and options) and the build."""
+    return (str(params.dtype), params.numpy().tobytes(), tuple(variant), build)
 
 
 _LIBRARIES = {}
 
 
-def _library(params: torch.Tensor, build: str = "kernel") -> ctypes.CDLL:
+def _library(params: torch.Tensor, build: str = "kernel",
+             variant=DEFAULT_VARIANT) -> ctypes.CDLL:
     """One of the kernel library's :data:`BUILDS` for the parameter block
-    ``params``, loaded (built at a block's first launch, then looked up by
-    its bytes)."""
-    key = (params.numpy().tobytes(), build)
+    ``params`` and ``variant``, loaded (built at its first launch, then
+    looked up by :func:`library_key`)."""
+    key = library_key(params, variant, build)
     lib = _LIBRARIES.get(key)
     if lib is None:
         lib = _LIBRARIES[key] = bind(
-            _build.load(SOURCE, "column1m_params.h", header(params),
-                        BUILDS[build]), build == "probe")
+            _build.load(SOURCE, "column1m_params.h", header(params, variant),
+                        BUILDS[build] + _build.dtype_flags(params.dtype)),
+            build == "probe", params.dtype, variant)
     return lib
 
 
-def bind(lib: ctypes.CDLL, probe: bool = False) -> ctypes.CDLL:
-    """Set the C signatures of a loaded build of the source (``probe``: the
-    ``-DK1_PROBE`` one) and check it against this module; returns it."""
+def bind(lib: ctypes.CDLL, probe: bool = False,
+         dtype: torch.dtype = torch.float32,
+         variant=DEFAULT_VARIANT) -> ctypes.CDLL:
+    """Set the C signatures of a loaded build of the source for ``dtype``
+    and ``variant`` (``probe``: the ``-DK1_PROBE`` one) and check it against
+    this module; returns it."""
     if not getattr(lib, "_signatures_set", False):
-        tail = [_I, _I, _I, _F, _F, _I, _I, _F, _F, _I, _P]
+        _R = _build.c_scalar(dtype)
+        tail = [_I, _I, _I, _R, _R, _I, _I, _R, _R, _I, _R, _R, _R, _I, _P]
         lib.column1m_step_unpacked.argtypes = [_P] * 14 + tail
         lib.column1m_step_unpacked.restype = _I
         lib.column1m_step_packed.argtypes = [_P, _P, ctypes.c_longlong] + tail
         lib.column1m_step_packed.restype = _I
         lib.column1m_num_params.restype = _I
+        lib.column1m_real_bytes.restype = _I
+        lib.column1m_variant.restype = ctypes.c_longlong
         lib.column1m_threads_per_block.restype = _I
         lib.column1m_blocks_per_sm.argtypes = [_I, _P]
         lib.column1m_blocks_per_sm.restype = _I
@@ -381,26 +500,31 @@ def bind(lib: ctypes.CDLL, probe: bool = False) -> ctypes.CDLL:
         if lib.column1m_num_params() != len(PARAM_NAMES):
             raise RuntimeError("column1m library built from another "
                                "parameter list")
+        if lib.column1m_real_bytes() != dtype.itemsize:
+            raise RuntimeError(f"column1m library built for another dtype "
+                               f"than {dtype}")
+        if lib.column1m_variant() != int("".join(map(str, variant))):
+            raise RuntimeError(f"column1m library built for another variant "
+                               f"than {tuple(variant)}")
         lib._signatures_set = True
     return lib
 
 
-def _check_supported(mp, mode: str, nlev: int, dtype: torch.dtype) -> None:
-    if mode != "instantaneous":
-        raise NotImplementedError(
-            f"the CUDA 1M column kernel supports mode='instantaneous', "
-            f"not {mode!r}")
-    if mp.processes != Microphysics1MOptions():
-        raise NotImplementedError(
-            "the CUDA 1M column kernel supports the default "
-            "Microphysics1MOptions only")
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA 1M column kernel supports float32, not {dtype}")
-    if nlev > MAX_NLEV:
-        raise NotImplementedError(
-            f"the CUDA 1M column kernel supports nlev <= {MAX_NLEV}, "
-            f"got {nlev}")
+def _check_supported(mp, mode: str, nlev: int, dtype: torch.dtype,
+                     nsub: int = 1) -> None:
+    """Raise for what the kernel cannot step: an unknown mode or option and
+    ``nsub < 1`` (``ValueError``, as the eager step), a dtype other than
+    float32 and float64 (``NotImplementedError``), no levels."""
+    if mode not in MODES:
+        raise ValueError(f"unknown tendency mode {mode!r} for the CUDA 1M "
+                         f"column kernel (it steps {MODES})")
+    if mode == "linearized_average" and int(nsub) < 1:
+        raise ValueError(f"linearized_average needs nsub >= 1, got {nsub}")
+    _build.check_dtype(dtype, "1M")
+    if nlev < 1:
+        raise ValueError(f"the CUDA 1M column kernel needs nlev >= 1, got "
+                         f"{nlev}")
+    variant(mp, mode)
 
 
 def _check_tiling(ncol: int, block_cols: int) -> None:
@@ -409,14 +533,16 @@ def _check_tiling(ncol: int, block_cols: int) -> None:
             f"ncol={ncol} not a multiple of block_cols={block_cols}")
 
 
-def host_params(params, mp, tps, tv) -> torch.Tensor:
+def host_params(params, mp, tps, tv,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The parameter block a launch's library is built for: ``params``
-    itself (the block of :func:`kernel_params`, held on the host), or the
-    block built from ``mp, tps, tv`` when it is None. Never copies from a
-    device: a ``params`` anywhere but on the CPU raises ``ValueError``."""
+    itself (the block of :func:`kernel_params` for the state's ``dtype``,
+    held on the host), or the block built from ``mp, tps, tv`` when it is
+    None. Never copies from a device: a ``params`` anywhere but on the CPU,
+    or of another dtype, raises ``ValueError``."""
     if params is None:
-        return kernel_params(mp, tps, tv)
-    return _build.host_block(params, len(PARAM_NAMES))
+        return kernel_params(mp, tps, tv, dtype)
+    return _build.host_block(params, len(PARAM_NAMES), dtype)
 
 
 def _check_cuda(tensors, where: str) -> torch.device | None:
@@ -452,6 +578,20 @@ def _affine(q_tot_affine):
     return 1, float(scale), float(bias)
 
 
+def _kernel_nsub(mode: str, nsub: int) -> int:
+    """The substeps a launch takes: ``nsub`` in linearized_average, 1 in
+    instantaneous, whose build ignores them as the eager step does."""
+    return int(nsub) if mode == "linearized_average" else 1
+
+
+def _substeps(dt, nsub: int):
+    """The launch's substep arguments of linearized_average: ``nsub``,
+    ``dt / nsub``, its reciprocal and ``1 / dt``, each a Python float as the
+    eager step holds it (models/tendencies.py:bulk_tendencies_1m)."""
+    dt_sub = float(dt) / int(nsub)
+    return int(nsub), dt_sub, 1.0 / dt_sub, 1.0 / float(dt)
+
+
 def step_column_1m_fused(state: ColumnState, mp, tps, tv, dt, dz,
                          mode: str = "instantaneous", nsub: int = 1,
                          sediment_cloud: bool = True,
@@ -462,8 +602,9 @@ def step_column_1m_fused(state: ColumnState, mp, tps, tv, dt, dz,
     ``ncol`` must be a multiple of ``block_cols`` (the columns one thread
     block steps). ``q_tot_affine``: optional ``(scale, bias)`` applied to
     ``q_tot`` on load (``q_tot*scale + bias``). ``params``: the host block
-    of :func:`kernel_params` (the kernel is built for its values), built
-    here when not given. CPU tensors take :func:`step_column_1m_plain`.
+    of :func:`kernel_params` for the state's dtype (the kernel is built for
+    its values), built here when not given. CPU tensors take
+    :func:`step_column_1m_plain`.
     """
     ncol, nlev = state.rho.shape
     _check_tiling(ncol, block_cols)
@@ -476,16 +617,18 @@ def step_column_1m_fused(state: ColumnState, mp, tps, tv, dt, dz,
         return step_column_1m_plain(state, mp, tps, tv, dt, dz, mode=mode,
                                     nsub=nsub, sediment_cloud=sediment_cloud,
                                     q_tot_affine=q_tot_affine)
-    _check_supported(mp, mode, nlev, state.rho.dtype)
-    lib = _library(host_params(params, mp, tps, tv))
+    dtype = state.rho.dtype
+    _check_supported(mp, mode, nlev, dtype, nsub)
+    lib = _library(host_params(params, mp, tps, tv, dtype),
+                   variant=variant(mp, mode))
     out = ColumnState(*(torch.empty_like(t) for t in state))
     has_affine, scale, bias = _affine(q_tot_affine)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.column1m_step_unpacked(
         *(t.data_ptr() for t in state), *(t.data_ptr() for t in out),
         ncol, nlev, block_cols, float(dt), float(dz),
-        int(bool(sediment_cloud)), has_affine, scale, bias, device.index,
-        stream)
+        int(bool(sediment_cloud)), has_affine, scale, bias,
+        *_substeps(dt, _kernel_nsub(mode, nsub)), device.index, stream)
     if err:
         raise RuntimeError(f"column1m_step_unpacked launch failed: CUDA "
                            f"error {err}")
@@ -515,9 +658,12 @@ def step_column_1m_fused_packed(packed: torch.Tensor, mp, tps, tv, dt, dz,
         return step_column_1m_packed_plain(
             packed, mp, tps, tv, dt, dz, mode=mode, nsub=nsub,
             sediment_cloud=sediment_cloud, q_tot_affine=q_tot_affine)
-    _check_supported(mp, mode, nlev, packed.dtype)
-    out = launch_packed(_library(host_params(params, mp, tps, tv)), packed,
-                        dt, dz, block_cols, sediment_cloud, q_tot_affine)
+    _check_supported(mp, mode, nlev, packed.dtype, nsub)
+    out = launch_packed(
+        _library(host_params(params, mp, tps, tv, packed.dtype),
+                 variant=variant(mp, mode)),
+        packed, dt, dz, block_cols, sediment_cloud, q_tot_affine,
+        _kernel_nsub(mode, nsub))
     step_column_1m_fused_packed.launches += 1
     return out
 
@@ -526,10 +672,12 @@ step_column_1m_fused_packed.launches = 0
 
 
 def launch_packed(lib, packed, dt, dz, block_cols: int,
-                  sediment_cloud: bool = True, q_tot_affine=None):
+                  sediment_cloud: bool = True, q_tot_affine=None,
+                  nsub: int = 1):
     """Launch ``lib``'s packed entry point (K1, built for its parameter
-    block) on a checked CUDA ``packed`` state and return the output;
-    uncounted (the wrapper counts its own launches)."""
+    block, dtype and variant) on a checked CUDA ``packed`` state and return
+    the output; uncounted (the wrapper counts its own launches). ``nsub``:
+    the substeps of a linearized_average build."""
     _, ncol, nlev = packed.shape
     device = packed.device
     out = torch.empty_like(packed)
@@ -538,8 +686,8 @@ def launch_packed(lib, packed, dt, dz, block_cols: int,
     err = lib.column1m_step_packed(
         packed.data_ptr(), out.data_ptr(), ncol * nlev,
         ncol, nlev, block_cols, float(dt), float(dz),
-        int(bool(sediment_cloud)), has_affine, scale, bias, device.index,
-        stream)
+        int(bool(sediment_cloud)), has_affine, scale, bias,
+        *_substeps(dt, nsub), device.index, stream)
     if err:
         raise RuntimeError(f"column1m_step_packed launch failed: CUDA "
                            f"error {err}")

@@ -20,18 +20,20 @@ temperature update and the final clamp. Two entry points share it:
 
 A CPU tensor takes the plain version (:func:`step_column_2m_plain`,
 :func:`step_column_2m_packed_plain`). A CUDA tensor launches the kernel,
-or raises ``NotImplementedError`` for what the kernel does not cover: P3
-ice (``mp.ice`` set), rain velocity types other than ``SB2006VelType`` and
-``Chen2022VelTypeRain``, dtypes other than float32, and more than
-:data:`MAX_NLEV` levels.
+float32 or float64, at any number of levels (a warp steps a column, so the
+layout has no bound of its own), or raises ``NotImplementedError`` for what
+the kernel does not cover: P3 ice (``mp.ice`` set), rain velocity types
+other than ``SB2006VelType`` and ``Chen2022VelTypeRain``, and other dtypes.
 
 The kernel's parameters are compiled into it: :func:`kernel_params_2m`
-builds the float32 parameter block on the host in float64, and the build
-writes each value as an exact float literal into the generated header
-(:func:`header`), with the variant (``is_limited``, Chen 2022 fall speeds)
-as two more macros. So the library is built once per parameter block and
-variant (at its first launch, cached on disk by the header's hash), holds
-that one variant, and every constant is an immediate operand. The wrappers
+builds the parameter block of a dtype (its values computed on the host in
+float64, with the dtype's own thresholds) and the build writes each value
+as an exact literal of that dtype into the generated header
+(:func:`header`), with the scalar type and the variant (``is_limited``,
+Chen 2022 fall speeds) as three more macros. So the library is built once
+per parameter block, dtype and variant (at its first launch, cached on
+disk by the header's hash), holds that one variant, and every constant is
+an immediate operand. The wrappers
 read the block on the host, never from the device. :data:`PARAM_NAMES` is
 the only definition of the block's order; the 2M + P3 kernel's list starts
 with it.
@@ -64,16 +66,13 @@ __all__ = [
 
 _FIELDS = ColumnState2M._fields  # (rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai)
 
-# The levels the kernel is held to: the most its card tests cover (a warp
-# steps a column, so the layout has no bound of its own).
-MAX_NLEV = 512
 # Columns a thread block steps by default (16 warps, a column each; the
 # grid's last, part-empty wave of blocks costs less than with 128): the
 # occupancy sweep's pick (PERF.md).
 BLOCK_COLS = 16
 
 PARAM_NAMES = (
-    # float32 thresholds
+    # thresholds of the dtype
     "EM", "EN", "EPS_MACH", "TINY", "EPS_PSAT",
     # thermodynamics
     "T_0", "LH_V0", "DCP_VL", "CP_D", "CPVD", "CPLV", "CPIV", "R_V", "INV_R_V",
@@ -112,13 +111,13 @@ def _gamma_incl_consts(a: float):
     return 0.33 - 0.7 * a, 0.08 - 0.93 * a, 1.34 - 0.1 * a, 0.8 - a
 
 
-def _param_values(mp, tps: ThermodynamicsParameters) -> dict:
-    """Every float the kernel reads, keyed by :data:`PARAM_NAMES`; the
-    products the eager code folds from Python floats are folded here the
-    same way, in float64. ``INV_<x>`` is ``1/x`` in float64: PyTorch's CUDA
-    division of a tensor by a Python float multiplies by that reciprocal,
-    rounded once to float32."""
-    f32 = torch.float32
+def _param_values(mp, tps: ThermodynamicsParameters,
+                  dtype: torch.dtype = torch.float32) -> dict:
+    """Every value the kernel reads, keyed by :data:`PARAM_NAMES`, with the
+    thresholds of ``dtype``; the products the eager code folds from Python
+    floats are folded here the same way, in float64. ``INV_<x>`` is ``1/x``
+    in float64: PyTorch's CUDA division of a tensor by a Python float
+    multiplies by that reciprocal, rounded once to the tensor's dtype."""
     wr = mp.warm_rain
     sb, aps = wr.seifert_beheng, wr.air_properties
     pdf_r, pdf_c = sb.pdf_r, sb.pdf_c
@@ -126,14 +125,14 @@ def _param_values(mp, tps: ThermodynamicsParameters) -> dict:
     vel = _chen_or_sb(mp)
     sbv = vel if isinstance(vel, SB2006VelType) else SB2006VelType()
     chen = vel if isinstance(vel, Chen2022VelTypeRain) else Chen2022VelTypeRain()
-    eps = eps_numerics(f32)
+    eps = eps_numerics(dtype)
     nu = pdf_c.nu_c
     pi = math.pi
     dcp_vl = tps.cp_v - tps.cp_l
 
     v = dict(
-        EM=machine_eps(f32), EN=machine_eps(f32), EPS_MACH=machine_eps(f32),
-        TINY=float(torch.finfo(f32).tiny), EPS_PSAT=eps,
+        EM=machine_eps(dtype), EN=machine_eps(dtype), EPS_MACH=machine_eps(dtype),
+        TINY=float(torch.finfo(dtype).tiny), EPS_PSAT=eps,
         T_0=tps.T_0, LH_V0=tps.LH_v0, DCP_VL=dcp_vl, CP_D=tps.cp_d,
         CPVD=tps.cp_v - tps.cp_d, CPLV=tps.cp_l - tps.cp_v,
         CPIV=tps.cp_i - tps.cp_v, R_V=tps.R_v,
@@ -199,16 +198,19 @@ def chen_rain_values(chen: Chen2022VelTypeRain) -> dict:
     return v
 
 
-def kernel_params_2m(mp, tps: ThermodynamicsParameters) -> torch.Tensor:
-    """The kernel's float32 parameter block, in :data:`PARAM_NAMES` order,
-    on the host (a CPU tensor): the kernel is built for its values."""
-    values = _param_values(mp, tps)
+def kernel_params_2m(mp, tps: ThermodynamicsParameters,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The kernel's parameter block for ``dtype`` (float32 or float64), in
+    :data:`PARAM_NAMES` order, on the host (a CPU tensor of that dtype): the
+    kernel is built for its values."""
+    _build.check_dtype(dtype, "2M")
+    values = _param_values(mp, tps, dtype)
     if set(values) != set(PARAM_NAMES):
         raise AssertionError(
             "kernel parameter list out of sync: "
             f"{sorted(set(values) ^ set(PARAM_NAMES))}")
     return torch.tensor([values[n] for n in PARAM_NAMES],
-                        dtype=torch.float64).to(torch.float32)
+                        dtype=torch.float64).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +255,6 @@ def step_column_2m_packed_plain(packed: torch.Tensor, mp, tps, dt, dz,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 
 
 SOURCE = "column2m.cu"
@@ -269,15 +270,17 @@ PROBE_STAGES = ("load", "cell", "exchange", "store")
 
 
 def header(params: torch.Tensor, variant) -> str:
-    """The generated header of a parameter block and a variant
-    ``(is_limited, chen)`` (:func:`_variant`): ``#define PC_<name>`` as a
-    hexadecimal float literal of each value (exact), in :data:`PARAM_NAMES`
-    order, ``K3_LIMITED``, ``K3_CHEN`` and ``N_PARAMS``."""
+    """The generated header of a parameter block (float32 or float64) and a
+    variant ``(is_limited, chen)`` (:func:`_variant`): ``#define PC_<name>``
+    as a hexadecimal literal of each value in the block's dtype (exact), in
+    :data:`PARAM_NAMES` order, ``K3_REAL`` (the scalar type), ``K3_LIMITED``,
+    ``K3_CHEN`` and ``N_PARAMS``."""
     limited, chen = variant
     if {limited, chen} - {0, 1}:
         raise ValueError(f"a variant is two flags 0 or 1, not {variant}")
     return _build.literal_header("column2m", PARAM_NAMES, params,
-                                 (("K3_LIMITED", int(limited)),
+                                 (("K3_REAL", _build.c_type(params.dtype)),
+                                  ("K3_LIMITED", int(limited)),
                                   ("K3_CHEN", int(chen))))
 
 
@@ -285,7 +288,7 @@ def library_path(params: torch.Tensor, variant, build: str = "kernel"):
     """The file of one of the kernel library's :data:`BUILDS` for the
     parameter block ``params`` and ``variant`` (built if needed)."""
     return _build.build(SOURCE, "column2m_params.h", header(params, variant),
-                        BUILDS[build])
+                        BUILDS[build] + _build.dtype_flags(params.dtype))
 
 
 _LIBRARIES = {}
@@ -295,21 +298,30 @@ def _library(params: torch.Tensor, variant,
              build: str = "kernel") -> ctypes.CDLL:
     """One of the kernel library's :data:`BUILDS` for the parameter block
     ``params`` and ``variant``, loaded (built at its first launch, then
-    looked up by the block's bytes and the variant)."""
-    key = (params.numpy().tobytes(), tuple(variant), build)
+    looked up by :func:`library_key`)."""
+    key = library_key(params, variant, build)
     lib = _LIBRARIES.get(key)
     if lib is None:
         lib = _LIBRARIES[key] = bind(
             _build.load(SOURCE, "column2m_params.h", header(params, variant),
-                        BUILDS[build]), variant, build == "probe")
+                        BUILDS[build] + _build.dtype_flags(params.dtype)),
+            variant, build == "probe", params.dtype)
     return lib
 
 
-def bind(lib: ctypes.CDLL, variant, probe: bool = False) -> ctypes.CDLL:
+def library_key(params: torch.Tensor, variant, build: str = "kernel"):
+    """What tells two libraries apart: the block's dtype and bytes, the
+    variant and the build."""
+    return (str(params.dtype), params.numpy().tobytes(), tuple(variant), build)
+
+
+def bind(lib: ctypes.CDLL, variant, probe: bool = False,
+         dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
     """Set the C signatures of a loaded build of the source for ``variant``
-    (``probe``: the ``-DK3_PROBE`` one) and check it against this module;
-    returns it."""
+    and ``dtype`` (``probe``: the ``-DK3_PROBE`` one) and check it against
+    this module; returns it."""
     if not getattr(lib, "_signatures_set", False):
+        _F = _build.c_scalar(dtype)
         tail = [_I, _I, _I, _F, _F, _I, _F, _F, _I, _P]
         lib.column2m_step_unpacked.argtypes = [_P] * 14 + tail
         lib.column2m_step_unpacked.restype = _I
@@ -332,6 +344,10 @@ def bind(lib: ctypes.CDLL, variant, probe: bool = False) -> ctypes.CDLL:
         if lib.column2m_num_params() != len(PARAM_NAMES):
             raise RuntimeError("column2m library built from another "
                                "parameter list")
+        lib.column2m_real_bytes.restype = _I
+        if lib.column2m_real_bytes() != dtype.itemsize:
+            raise RuntimeError(f"column2m library built for another dtype "
+                               f"than {dtype}")
         lib._signatures_set = True
     limited, chen = variant
     if lib.column2m_variant() != 2 * limited + chen:
@@ -341,6 +357,8 @@ def bind(lib: ctypes.CDLL, variant, probe: bool = False) -> ctypes.CDLL:
 
 
 def _check_supported(mp, nlev: int, dtype: torch.dtype) -> None:
+    """Raise for what the kernel cannot step: P3 ice, another rain
+    velocity type, another dtype than float32 and float64, no levels."""
     if getattr(mp, "ice", None) is not None:
         raise NotImplementedError(
             "the CUDA 2M column kernel supports warm rain only, not P3 ice")
@@ -349,23 +367,22 @@ def _check_supported(mp, nlev: int, dtype: torch.dtype) -> None:
         raise NotImplementedError(
             f"the CUDA 2M column kernel supports the SB2006VelType and "
             f"Chen2022VelTypeRain rain velocities, not {type(vel).__name__}")
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA 2M column kernel supports float32, not {dtype}")
-    if nlev > MAX_NLEV:
-        raise NotImplementedError(
-            f"the CUDA 2M column kernel supports nlev <= {MAX_NLEV}, "
-            f"got {nlev}")
+    _build.check_dtype(dtype, "2M")
+    if nlev < 1:
+        raise ValueError(f"the CUDA 2M column kernel needs nlev >= 1, got "
+                         f"{nlev}")
 
 
-def host_params(params, mp, tps) -> torch.Tensor:
+def host_params(params, mp, tps,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The parameter block a launch's library is built for: ``params``
-    itself (the block of :func:`kernel_params_2m`, held on the host), or
-    the block built from ``mp, tps`` when it is None. Never copies from a
-    device: a ``params`` anywhere but on the CPU raises ``ValueError``."""
+    itself (the block of :func:`kernel_params_2m` for the state's ``dtype``,
+    held on the host), or the block built from ``mp, tps`` when it is None.
+    Never copies from a device: a ``params`` anywhere but on the CPU, or of
+    another dtype, raises ``ValueError``."""
     if params is None:
-        return kernel_params_2m(mp, tps)
-    return _build.host_block(params, len(PARAM_NAMES))
+        return kernel_params_2m(mp, tps, dtype)
+    return _build.host_block(params, len(PARAM_NAMES), dtype)
 
 
 def _variant(mp):
@@ -393,8 +410,9 @@ def step_column_2m_fused(state: ColumnState2M, mp, tps, dt, dz,
     device = _check_cuda(list(state), "step_column_2m_fused")
     if device is None:
         return step_column_2m_plain(state, mp, tps, dt, dz)
-    _check_supported(mp, nlev, state.rho.dtype)
-    lib = _library(host_params(params, mp, tps), _variant(mp))
+    dtype = state.rho.dtype
+    _check_supported(mp, nlev, dtype)
+    lib = _library(host_params(params, mp, tps, dtype), _variant(mp))
     out = ColumnState2M(*(torch.empty_like(t) for t in state))
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.column2m_step_unpacked(
@@ -429,7 +447,8 @@ def step_column_2m_fused_packed(packed: torch.Tensor, mp, tps, dt, dz,
         return step_column_2m_packed_plain(packed, mp, tps, dt, dz,
                                            q_tot_affine=q_tot_affine)
     _check_supported(mp, nlev, packed.dtype)
-    out = launch_packed(_library(host_params(params, mp, tps), _variant(mp)),
+    out = launch_packed(_library(host_params(params, mp, tps, packed.dtype),
+                                 _variant(mp)),
                         packed, dt, dz, block_cols, q_tot_affine)
     step_column_2m_fused_packed.launches += 1
     return out

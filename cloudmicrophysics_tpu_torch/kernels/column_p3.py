@@ -466,6 +466,9 @@ def _check_supported(mp, nlev: int, dtype: torch.dtype) -> None:
         raise NotImplementedError(
             f"the CUDA P3 column kernel supports nlev <= {MAX_NLEV}, "
             f"not {nlev}")
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            f"the CUDA P3 column kernel supports float32, not {dtype}")
     K2M._check_supported(
         type(mp)(warm_rain=mp.warm_rain, ice=None), nlev, dtype)
     if ice.quadrature_order not in ORDERS or ice.quad.n != ice.quadrature_order:

@@ -1,7 +1,8 @@
 // Fused 2-moment warm-rain column step (Seifert-Beheng 2006): one explicit
 // Euler step of the warm-rain process rates, number- and mass-weighted rain
 // sedimentation and the latent-heat temperature update, over (ncol, nlev)
-// f32 columns of (rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai).
+// columns of (rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai), float32 or float64
+// (the scalar type `real` of a build, K3_REAL of its generated header).
 //
 // Replaces the two Pallas TPU kernels of cloudmicrophysics_tpu/kernels/
 // column2m.py: step_column_2m_pallas_packed (one (7, ncol, nlev) buffer in
@@ -17,16 +18,18 @@
 // one write per field), and the rain PSD is evaluated once where the eager
 // step's two evaluations of it agree (warm2m.cuh:rain_pdfs).
 //
-// Rounding: built with --fmad=false and without fast math, each expression
+// Rounding: built without fast math and with --fmad=false (float), or with
+// --fmad=true over real.cuh's uncontracted Dbl (double), each expression
 // follows the eager PyTorch step's operation order as PyTorch's CUDA
 // kernels evaluate it, so that the kernel is bit-identical to its plain
 // version: `x / c` for a Python-float c is a multiply by c's reciprocal,
-// taken in double and rounded once to float (the INV_* parameters, folded
-// on the host), `c / x` is reciprocal(x) * c, and pow with exponent 2 or 3
-// is products.
+// taken in double and rounded once to the build's type (the INV_*
+// parameters, folded on the host), `c / x` is reciprocal(x) * c, and pow
+// with exponent 2 or 3 is products.
 //
-// Parameters: the generated header defines each float of the parameter
-// list as a float literal of its exact value (PC_<name>), read through
+// Parameters: the generated header defines each value of the parameter
+// list as a literal of its exact value in the build's type (PC_<name>; a
+// float64 build's block holds the float64 constants of its dtype), read through
 // warm2m.cuh's literal accessor (WARM2M_LITERAL_PARAMS), and the options
 // LIMITED (the SB2006 Eq 94-97 rain PSD limiters) and CHEN (Chen 2022 rain
 // fall speeds instead of SB2006's Rogers-type fit) as K3_LIMITED and
@@ -63,25 +66,31 @@ namespace {
 
 using namespace warm2m;
 
+using scalar = K3_REAL;   // the build's dtype: float or double
+using real = Real<scalar>::type;   // what the cells compute on (real.cuh)
+
 // threads per block and resident blocks per SM the registers are held to:
 // the fastest setting without spills of k1_occupancy_sweep.py k3 (PERF.md)
 constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 1;
+// a float64 build takes half the warps: its staging buffer holds twice the
+// bytes per warp, and 16 warps' would pass the 48 KiB of static shared
+// memory a block may have
+constexpr int kBuildThreads = sizeof(scalar) == 4 ? kThreads : kThreads / 2;
+constexpr int kWarps = kBuildThreads / 32;
 constexpr int kFields = 7;  // rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai
-constexpr unsigned kFull = 0xffffffffu;
 constexpr bool kLimited = K3_LIMITED != 0;
 constexpr bool kChen = K3_CHEN != 0;
 
 struct Fields {
-  const float* in[kFields];
-  float* out[kFields];
+  const real* in[kFields];
+  real* out[kFields];
 };
 
 struct CellOut {
-  float T_new;
-  float dq_lcl, dn_lcl, dq_rai, dn_rai;  // process-rate tendencies
-  float F_q, F_n;                        // downward rain mass and number fluxes
+  real T_new;
+  real dq_lcl, dn_lcl, dq_rai, dn_rai;  // process-rate tendencies
+  real F_q, F_n;                        // downward rain mass and number fluxes
 };
 
 // Everything of models/column.py:step_column_2m for one cell, except the
@@ -90,15 +99,16 @@ struct CellOut {
 // parameters as literals, with the rain PSD evaluated once where the rates'
 // and the fall speeds' agree (rain_pdfs).
 template <bool LIMITED, bool CHEN>
-__device__ __forceinline__ CellOut cell_step(float rho, float T, float q_tot,
-                                             float q_lcl, float n_lcl,
-                                             float q_rai, float n_rai,
-                                             float dt) {
-  RainPDF pdf_rates, pdf_speeds;
+__device__ __forceinline__ CellOut cell_step(real rho, real T, real q_tot,
+                                             real q_lcl, real n_lcl,
+                                             real q_rai, real n_rai,
+                                             real dt) {
+  RainPDFT<real> pdf_rates, pdf_speeds;
   rain_pdfs<LIMITED>(nullptr, rho, q_rai, n_rai, pdf_rates, pdf_speeds);
-  const WarmRates w = warm_rates<LIMITED>(nullptr, rho, T, q_tot, q_lcl, n_lcl,
-                                          q_rai, n_rai, 0.0f, &pdf_rates);
-  const RainSpeeds v =
+  const WarmRatesT<real> w = warm_rates<LIMITED>(nullptr, rho, T, q_tot, q_lcl,
+                                                 n_lcl, q_rai, n_rai, real(0),
+                                                 &pdf_rates);
+  const RainSpeedsT<real> v =
       rain_fall_speeds<LIMITED, CHEN>(nullptr, rho, q_rai, n_rai, &pdf_speeds);
   CellOut o;
   o.dq_lcl = w.dq_lcl;
@@ -109,7 +119,7 @@ __device__ __forceinline__ CellOut cell_step(float rho, float T, float q_tot,
   o.F_n = rho * v.vt_n * n_rai;
 
   // ---- latent heating: T-dependent Lv and moist cp, unclamped state ----
-  const float cp = PV(CP_D) + PV(CPVD) * q_tot + PV(CPLV) * (q_lcl + q_rai);
+  const real cp = PV(CP_D) + PV(CPVD) * q_tot + PV(CPLV) * (q_lcl + q_rai);
   o.T_new = T + dt * w.Lv / cp * (o.dq_lcl + o.dq_rai);
   return o;
 }
@@ -118,25 +128,26 @@ __device__ __forceinline__ CellOut cell_step(float rho, float T, float q_tot,
 // seven fields into its slots of a shared buffer, asynchronously (cp.async,
 // one group); levels above nlev are filled with zeros.
 __device__ __forceinline__ void fetch_chunk(const Fields& f, int col, int k,
-                                            int nlev, float (*buf)[32], int lane) {
+                                            int nlev, real (*buf)[32], int lane) {
   const bool active = k < nlev;
   const int64_t idx = (int64_t)col * nlev + (active ? k : 0);
 #pragma unroll
   for (int i = 0; i < kFields; ++i) {
     const unsigned dst = (unsigned)__cvta_generic_to_shared(&buf[i][lane]);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-                 "l"(f.in[i] + idx), "r"(active ? 4 : 0));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(f.in[i] + idx), "n"((int)sizeof(real)),
+                 "r"(active ? (int)sizeof(real) : 0));
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
 template <bool LIMITED, bool CHEN>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kBuildThreads, kMinBlocks)
 column2m_step_kernel(const __grid_constant__ Fields f, int ncol, int nlev,
-                     int block_cols, float dt, float dz, int has_affine,
-                     float scale, float bias) {
+                     int block_cols, real dt, real dz, int has_affine,
+                     real scale, real bias) {
   // per warp, two chunks' fields: the one being stepped and the next
-  __shared__ float stage[kWarps][2][kFields][32];
+  __shared__ real stage[kWarps][2][kFields][32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nchunks = (nlev + 31) >> 5;
@@ -150,7 +161,7 @@ column2m_step_kernel(const __grid_constant__ Fields f, int ncol, int nlev,
   int slot = 0;
   if (col < end) fetch_chunk(f, col, 32 * c + lane, nlev, stage[warp][0], lane);
   // lane 31: lane 0's fluxes of the chunk above; none above the top chunk
-  float carry_q = 0.0f, carry_n = 0.0f;
+  real carry_q = 0, carry_n = 0;
   while (col < end) {
     PROBE_PASS;
     const int k = 32 * c + lane;
@@ -163,14 +174,14 @@ column2m_step_kernel(const __grid_constant__ Fields f, int ncol, int nlev,
     else
       asm volatile("cp.async.commit_group;\n" ::);
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    float q[kFields];
+    real q[kFields];
 #pragma unroll
     for (int i = 0; i < kFields; ++i) q[i] = stage[warp][slot][i][lane];
     PROBE_SINK(q[0] + q[1] + q[2] + q[3] + q[4] + q[5] + q[6]);
     PROBE_STAGE(S_LOAD);
 
-    const float rho = q[0];
-    const float q_tot = has_affine ? q[2] * scale + bias : q[2];
+    const real rho = q[0];
+    const real q_tot = has_affine ? q[2] * scale + bias : q[2];
     CellOut o = {};   // levels above nlev: zero flux
     if (active)
       o = cell_step<LIMITED, CHEN>(rho, q[1], q_tot, q[3], q[4], q[5], q[6], dt);
@@ -182,28 +193,28 @@ column2m_step_kernel(const __grid_constant__ Fields f, int ncol, int nlev,
     // takes from the chunk above
     const int from = (lane + 1) & 31;
     const bool bottom = c == 0;   // the next chunk starts a column's top
-    float in_q = __shfl_sync(kFull, o.F_q, from);
-    float in_n = __shfl_sync(kFull, o.F_n, from);
+    real in_q = shfl(o.F_q, from);
+    real in_n = shfl(o.F_n, from);
     if (lane == 31) {
-      float t;
-      t = in_q, in_q = carry_q, carry_q = bottom ? 0.0f : t;
-      t = in_n, in_n = carry_n, carry_n = bottom ? 0.0f : t;
+      real t;
+      t = in_q, in_q = carry_q, carry_q = bottom ? real(0) : t;
+      t = in_n, in_n = carry_n, carry_n = bottom ? real(0) : t;
     }
     PROBE_SINK(in_q + in_n + carry_q + carry_n);
     PROBE_STAGE(S_EXCHANGE);
 
     if (active) {
       const int64_t idx = (int64_t)col * nlev + k;
-      const float rho_dz = rho * dz;
-      const float sed_q = (in_q - o.F_q) / rho_dz;
-      const float sed_n = (in_n - o.F_n) / rho_dz;
+      const real rho_dz = rho * dz;
+      const real sed_q = (in_q - o.F_q) / rho_dz;
+      const real sed_n = (in_n - o.F_n) / rho_dz;
       f.out[0][idx] = rho;
       f.out[1][idx] = o.T_new;
-      f.out[2][idx] = maxf(q_tot + dt * sed_q, 0.0f);
-      f.out[3][idx] = maxf(q[3] + dt * o.dq_lcl, 0.0f);
-      f.out[4][idx] = maxf(q[4] + dt * o.dn_lcl, 0.0f);
-      f.out[5][idx] = maxf(q[5] + dt * (o.dq_rai + sed_q), 0.0f);
-      f.out[6][idx] = maxf(q[6] + dt * (o.dn_rai + sed_n), 0.0f);
+      f.out[2][idx] = maxf(q_tot + dt * sed_q, real(0));
+      f.out[3][idx] = maxf(q[3] + dt * o.dq_lcl, real(0));
+      f.out[4][idx] = maxf(q[4] + dt * o.dn_lcl, real(0));
+      f.out[5][idx] = maxf(q[5] + dt * (o.dq_rai + sed_q), real(0));
+      f.out[6][idx] = maxf(q[6] + dt * (o.dn_rai + sed_n), real(0));
     }
     PROBE_STAGE(S_STORE);
 
@@ -217,15 +228,15 @@ column2m_step_kernel(const __grid_constant__ Fields f, int ncol, int nlev,
 // the one variant this library holds
 #define K3_KERNEL column2m_step_kernel<kLimited, kChen>
 
-int launch(const Fields& f, int ncol, int nlev, int block_cols, float dt,
-           float dz, int has_affine, float scale, float bias, int device,
+int launch(const Fields& f, int ncol, int nlev, int block_cols, real dt,
+           real dz, int has_affine, real scale, real bias, int device,
            void* stream) {
   if (nlev < 1 || block_cols < 1 || ncol < 1) return (int)cudaErrorInvalidValue;
   // this library's CUDA runtime keeps its own current device
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int grid = (ncol + block_cols - 1) / block_cols;
-  K3_KERNEL<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  K3_KERNEL<<<grid, kBuildThreads, 0, (cudaStream_t)stream>>>(
       f, ncol, nlev, block_cols, dt, dz, has_affine, scale, bias);
   return (int)cudaGetLastError();
 }
@@ -234,9 +245,12 @@ int launch(const Fields& f, int ncol, int nlev, int block_cols, float dt,
 
 extern "C" {
 
-int column2m_threads_per_block() { return kThreads; }
+int column2m_threads_per_block() { return kBuildThreads; }
 
 int column2m_num_params() { return N_PARAMS; }
+
+// Bytes of the build's scalar type: 4 (float32) or 8 (float64).
+int column2m_real_bytes() { return (int)sizeof(scalar); }
 
 // The compiled variant: 2 * LIMITED + CHEN.
 int column2m_variant() { return 2 * (int)kLimited + (int)kChen; }
@@ -247,7 +261,7 @@ int column2m_blocks_per_sm(int device, int* blocks) {
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, K3_KERNEL,
-                                                        kThreads, 0);
+                                                        kBuildThreads, 0);
   return (int)err;
 }
 
@@ -261,30 +275,35 @@ int column2m_kernel_attrs(int* registers, int* local_bytes) {
 }
 
 // K4: seven (ncol, nlev) inputs and seven outputs, in ColumnState2M order.
-int column2m_step_unpacked(const float* rho, const float* T, const float* q_tot,
-                           const float* q_lcl, const float* n_lcl,
-                           const float* q_rai, const float* n_rai,
-                           float* rho_out, float* T_out, float* q_tot_out,
-                           float* q_lcl_out, float* n_lcl_out,
-                           float* q_rai_out, float* n_rai_out, int ncol, int nlev,
-                           int block_cols, float dt, float dz, int has_affine,
-                           float scale, float bias, int device, void* stream) {
-  Fields f = {{rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai},
-              {rho_out, T_out, q_tot_out, q_lcl_out, n_lcl_out, q_rai_out,
-               n_rai_out}};
+int column2m_step_unpacked(const scalar* rho, const scalar* T, const scalar* q_tot,
+                           const scalar* q_lcl, const scalar* n_lcl,
+                           const scalar* q_rai, const scalar* n_rai,
+                           scalar* rho_out, scalar* T_out, scalar* q_tot_out,
+                           scalar* q_lcl_out, scalar* n_lcl_out,
+                           scalar* q_rai_out, scalar* n_rai_out, int ncol, int nlev,
+                           int block_cols, scalar dt, scalar dz, int has_affine,
+                           scalar scale, scalar bias, int device, void* stream) {
+  const scalar* in[kFields] = {rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai};
+  scalar* out[kFields] = {rho_out, T_out, q_tot_out, q_lcl_out, n_lcl_out,
+                          q_rai_out, n_rai_out};
+  Fields f;
+  for (int i = 0; i < kFields; ++i) {
+    f.in[i] = reinterpret_cast<const real*>(in[i]);
+    f.out[i] = reinterpret_cast<real*>(out[i]);
+  }
   return launch(f, ncol, nlev, block_cols, dt, dz, has_affine, scale, bias,
                 device, stream);
 }
 
 // K3: one (7, ncol, nlev) input and output; field i starts at i * plane.
-int column2m_step_packed(const float* in, float* out, long long plane, int ncol,
-                         int nlev, int block_cols, float dt, float dz,
-                         int has_affine, float scale, float bias, int device,
+int column2m_step_packed(const scalar* in, scalar* out, long long plane, int ncol,
+                         int nlev, int block_cols, scalar dt, scalar dz,
+                         int has_affine, scalar scale, scalar bias, int device,
                          void* stream) {
   Fields f;
   for (int i = 0; i < kFields; ++i) {
-    f.in[i] = in + i * plane;
-    f.out[i] = out + i * plane;
+    f.in[i] = reinterpret_cast<const real*>(in + i * plane);
+    f.out[i] = reinterpret_cast<real*>(out + i * plane);
   }
   return launch(f, ncol, nlev, block_cols, dt, dz, has_affine, scale, bias,
                 device, stream);

@@ -41,7 +41,8 @@ root, under ``$__internal_..._slowpath`` labels) and instructions with no
 source line inside a region are reported apart and not counted.
 
 Each instruction counts as issued, and as float32 operations (an FFMA two,
-other float32 arithmetic, compares and selects one) or special-function
+other float32 arithmetic, compares and selects one), float64 operations (a
+DFMA two, other float64 arithmetic and compares one) or special-function
 operations (``MUFU``), which run on units of their own rate.
 
 Nothing here needs a GPU except :func:`disassemble`, which runs the CUDA
@@ -58,7 +59,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import NamedTuple
 
-__all__ = ["Instr", "Site", "Tally", "attribute", "call_site_tally",
+__all__ = ["Instr", "Site", "Tally", "attribute", "block_at",
+           "call_site_tally",
            "disassemble", "dynamic_count", "function_block", "least_paths",
            "parse_sass", "probe_sites", "region_names", "region_tallies"]
 
@@ -95,25 +97,31 @@ class Instr(NamedTuple):
 
 @dataclass(frozen=True)
 class Tally:
-    """Instructions issued, float32 operations and special-function
-    operations."""
+    """Instructions issued, float32 operations, special-function operations
+    and float64 operations."""
 
     issued: float = 0.0
     flops: float = 0.0
     mufu: float = 0.0
+    fp64: float = 0.0
 
     def __add__(self, other: "Tally") -> "Tally":
         return Tally(self.issued + other.issued, self.flops + other.flops,
-                     self.mufu + other.mufu)
+                     self.mufu + other.mufu, self.fp64 + other.fp64)
 
     def scale(self, k: float) -> "Tally":
-        return Tally(self.issued * k, self.flops * k, self.mufu * k)
+        return Tally(self.issued * k, self.flops * k, self.mufu * k,
+                     self.fp64 * k)
 
 
 # float32 arithmetic, compares and selects of the FMA pipes (an FFMA is two
 # operations); conversions and half-precision moves are not counted
 _FP32 = {"FADD", "FMUL", "FMNMX", "FSETP", "FSET", "FSEL", "FRND", "FCHK",
          "FSWZADD"}
+# float64 arithmetic and compares of the FP64 pipe (a DFMA is two
+# operations); the float64 builds have no MUFU exp or log: those are DFMA
+# sequences, seeded by MUFU.RCP64H / MUFU.RSQ64H for division and sqrt
+_FP64 = {"DADD", "DMUL", "DMNMX", "DSETP", "DSET"}
 
 
 def _tally(ins: Instr) -> Tally:
@@ -121,7 +129,8 @@ def _tally(ins: Instr) -> Tally:
     if ins.predicated:
         return Tally(1.0)
     flops = 2.0 if base == "FFMA" else 1.0 if base in _FP32 else 0.0
-    return Tally(1.0, flops, 1.0 if base == "MUFU" else 0.0)
+    fp64 = 2.0 if base == "DFMA" else 1.0 if base in _FP64 else 0.0
+    return Tally(1.0, flops, 1.0 if base == "MUFU" else 0.0, fp64)
 
 
 _SITE = re.compile(r"\bK5_COUNT\((\w+)(?:\s*,\s*(\d+))?\)")
@@ -187,6 +196,21 @@ def function_block(source: str, name: str) -> Site:
         raise ValueError(f"no definition of {name} in the source")
     start, end = min((b for b in _brace_blocks(source) if b[0] >= at),
                      key=lambda b: b[0])
+    return Site(start, end, 1)
+
+
+def block_at(source: str, text: str) -> Site:
+    """The brace block that opens on the first line of ``source`` holding
+    ``text`` (a loop of a function, counted apart from it), as a
+    :class:`Site` of unroll 1."""
+    at = next((i for i, line in enumerate(source.splitlines(), 1)
+               if text in line.split("//")[0]), None)
+    if at is None:
+        raise ValueError(f"no line of the source holds {text!r}")
+    opening = [b for b in _brace_blocks(source) if b[0] == at]
+    if not opening:
+        raise ValueError(f"no brace block opens on line {at}")
+    start, end = max(opening, key=lambda b: b[1] - b[0])
     return Site(start, end, 1)
 
 

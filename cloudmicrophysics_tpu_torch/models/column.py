@@ -193,15 +193,20 @@ def step_column_1m(
 
 
 class Column1MStep(nn.Module):
-    """One fused 1M column step (instantaneous tendencies, explicit Euler).
+    """One fused 1M column step (explicit Euler), in the whole scope of
+    :func:`step_column_1m`: ``mode`` (``"instantaneous"`` or
+    ``"linearized_average"`` with ``nsub`` substeps), ``sediment_cloud``,
+    any :class:`~..parameters.m1.Microphysics1MOptions`, float32 or float64
+    states.
 
-    Holds the parameters, ``dt``, ``dz`` and the kernel's float32 parameter
-    block (computed on the host in float64 and kept there: the kernel's
-    library is built with the block's values compiled in, so it stays on
-    the CPU whatever ``device`` and ``.to()`` say). ``device`` is where the
-    module steps:
-    the GPU unless ``device="cpu"`` is asked for; without a card the
-    default raises PyTorch's own error, as the other step modules do.
+    Holds the parameters, ``dt``, ``dz``, the mode and the kernel's float32
+    parameter block (computed on the host in float64 and kept there: the
+    kernel's library is built with the block's values compiled in, so it
+    stays on the CPU whatever ``device`` and ``.to()`` say); a float64
+    state steps with the float64 block, built at its first step.
+    ``device`` is where the module steps: the GPU unless ``device="cpu"`` is
+    asked for; without a card the default raises PyTorch's own error, as the
+    other step modules do.
     ``forward(state, q_tot_affine=None)`` advances either a packed
     ``(7, ncol, nlev)`` tensor (see :func:`..kernels.column1m.pack_state`)
     or a :class:`ColumnState` by one step and returns the same kind. On
@@ -214,7 +219,9 @@ class Column1MStep(nn.Module):
 
     def __init__(self, mp: Microphysics1MParams, tps: ThermodynamicsParameters,
                  tv: TerminalVelocityParams, dt: float, dz: float,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 mode: str = "instantaneous", nsub: int = 1,
+                 sediment_cloud: bool = True):
         super().__init__()
         from ..kernels.column1m import kernel_params
 
@@ -222,7 +229,22 @@ class Column1MStep(nn.Module):
             torch.cuda.get_device_properties(device)   # raises without a card
         self.mp, self.tps, self.tv = mp, tps, tv
         self.dt, self.dz = float(dt), float(dz)
+        self.mode, self.nsub = mode, int(nsub)
+        self.sediment_cloud = bool(sediment_cloud)
         self.params = kernel_params(mp, tps, tv)
+        self._blocks = {torch.float32: self.params}
+
+    def block(self, dtype: torch.dtype) -> torch.Tensor | None:
+        """The host parameter block for states of ``dtype`` (float32: the
+        module's ``params``); None for a dtype no kernel is built for."""
+        from ..kernels.column1m import kernel_params
+
+        if dtype not in (torch.float32, torch.float64):
+            return None
+        if dtype not in self._blocks:
+            self._blocks[dtype] = kernel_params(self.mp, self.tps, self.tv,
+                                                dtype)
+        return self._blocks[dtype]
 
     def forward(self, state, q_tot_affine=None):
         from ..kernels import column1m as K
@@ -232,11 +254,15 @@ class Column1MStep(nn.Module):
                 return _per_shard(lambda s: self.forward(s, q_tot_affine),
                                   state)
             step, ncol = K.step_column_1m_fused, state.rho.shape[0]
+            dtype = state.rho.dtype
         else:
             step, ncol = K.step_column_1m_fused_packed, state.shape[1]
+            dtype = state.dtype
         return step(state, self.mp, self.tps, self.tv, self.dt, self.dz,
+                    mode=self.mode, nsub=self.nsub,
+                    sediment_cloud=self.sediment_cloud,
                     block_cols=_block_cols(ncol, K.BLOCK_COLS),
-                    q_tot_affine=q_tot_affine, params=self.params)
+                    q_tot_affine=q_tot_affine, params=self.block(dtype))
 
 
 def _block_cols(ncol: int, most: int = 128) -> int:
@@ -343,7 +369,8 @@ class Column2MStep(nn.Module):
     Holds the parameters, ``dt``, ``dz`` and the kernel's float32 parameter
     block (computed on the host in float64 and kept there: the kernel's
     library is built with the block's values and the variant compiled in,
-    so it stays on the CPU whatever ``device`` and ``.to()`` say).
+    so it stays on the CPU whatever ``device`` and ``.to()`` say); a
+    float64 state steps with the float64 block, built at its first step.
     ``device`` is where the module steps: the GPU unless ``device="cpu"``
     is asked for; without a card the default raises PyTorch's own error, as
     the other step modules do. ``forward(state, q_tot_affine=None)``
@@ -368,6 +395,18 @@ class Column2MStep(nn.Module):
         self.mp, self.tps = mp, tps
         self.dt, self.dz = float(dt), float(dz)
         self.params = kernel_params_2m(mp, tps)
+        self._blocks = {torch.float32: self.params}
+
+    def block(self, dtype: torch.dtype) -> torch.Tensor | None:
+        """The host parameter block for states of ``dtype`` (float32: the
+        module's ``params``); None for a dtype no kernel is built for."""
+        from ..kernels.column2m import kernel_params_2m
+
+        if dtype not in (torch.float32, torch.float64):
+            return None
+        if dtype not in self._blocks:
+            self._blocks[dtype] = kernel_params_2m(self.mp, self.tps, dtype)
+        return self._blocks[dtype]
 
     def forward(self, state, q_tot_affine=None):
         from ..kernels import column2m as K
@@ -381,11 +420,11 @@ class Column2MStep(nn.Module):
             return K.step_column_2m_fused(
                 state, self.mp, self.tps, self.dt, self.dz,
                 block_cols=_block_cols(state.rho.shape[0], K.BLOCK_COLS),
-                params=self.params)
+                params=self.block(state.rho.dtype))
         return K.step_column_2m_fused_packed(
             state, self.mp, self.tps, self.dt, self.dz,
             block_cols=_block_cols(state.shape[1], K.BLOCK_COLS),
-            q_tot_affine=q_tot_affine, params=self.params)
+            q_tot_affine=q_tot_affine, params=self.block(state.dtype))
 
 
 class ColumnStateP3(NamedTuple):

@@ -8,8 +8,8 @@ registry defaults documented in ``docs/src/Microphysics1M.md`` tables.
 
 Option selection is a Python value (a string, or None to disable a
 process) that picks code paths, like Julia's type-level dispatch on
-singleton option types. The fused CUDA kernel supports the default
-selection; the eager functions support them all.
+singleton option types. The eager functions and the fused CUDA kernel
+take them all (the kernel as one build per selection).
 """
 
 from __future__ import annotations

@@ -15,9 +15,10 @@ reads (``cloudmicrophysics_tpu/utils/special.py:569-633``).
 The JAX package's ``custom_jvp`` rules of :func:`gamma_inc` and
 :func:`gamma_inc_inv` are ``torch.autograd.Function`` s here, with the same
 contract: a closed-form derivative in ``x`` (``p`` for the inverse), and a
-NaN derivative in ``a``. Autograd records no graph where no argument
-requires grad, so the values are the same whether a gradient is asked for
-or not.
+NaN derivative in ``a``, in reverse mode, forward mode (``torch.func.jvp``,
+``jacfwd``) and under ``torch.func.vmap``. Autograd records no graph where
+no argument requires grad, so the values are the same whether a gradient
+is asked for or not.
 """
 
 from __future__ import annotations
@@ -108,9 +109,43 @@ def eps_numerics_P3_B(dt: torch.dtype) -> float:
     return machine_eps(dt)
 
 
+class _ClampToNonneg(torch.autograd.Function):
+    """``torch.clamp(x, min=0.0)`` with the derivative of the JAX package's
+    ``jnp.maximum(x, 0)``: 1 above 0, 0 below, and 1/2 at ``x == 0``, where
+    ``torch.clamp``'s passes the whole tangent."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return torch.clamp(x, min=0.0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def _slope(x):
+        return torch.where(x > 0, 1.0, torch.where(x == 0, 0.5, 0.0)).to(
+            x.dtype)
+
+    @staticmethod
+    def jvp(ctx, x_t):
+        return _ClampToNonneg._slope(ctx.saved_tensors[0]) * x_t
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ClampToNonneg._slope(ctx.saved_tensors[0]) * g
+
+
 def clamp_to_nonneg(x: torch.Tensor) -> torch.Tensor:
-    """Domain sanitization (NOT a physical threshold): ``max(x, 0)``."""
-    return torch.clamp(x, min=0.0)
+    """Domain sanitization (NOT a physical threshold): ``max(x, 0)``.
+
+    Its value is ``torch.clamp(x, min=0.0)``'s; its derivative at
+    ``x == 0`` is the JAX package's 1/2 under every AD API
+    (:class:`_ClampToNonneg`)."""
+    return _ClampToNonneg.apply(x)
 
 
 def fac(n: int) -> int:
@@ -260,11 +295,22 @@ def _d_lower_dx(a, x):
     return torch.where(x > 0, deriv, torch.zeros_like(deriv))
 
 
+def _nan_tangent(a, a_t):
+    """The tangent an ``a`` tangent contributes: NaN times it (NaN also for
+    a zero tangent, as JAX's rule gives for one that is not symbolically
+    zero), or 0 when ``a`` carries none."""
+    return 0.0 if a_t is None else torch.full_like(a, math.nan) * a_t
+
+
 class _GammaInc(torch.autograd.Function):
     """:func:`gamma_inc` with the JAX package's derivative rule
-    (``utils/special.py:370-395``): ``dP/dx = -dQ/dx`` in closed form; the
+    (``utils/special.py:336-379``): ``dP/dx = -dQ/dx`` in closed form; the
     derivative in ``a`` is not implemented, so it is NaN rather than a
-    silently wrong zero (the reference raises)."""
+    silently wrong zero (the reference raises). Reverse mode (``backward``),
+    forward mode (``jvp``: ``torch.func.jvp``, ``jacfwd``) and ``vmap`` (a
+    rule generated from the forward, which reads no value on the host)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(a, x):
@@ -273,6 +319,19 @@ class _GammaInc(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(*inputs)
+        ctx.save_for_forward(*inputs)
+        # an input without a tangent (or an output without a gradient)
+        # arrives as None, JAX's symbolic zero, not as a tensor of zeros
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def jvp(ctx, a_t, x_t):
+        a, x = ctx.saved_tensors
+        deriv = _d_lower_dx(a, x)
+        bad = _nan_tangent(a, a_t)
+        if x_t is None:
+            x_t = torch.zeros_like(x)
+        return deriv * x_t + bad, (-deriv) * x_t + bad
 
     @staticmethod
     def backward(ctx, dP, dQ):
@@ -282,6 +341,8 @@ class _GammaInc(torch.autograd.Function):
             da = torch.full_like(a, math.nan)
         if ctx.needs_input_grad[1]:
             deriv = _d_lower_dx(a, x)
+            dP = torch.zeros_like(x) if dP is None else dP
+            dQ = torch.zeros_like(x) if dQ is None else dQ
             dx = deriv * dP + (-deriv) * dQ
         return da, dx
 
@@ -359,7 +420,11 @@ class _GammaIncInv(torch.autograd.Function):
     (``utils/special.py:552-566``): ``dx/dp = 1 / (dP/dx)`` by the inverse
     function theorem (0 where ``dP/dx`` underflows); no derivative in ``q``,
     whose tangent the JAX rule drops (callers pass ``q = 1 - p``); a NaN
-    derivative in ``a``."""
+    derivative in ``a``. Reverse mode, forward mode (``jvp``) and ``vmap``
+    (generated from the forward, whose fixed-trip loop reads no value on the
+    host), as :class:`_GammaInc`."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(a, p, q, n_iters):
@@ -417,6 +482,22 @@ class _GammaIncInv(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(inputs[0], output)
+        ctx.save_for_forward(inputs[0], output)
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def jvp(ctx, a_t, p_t, q_t, n_iters_t):
+        # JAX's rule (utils/special.py:552-566): dP/dx from the clamped x,
+        # without the x > 0 gate of _d_lower_dx
+        a, x = ctx.saved_tensors
+        tiny = floatmin(x.dtype)
+        x_safe = torch.clamp(x, min=tiny)
+        dP_dx = torch.exp((a - 1) * torch.log(x_safe) - x - _lgamma_pos(a))
+        dx_dp = torch.where(dP_dx > 0, 1.0 / torch.clamp(dP_dx, min=tiny),
+                            torch.zeros_like(dP_dx))
+        if p_t is None:
+            p_t = torch.zeros_like(x)
+        return dx_dp * p_t + _nan_tangent(a, a_t)
 
     @staticmethod
     def backward(ctx, dx):
@@ -429,7 +510,7 @@ class _GammaIncInv(torch.autograd.Function):
             tiny = floatmin(x.dtype)
             dx_dp = torch.where(dP_dx > 0, 1.0 / torch.clamp(dP_dx, min=tiny),
                                 torch.zeros_like(dP_dx))
-            dp = dx_dp * dx
+            dp = None if dx is None else dx_dp * dx
         return da, dp, None, None
 
 

@@ -74,6 +74,26 @@ def _assert_f32(out, ref, what):
                                    atol=F32_ATOL, err_msg=f"{what}: {name}")
 
 
+# the whole scope of step_column_1m: each option set, both modes, float32
+# and float64, more than 256 levels and a level count that is not a
+# multiple of 32
+ALTERNATIVES = {"cloud_ice_formation": "TemperatureDependent",
+                "rain_autoconversion": "PrescribedNd",
+                "snow_autoconversion": "WithSupersaturation",
+                "snow_deposition_sublimation": "SublimationOnly"}
+OPTION_SETS = ([{slot: opt} for slot, opt in ALTERNATIVES.items()]
+               + [{slot: None} for slot in TK.OPTION_CODES]
+               + [{slot: None for slot in TK.OPTION_CODES},
+                  dict(ALTERNATIVES, cloud_ice_melt=None,
+                       rain_snow_accretion=None)])
+
+
+def _option_id(opts):
+    if len(opts) == len(TK.OPTION_CODES):
+        return "every-slot-None"
+    return "+".join(f"{k}={v}" for k, v in opts.items())
+
+
 # ---------------------------------------------------------------------------
 # eager step vs the JAX step, float64
 # ---------------------------------------------------------------------------
@@ -90,6 +110,54 @@ def test_step_column_1m_matches_jax_f64(mode, nsub, sediment_cloud):
                             DT, DZ, mode=mode, nsub=nsub,
                             sediment_cloud=sediment_cloud)
     _assert_f64(out, ref, f"step_column_1m {mode}")
+
+
+@pytest.mark.parametrize("nsub,sediment_cloud", [(1, True), (2, False),
+                                                  (4, True)])
+def test_linearized_average_matches_jax_f64(nsub, sediment_cloud):
+    # a host model's large step (10 s) in nsub linearized implicit substeps
+    a = _arrays(32, 16, seed=3)
+    ref = JC.step_column_1m(_jax_state(a, jnp.float64), MP_J, TPS_J, TV_J,
+                            10.0, DZ, mode="linearized_average", nsub=nsub,
+                            sediment_cloud=sediment_cloud)
+    out = TC.step_column_1m(_torch_state(a, torch.float64), MP_T, TPS_T, TV_T,
+                            10.0, DZ, mode="linearized_average", nsub=nsub,
+                            sediment_cloud=sediment_cloud)
+    _assert_f64(out, ref, f"linearized_average nsub={nsub}")
+
+
+def _option_sets_match_jax(opts, mode, nsub):
+    a = _arrays(16, 24, seed=5)
+    mp_j = JP.microphysics_1m_params(**opts)
+    mp_t = TP.microphysics_1m_params(**opts)
+    ref = JC.step_column_1m(_jax_state(a, jnp.float64), mp_j, TPS_J, TV_J,
+                            10.0, DZ, mode=mode, nsub=nsub)
+    out = TC.step_column_1m(_torch_state(a, torch.float64), mp_t, TPS_T,
+                            TV_T, 10.0, DZ, mode=mode, nsub=nsub)
+    _assert_f64(out, ref, f"{_option_id(opts)} {mode}")
+
+
+@pytest.mark.parametrize("opts", OPTION_SETS, ids=_option_id)
+def test_step_column_1m_option_sets_match_jax_f64(opts):
+    _option_sets_match_jax(opts, "instantaneous", 1)
+
+
+def test_mixed_option_set_linearized_matches_jax_f64():
+    _option_sets_match_jax(OPTION_SETS[-1], "linearized_average", 2)
+
+
+def test_fused_linearized_matches_pallas_f32():
+    # the wrapper's plain path against the Pallas kernel in interpret mode,
+    # the way tests/test_kernels.py runs the JAX package's kernel on the CPU
+    a = _arrays(32, 16, seed=3)
+    ref = JK.step_column_1m_pallas(_jax_state(a, jnp.float32), MP_J, TPS_J,
+                                   TV_J, 10.0, DZ, mode="linearized_average",
+                                   nsub=2, block_cols=16, interpret=True)
+    out = TK.step_column_1m_fused(_torch_state(a, torch.float32), MP_T,
+                                  TPS_T, TV_T, 10.0, DZ,
+                                  mode="linearized_average", nsub=2,
+                                  block_cols=16)
+    _assert_f32(out, ref, "linearized_average nsub=2")
 
 
 def test_sedimentation_and_surface_precip_match_jax():
@@ -200,22 +268,156 @@ def test_cpu_path_does_not_count_launches():
 # what the CUDA path accepts, and the kernel's parameter buffer
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("mp,mode,nlev,dtype,match", [
-    (MP_T, "linearized_average", 16, torch.float32, "instantaneous"),
-    (TP.microphysics_1m_params(snow_melt=None), "instantaneous", 16,
-     torch.float32, "default"),
-    (MP_T, "instantaneous", 16, torch.float64, "float32"),
-    (MP_T, "instantaneous", TK.MAX_NLEV + 1, torch.float32, "nlev"),
+# what the kernel still rejects: an unknown mode or option, nsub < 1 (as
+# the eager step does), a dtype other than float32 and float64, no levels
+@pytest.mark.parametrize("mp,mode,nlev,dtype,nsub,error,match", [
+    (MP_T, "instantaneous_verbose", 16, torch.float32, 1, ValueError,
+     "unknown tendency mode"),
+    (MP_T, "linearized_average", 16, torch.float32, 0, ValueError, "nsub"),
+    (MP_T, "instantaneous", 16, torch.bfloat16, 1, NotImplementedError,
+     "float32 and float64"),
+    (MP_T, "instantaneous", 0, torch.float32, 1, ValueError, "nlev"),
+    (dataclasses.replace(MP_T, processes=dataclasses.replace(
+        MP_T.processes, snow_melt="SnowMeltFast")), "instantaneous", 16,
+     torch.float32, 1, ValueError, "unknown snow_melt option"),
 ])
-def test_cuda_path_rejects_what_the_kernel_lacks(mp, mode, nlev, dtype, match):
-    with pytest.raises(NotImplementedError, match=match):
-        TK._check_supported(mp, mode, nlev, dtype)
+def test_cuda_path_rejects_what_the_kernel_lacks(mp, mode, nlev, dtype, nsub,
+                                                 error, match):
+    with pytest.raises(error, match=match):
+        TK._check_supported(mp, mode, nlev, dtype, nsub)
 
 
 def test_cuda_path_accepts_float_overrides():
     mp = TP.microphysics_1m_params(
         process_overrides={"Kessler1M": {"tau": 900.0}})
-    TK._check_supported(mp, "instantaneous", TK.MAX_NLEV, torch.float32)
+    TK._check_supported(mp, "instantaneous", 512, torch.float32)
+
+
+@pytest.mark.parametrize("mode,nsub", [("instantaneous", 1),
+                                       ("linearized_average", 1),
+                                       ("linearized_average", 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nlev", [16, 333, 512, 1024])
+def test_cuda_path_accepts_the_whole_scope(mode, nsub, dtype, nlev):
+    TK._check_supported(MP_T, mode, nlev, dtype, nsub)
+
+
+def test_instantaneous_ignores_nsub_as_the_eager_step_does():
+    # the instantaneous build takes no substeps: an nsub of 0 is accepted
+    # and launches as 1, as the eager step ignores it in that mode
+    TK._check_supported(MP_T, "instantaneous", 16, torch.float32, 0)
+    assert TK._kernel_nsub("instantaneous", 0) == 1
+    assert TK._kernel_nsub("linearized_average", 4) == 4
+    st = _torch_state(_arrays(16, 8), torch.float64)
+    ref = TK.step_column_1m_fused(st, MP_T, TPS_T, TV_T, DT, DZ, nsub=1,
+                                  block_cols=8)
+    out = TK.step_column_1m_fused(st, MP_T, TPS_T, TV_T, DT, DZ, nsub=0,
+                                  block_cols=8)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("opts", OPTION_SETS, ids=_option_id)
+def test_options_select_the_build(opts):
+    # each option slot is one macro of the generated header: 0 disabled, 1
+    # the default option, 2 the alternative; the mode is one more
+    mp = TP.microphysics_1m_params(**opts)
+    TK._check_supported(mp, "linearized_average", 16, torch.float32, 2)
+    for mode in TK.MODES:
+        variant = TK.variant(mp, mode)
+        header = TK.header(TK.kernel_params(mp, TPS_T, TV_T), variant)
+        assert f"#define K1_LINEARIZED {int(mode != 'instantaneous')}\n" \
+            in header
+        for slot, options in TK.OPTION_CODES.items():
+            option = getattr(mp.processes, slot)
+            code = 0 if option is None else 1 + options.index(option)
+            assert f"#define K1_OPT_{slot.upper()} {code}\n" in header
+    assert TK.variant(mp) != TK.DEFAULT_VARIANT
+
+
+@pytest.mark.parametrize("opts", OPTION_SETS, ids=_option_id)
+def test_parameter_block_per_option_set(opts):
+    # one parameter list for every variant; a slot that is not selected
+    # leaves its values 0, the selected alternatives carry theirs
+    mp = TP.microphysics_1m_params(**opts)
+    values = TK._param_values(mp, TPS_T, TV_T)
+    assert set(values) == set(TK.PARAM_NAMES)
+    block = TK.kernel_params(mp, TPS_T, TV_T)
+    assert bool(torch.isfinite(block).all())
+    pp, processes = mp.process_params, mp.processes
+    slot_values = {
+        "cloud_liquid_formation": ("TAU_LCL",),
+        "rain_snow_accretion": ("E_RS", "CD_RS"),
+        "cloud_ice_rain_accretion": ("E_IR",),
+        "cloud_ice_snow_accretion": ("E_IS",),
+        "cloud_liquid_rain_accretion": ("E_LR",),
+        "cloud_liquid_snow_accretion": ("E_LS",)}
+    for slot, names in slot_values.items():
+        for name in names:
+            assert (values[name] == 0) == (getattr(processes, slot) is None), \
+                (slot, name)
+    kessler = processes.rain_autoconversion == "Kessler1M"
+    assert (values["INV_ACNV_R_TAU"] != 0) == kessler
+    if processes.rain_autoconversion == "PrescribedNd":
+        r = pp.rain_autoconversion
+        assert values["INV_ACNV_PND"] == 1 / (r.tau * (r.Nc / 1e8) ** r.alpha)
+    else:
+        assert values["INV_ACNV_PND"] == 0
+    if processes.snow_autoconversion == "WithSupersaturation":
+        r_is = pp.snow_autoconversion.r_ice_snow
+        assert (values["R_IS"], values["NEG_R_IS"]) == (r_is, -r_is)
+    else:
+        assert values["R_IS"] == values["R_IS2_DELTA"] == 0
+    if processes.cloud_ice_formation == "TemperatureDependent":
+        fr = pp.cloud_ice_formation.frostenberg
+        assert values["FR_NEG_B"] == -fr.b and values["FR_LOG_A"] == fr.log_a
+        assert values["FR_T_FREEZE"] == fr.T_freeze
+    else:
+        assert values["FR_T_FREEZE"] == 0
+
+
+def test_library_key_tells_variants_apart():
+    # the library is looked up by the block's dtype and bytes, the mode and
+    # options and the build: each distinct one is its own library
+    keys = set()
+    for opts in [{}] + OPTION_SETS:
+        mp = TP.microphysics_1m_params(**opts)
+        for dtype in (torch.float32, torch.float64):
+            block = TK.kernel_params(mp, TPS_T, TV_T, dtype)
+            for mode in TK.MODES:
+                for build in TK.BUILDS:
+                    keys.add(TK.library_key(block, TK.variant(mp, mode),
+                                            build))
+    assert len(keys) == (1 + len(OPTION_SETS)) * 2 * 2 * len(TK.BUILDS)
+    # another value of one parameter is another block, so another library
+    mp = TP.microphysics_1m_params(
+        process_overrides={"RainSnowAccretion": {"e": 0.7}})
+    block = TK.kernel_params(mp, TPS_T, TV_T)
+    assert TK.library_key(block) not in keys
+    # and the same call twice is the same library
+    assert TK.library_key(block) == TK.library_key(
+        TK.kernel_params(mp, TPS_T, TV_T))
+
+
+def test_float64_header_round_trips_exactly():
+    block = TK.kernel_params(MP_T, TPS_T, TV_T, torch.float64)
+    assert block.dtype == torch.float64
+    header = TK.header(block)
+    assert "#define K1_REAL double\n" in header
+    literals = re.findall(r"#define PC_\w+ \((\S+)\)", header)
+    assert len(literals) == len(TK.PARAM_NAMES)
+    assert not any(x.endswith("f") for x in literals)
+    assert [float.fromhex(x) for x in literals] == block.tolist()
+    # the float64 block holds the float64 thresholds and folds, unrounded
+    values = TK._param_values(MP_T, TPS_T, TV_T, torch.float64)
+    assert block.tolist() == [values[n] for n in TK.PARAM_NAMES]
+    assert values["EPS"] == torch.finfo(torch.float64).tiny ** (1 / 3)
+    assert values["EPS_MACH"] == torch.finfo(torch.float64).eps
+    assert values["TINY"] == 1e-50
+    f32 = TK._param_values(MP_T, TPS_T, TV_T)
+    assert f32["EPS"] != values["EPS"] and f32["TINY"] == 1e-25
+    assert "#define K1_REAL float\n" in TK.header(TK.kernel_params(
+        MP_T, TPS_T, TV_T))
 
 
 def test_kernel_params_buffer():
@@ -264,7 +466,7 @@ def test_header_holds_each_value_exactly():
     mp = TP.microphysics_1m_params(
         process_overrides={"RainSnowAccretion": {"e": 0.7}})
     assert TK.header(TK.kernel_params(mp, TPS_T, TV_T)) != header
-    with pytest.raises(ValueError, match="136 values"):
+    with pytest.raises(ValueError, match=f"{len(TK.PARAM_NAMES)} values"):
         TK.header(block[:10])
     with pytest.raises(ValueError, match="non-finite"):
         TK.header(torch.where(torch.arange(len(block)) == 3,
@@ -273,7 +475,8 @@ def test_header_holds_each_value_exactly():
 
 def _reciprocal_sources(mp, tps, tv):
     """What each INV_* parameter is the reciprocal of: the Python float the
-    eager step divides a tensor by there."""
+    eager step divides a tensor by there (None for an option slot that is
+    not selected, whose value is 0)."""
     eps = float(torch.finfo(torch.float32).tiny) ** (1.0 / 3.0)
     aps, pp = mp.air_properties, mp.process_params
     rain, snow = mp.precip.rain.mass, mp.precip.snow.mass
@@ -292,6 +495,8 @@ def _reciprocal_sources(mp, tps, tv):
         "INV_RHO_W_LCL": mp.cloud.liquid.rho_w,
         "INV_N0_ICL_SED": mp.cloud.ice.N_0,
         "INV_RHO_I_ICL": mp.cloud.ice.rho_i,
+        "INV_TEN": 10.0,
+        "INV_ACNV_PND": None,
     }
 
 
@@ -306,8 +511,24 @@ def test_reciprocal_params_are_folded_in_float64(overrides):
     assert set(names) == set(sources)
     p = TK.kernel_params(mp, TPS_T, TV_T)
     for name in names:
-        want = np.float32(np.float64(1.0) / np.float64(sources[name]))
+        want = (0.0 if sources[name] is None else
+                np.float32(np.float64(1.0) / np.float64(sources[name])))
         assert p[TK.PARAM_NAMES.index(name)].item() == float(want), name
+
+
+def test_prescribed_nd_divisor_is_folded_in_float64():
+    # clamp_to_nonneg(q_lcl) / (tau (Nc / 1e8)^alpha): a division by a
+    # Python float, a multiply by its reciprocal taken in float64
+    mp = TP.microphysics_1m_params(
+        rain_autoconversion="PrescribedNd",
+        process_overrides={"PrescribedNd": {"tau": 900.0, "Nc": 3e8,
+                                            "alpha": 0.5}})
+    c = 900.0 * (3e8 / 1e8) ** 0.5
+    i = TK.PARAM_NAMES.index("INV_ACNV_PND")
+    assert TK.kernel_params(mp, TPS_T, TV_T)[i].item() == float(
+        np.float32(1.0 / c))
+    assert TK.kernel_params(mp, TPS_T, TV_T, torch.float64)[i].item() == \
+        1.0 / c
 
 
 def _functions(src):
@@ -357,7 +578,7 @@ def _parameter_divisions(src):
     constant such as ``(1.0 / 3.0)`` is a host fold), or a function argument
     that some call fills with one of these."""
     aliases = set(re.findall(
-        r"(?:\bfloat\s+|,\s*)(\w+) = PVO?\(\w+\)(?=[;,])", src))
+        r"(?:\b(?:float|real|R)\s+|,\s*)(\w+) = PVO?\(\w+\)(?=[;,])", src))
     from_param = set()
     for fname, (params, _) in _functions(src).items():
         for args in _call_args(src, fname):
@@ -391,7 +612,9 @@ def test_parameter_division_check_finds_each_form():
              "{ return a / c; }\n y = f(x, PV(NU_AIR));",
              "x = a / p.v[3];", "x = logf(a) / 3.0f;",
              "x = a / PVO(XR_MIN);",
-             "const float em = PV(EM), en = PV(EN); x = a / en;"]
+             "const float em = PV(EM), en = PV(EN); x = a / en;",
+             "const R em = PV(EM), en = PV(EN); x = a / en;",
+             "const real q_min = PV(Q_MIN); x = a / q_min;"]
     for case in cases:
         assert _parameter_divisions(case), case
     assert _parameter_divisions("x = a / rho_dz; y = (1.0f / x) * c;") == []
@@ -448,3 +671,33 @@ def test_column1m_step_five_steps_matches_jax(packed):
     _assert_f64(out, js, "Column1MStep x5")
     for v in out:
         assert bool(torch.isfinite(v).all())
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_column1m_step_module_takes_the_step_scope(packed):
+    # Column1MStep gains step_column_1m's mode, nsub and sediment_cloud, and
+    # steps a float64 state with a float64 block (float32 stays params)
+    a = _arrays(32, 16, seed=3)
+    js = _jax_state(a, jnp.float64)
+    for _ in range(3):
+        js = JC.step_column_1m(js, MP_J, TPS_J, TV_J, 10.0, DZ,
+                               mode="linearized_average", nsub=4,
+                               sediment_cloud=False)
+    model = TC.Column1MStep(MP_T, TPS_T, TV_T, 10.0, DZ, device="cpu",
+                            mode="linearized_average", nsub=4,
+                            sediment_cloud=False)
+    assert (model.mode, model.nsub, model.sediment_cloud) == (
+        "linearized_average", 4, False)
+    st = _torch_state(a, torch.float64)
+    x = TK.pack_state(st) if packed else st
+    for _ in range(3):
+        x = model(x)
+    _assert_f64(TK.unpack_state(x) if packed else x, js,
+                "Column1MStep linearized_average x3")
+    assert model.params.dtype == torch.float32
+    block = model.block(torch.float64)
+    assert block.dtype == torch.float64 and model.block(torch.float64) is block
+    assert torch.equal(block, TK.kernel_params(MP_T, TPS_T, TV_T,
+                                               torch.float64))
+    assert model.block(torch.float32) is model.params
+    assert model.block(torch.bfloat16) is None

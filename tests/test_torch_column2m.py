@@ -200,21 +200,53 @@ def test_cpu_path_does_not_count_launches():
 # what the CUDA path accepts, and the kernel's parameter buffer
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("mp,nlev,dtype,match", [
-    (dataclasses.replace(MP_T, ice=object()), 16, torch.float32, "P3 ice"),
+@pytest.mark.parametrize("mp,nlev,dtype,error,match", [
+    (dataclasses.replace(MP_T, ice=object()), 16, torch.float32,
+     NotImplementedError, "P3 ice"),
     (dataclasses.replace(MP_T, warm_rain=dataclasses.replace(
         MP_T.warm_rain, terminal_velocity=TP.StokesRegimeVelType())),
-     16, torch.float32, "rain velocities"),
-    (MP_T, 16, torch.float64, "float32"),
-    (MP_T, TK.MAX_NLEV + 1, torch.float32, "nlev"),
+     16, torch.float32, NotImplementedError, "rain velocities"),
+    (MP_T, 16, torch.bfloat16, NotImplementedError, "float32 and float64"),
+    (MP_T, 0, torch.float32, ValueError, "nlev"),
 ])
-def test_cuda_path_rejects_what_the_kernel_lacks(mp, nlev, dtype, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_cuda_path_rejects_what_the_kernel_lacks(mp, nlev, dtype, error,
+                                                 match):
+    with pytest.raises(error, match=match):
         TK._check_supported(mp, nlev, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nlev", [16, 333, 512, 1024])
+def test_cuda_path_accepts_float64_and_any_level_count(dtype, nlev):
+    for options in OPTIONS:
+        TK._check_supported(_mps(**options)[1], nlev, dtype)
+
+
+@pytest.mark.parametrize("options", OPTIONS)
+def test_float64_header_round_trips_exactly(options):
+    mp = _mps(**options)[1]
+    block = TK.kernel_params_2m(mp, TPS_T, torch.float64)
+    header = TK.header(block, TK._variant(mp))
+    assert "#define K3_REAL double\n" in header
+    literals = re.findall(r"#define PC_\w+ \((\S+)\)", header)
+    assert len(literals) == len(TK.PARAM_NAMES)
+    assert not any(x.endswith("f") for x in literals)
+    assert [float.fromhex(x) for x in literals] == block.tolist()
+    # the dtype's thresholds; every other value is the float32 block's,
+    # unrounded
+    i = TK.PARAM_NAMES.index
+    assert block[i("EM")] == torch.finfo(torch.float64).eps
+    assert block[i("TINY")] == torch.finfo(torch.float64).tiny
+    f32 = TK.kernel_params_2m(mp, TPS_T)
+    assert torch.equal(block[i("T_0"):].to(torch.float32), f32[i("T_0"):])
+    # dtype, block and variant tell the libraries apart
+    keys = {TK.library_key(b, TK._variant(mp), build)
+            for b in (block, f32) for build in TK.BUILDS}
+    assert len(keys) == 2 * len(TK.BUILDS)
+
+
 @pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("case", ["device", "float64", "nlev", "P3 ice"])
+@pytest.mark.parametrize("case", ["device", "bfloat16", "nlev", "P3 ice"])
 def test_wrappers_raise_and_do_not_fall_back(monkeypatch, packed, case):
     # a tensor anywhere but on the CPU launches the kernel or raises: the
     # plain version and the library are never reached for what the kernel
@@ -229,13 +261,14 @@ def test_wrappers_raise_and_do_not_fall_back(monkeypatch, packed, case):
     if case != "device":
         monkeypatch.setattr(TK, "_check_cuda",
                             lambda *a: torch.device("cuda", 0))
-    nlev = TK.MAX_NLEV + 1 if case == "nlev" else 8
-    dtype = torch.float64 if case == "float64" else torch.float32
+    nlev = 0 if case == "nlev" else 8     # a layout without levels
+    dtype = torch.bfloat16 if case == "bfloat16" else torch.float32
     mp = dataclasses.replace(MP_T, ice=object()) if case == "P3 ice" else MP_T
     st = TC.ColumnState2M(*(torch.empty((16, nlev), dtype=dtype,
                                         device="meta") for _ in range(7)))
     match = "device type 'meta'" if case == "device" else case
-    with pytest.raises(NotImplementedError, match=match):
+    error = ValueError if case == "nlev" else NotImplementedError
+    with pytest.raises(error, match=match):
         if packed:
             TK.step_column_2m_fused_packed(TK.pack_state_2m(st), mp, TPS_T,
                                            DT, DZ, block_cols=8)
@@ -245,7 +278,7 @@ def test_wrappers_raise_and_do_not_fall_back(monkeypatch, packed, case):
 
 @pytest.mark.parametrize("options", OPTIONS)
 def test_cuda_path_accepts_both_options(options):
-    TK._check_supported(_mps(**options)[1], TK.MAX_NLEV, torch.float32)
+    TK._check_supported(_mps(**options)[1], 512, torch.float32)
     assert TK._variant(_mps(**options)[1]) == (
         int(options["is_limited"]), int(options["rain_velocity"] == "chen2022"))
 
@@ -414,3 +447,23 @@ def test_column2m_step_affine_needs_the_packed_state():
     ref = TK.step_column_2m_packed_plain(TK.pack_state_2m(st), MP_T, TPS_T,
                                          DT, DZ, q_tot_affine=(1.01, 2e-9))
     assert torch.equal(out, ref)
+
+
+def test_column2m_step_module_float64_block():
+    # a float64 state steps with the float64 block, built once at its first
+    # step; float32 stays the module's params; a dtype no kernel is built
+    # for has none
+    model = TC.Column2MStep(MP_T, TPS_T, DT, DZ, device="cpu")
+    block = model.block(torch.float64)
+    assert block.dtype == torch.float64 and model.block(torch.float64) is block
+    assert torch.equal(block, TK.kernel_params_2m(MP_T, TPS_T, torch.float64))
+    assert TK.host_params(block, MP_T, TPS_T, torch.float64) is block
+    assert model.block(torch.float32) is model.params
+    assert model.block(torch.bfloat16) is None
+    a = _arrays(16, 8)
+    st = _torch_state(a, torch.float64)
+    ref = JC.step_column_2m(_jax_state(a, jnp.float64), MP_J, TPS_J, DT, DZ)
+    _assert_f64(model(st), ref, "Column2MStep float64")
+    fused = TC.step_column_2m(st, MP_T, TPS_T, DT, DZ, impl="fused")
+    for x, y in zip(fused, model(st)):
+        assert torch.equal(x, y)

@@ -121,16 +121,90 @@ def test_cuda_rejections(device):
     st = _state(64, 16, device)
     with pytest.raises(ValueError, match="not a multiple"):
         K.step_column_1m_fused(st, MP, TPS, TV, DT, DZ, block_cols=48)
-    with pytest.raises(NotImplementedError, match="instantaneous"):
+    with pytest.raises(ValueError, match="unknown tendency mode"):
         K.step_column_1m_fused(st, MP, TPS, TV, DT, DZ,
-                               mode="linearized_average", block_cols=16)
-    with pytest.raises(NotImplementedError, match="float32"):
-        K.step_column_1m_fused(_state(64, 16, device, torch.float64), MP, TPS,
-                               TV, DT, DZ, block_cols=16)
+                               mode="instantaneous_verbose", block_cols=16)
+    with pytest.raises(ValueError, match="nsub"):
+        K.step_column_1m_fused(st, MP, TPS, TV, DT, DZ,
+                               mode="linearized_average", nsub=0,
+                               block_cols=16)
+    # instantaneous ignores nsub, as the eager step does
+    ref = K.step_column_1m_plain(st, MP, TPS, TV, DT, DZ)
+    for a, b in zip(K.step_column_1m_fused(st, MP, TPS, TV, DT, DZ, nsub=0,
+                                           block_cols=16), ref):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="float32 and float64"):
+        K.step_column_1m_fused(_state(64, 16, device, torch.bfloat16), MP,
+                               TPS, TV, DT, DZ, block_cols=16)
     with pytest.raises(ValueError, match="contiguous"):
         K.step_column_1m_fused(
             st._replace(T=st.T.t().contiguous().t()), MP, TPS, TV, DT, DZ,
             block_cols=16)
+
+
+# the whole scope of step_column_1m on the card, bit for bit against the
+# plain step: linearized_average, each non-default option set, float64,
+# 512 levels and a level count that is not a multiple of 32
+SCOPE_OPTIONS = [
+    {"cloud_ice_formation": "TemperatureDependent"},
+    {"rain_autoconversion": "PrescribedNd"},
+    {"snow_autoconversion": "WithSupersaturation"},
+    {"snow_deposition_sublimation": "SublimationOnly"},
+    {slot: None for slot in K.OPTION_CODES},
+    {"cloud_ice_formation": "TemperatureDependent",
+     "rain_autoconversion": "PrescribedNd",
+     "snow_autoconversion": "WithSupersaturation",
+     "snow_deposition_sublimation": "SublimationOnly",
+     "cloud_ice_melt": None, "rain_snow_accretion": None},
+] + [{slot: None} for slot in K.OPTION_CODES]
+
+
+def _assert_1m_bits(st, mp, block_cols, dt=DT, **kw):
+    ref = K.step_column_1m_plain(st, mp, TPS, TV, dt, DZ, **kw)
+    out = K.step_column_1m_fused(st, mp, TPS, TV, dt, DZ,
+                                 block_cols=block_cols, **kw)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    packed = K.step_column_1m_fused_packed(K.pack_state(st), mp, TPS, TV, dt,
+                                           DZ, block_cols=block_cols, **kw)
+    assert torch.equal(packed, K.pack_state(ref))
+
+
+@pytest.mark.parametrize("nsub", [1, 2, 4])
+@pytest.mark.parametrize("sediment_cloud", [True, False])
+def test_linearized_kernel_matches_plain(device, nsub, sediment_cloud):
+    _assert_1m_bits(_state(512, 37, device), MP, 64, dt=10.0,
+                    mode="linearized_average", nsub=nsub,
+                    sediment_cloud=sediment_cloud)
+
+
+@pytest.mark.parametrize("opts", SCOPE_OPTIONS)
+def test_option_kernels_match_plain(device, opts):
+    _assert_1m_bits(_state(512, 64, device), microphysics_1m_params(**opts),
+                    64)
+
+
+@pytest.mark.parametrize("mode", ["instantaneous", "linearized_average"])
+@pytest.mark.parametrize("nlev", [64, 37, 512, 333])
+def test_float64_and_levels_1m_match_plain(device, mode, nlev):
+    for dtype in (torch.float32, torch.float64):
+        _assert_1m_bits(_state(128, nlev, device, dtype), MP, 32, dt=10.0,
+                        mode=mode, nsub=2)
+
+
+def test_column1m_step_module_scope(device):
+    # Column1MStep takes mode, nsub and sediment_cloud, and steps a float64
+    # state with its float64 block
+    model = Column1MStep(MP, TPS, TV, 10.0, DZ, mode="linearized_average",
+                         nsub=4, sediment_cloud=False)
+    for dtype in (torch.float32, torch.float64):
+        st = _state(256, 64, device, dtype)
+        ref = K.step_column_1m_plain(st, MP, TPS, TV, 10.0, DZ,
+                                     mode="linearized_average", nsub=4,
+                                     sediment_cloud=False)
+        for a, b in zip(model(st), ref):
+            assert torch.equal(a, b)
+    assert model.params.dtype == torch.float32
 
 
 def _state_2m(ncol, nlev, device, dtype=torch.float32, seed=7):
@@ -154,8 +228,7 @@ def _state_2m(ncol, nlev, device, dtype=torch.float32, seed=7):
                                                   (64, 512, 16)])
 def test_2m_kernel_matches_plain(device, ncol, nlev, block_cols, is_limited,
                                  rain_velocity):
-    # nlev 40 leaves the top 32-level chunk of a column ragged; 512 is
-    # MAX_NLEV
+    # nlev 40 leaves the top 32-level chunk of a column ragged
     mp = microphysics_2m_params(is_limited=is_limited,
                                 rain_velocity=rain_velocity)
     st = _state_2m(ncol, nlev, device)
@@ -169,6 +242,27 @@ def test_2m_kernel_matches_plain(device, ncol, nlev, block_cols, is_limited,
     packed = K2.step_column_2m_fused_packed(K2.pack_state_2m(st), mp, TPS,
                                             DT, DZ, block_cols=block_cols)
     assert torch.equal(packed, K2.pack_state_2m(out))
+
+
+@pytest.mark.parametrize("is_limited", [True, False])
+@pytest.mark.parametrize("rain_velocity", ["sb2006", "chen2022"])
+@pytest.mark.parametrize("ncol,nlev,block_cols", [(512, 64, 64),
+                                                  (256, 333, 16),
+                                                  (64, 1024, 16)])
+def test_2m_float64_kernel_matches_plain(device, ncol, nlev, block_cols,
+                                         is_limited, rain_velocity):
+    mp = microphysics_2m_params(is_limited=is_limited,
+                                rain_velocity=rain_velocity)
+    st = _state_2m(ncol, nlev, device, torch.float64)
+    ref = K2.step_column_2m_plain(st, mp, TPS, DT, DZ)
+    out = K2.step_column_2m_fused(st, mp, TPS, DT, DZ, block_cols=block_cols)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    packed = K2.step_column_2m_fused_packed(K2.pack_state_2m(st), mp, TPS,
+                                            DT, DZ, block_cols=block_cols)
+    assert torch.equal(packed, K2.pack_state_2m(ref))
+    model = Column2MStep(mp, TPS, DT, DZ)
+    assert torch.equal(model(K2.pack_state_2m(st)), packed)
 
 
 def test_column2m_step_module(device):
@@ -194,11 +288,16 @@ def test_2m_cuda_rejections(device):
     st = _state_2m(64, 16, device)
     with pytest.raises(ValueError, match="not a multiple"):
         K2.step_column_2m_fused(st, mp, TPS, DT, DZ, block_cols=48)
-    with pytest.raises(NotImplementedError, match="float32"):
-        K2.step_column_2m_fused(_state_2m(64, 16, device, torch.float64), mp,
+    with pytest.raises(NotImplementedError, match="float32 and float64"):
+        K2.step_column_2m_fused(_state_2m(64, 16, device, torch.bfloat16), mp,
+                                TPS, DT, DZ, block_cols=16)
+    # K5 keeps its own bounds: float32 and at most 256 levels
+    mp3 = microphysics_2m_params(with_ice=True, quadrature_order=8)
+    with pytest.raises(NotImplementedError, match="supports float32"):
+        K5.step_column_p3_fused(_state_p3(64, 16, device, torch.float64), mp3,
                                 TPS, DT, DZ, block_cols=16)
     with pytest.raises(NotImplementedError, match="nlev"):
-        K2.step_column_2m_fused(_state_2m(4, K2.MAX_NLEV + 1, device), mp,
+        K5.step_column_p3_fused(_state_p3(4, K5.MAX_NLEV + 1, device), mp3,
                                 TPS, DT, DZ, block_cols=4)
     with pytest.raises(ValueError, match="contiguous"):
         K2.step_column_2m_fused(

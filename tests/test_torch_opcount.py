@@ -276,3 +276,36 @@ def test_ptxas_report():
         registers=128, stack=0, spill_stores=0, spill_loads=0)
     assert report["_Z8logLdivNv"] == dict(stack=24, spill_stores=8,
                                           spill_loads=8)
+
+
+def test_block_at_finds_the_substep_loop():
+    # the linearized_average builds' substep loop, a region of its own
+    # inside cell_step, counted nsub times a cell
+    text = (_build.CSRC_DIR / "column1m.cu").read_text()
+    lines = text.splitlines()
+    cell = opcount.function_block(text, "cell_step")
+    loop = opcount.block_at(text, "for (int s = 0; s < sub.nsub; ++s)")
+    assert cell.start < loop.start < loop.end < cell.end
+    assert lines[loop.start - 1].strip().startswith("for (int s = 0;")
+    assert lines[loop.end - 1].strip() == "}"
+    with pytest.raises(ValueError, match="no line"):
+        opcount.block_at(text, "for (;;) {")
+    with pytest.raises(ValueError, match="no brace block"):
+        opcount.block_at("int a;\nvoid f() {}\n", "int a;")
+
+
+@pytest.mark.parametrize("opcode,tally", [
+    ("DFMA", opcount.Tally(1.0, 0.0, 0.0, 2.0)),
+    ("DADD", opcount.Tally(1.0, 0.0, 0.0, 1.0)),
+    ("DMUL", opcount.Tally(1.0, 0.0, 0.0, 1.0)),
+    ("DSETP.GT.AND", opcount.Tally(1.0, 0.0, 0.0, 1.0)),
+    ("MUFU.RCP64H", opcount.Tally(1.0, 0.0, 1.0, 0.0)),
+    ("FFMA", opcount.Tally(1.0, 2.0, 0.0, 0.0)),
+    ("F2F.F64.F32", opcount.Tally(1.0, 0.0, 0.0, 0.0)),
+])
+def test_float64_operations_are_counted_apart(opcode, tally):
+    # a float64 build's DFMA pipe has its own rate (64 lanes per SM on an
+    # H100), so its operations are counted apart from float32's
+    assert opcount._tally(opcount.Instr("k", opcode, ())) == tally
+    assert (opcount._tally(opcount.Instr("k", opcode, ()))
+            + opcount.Tally(fp64=1.0)).fp64 == tally.fp64 + 1.0
