@@ -12,14 +12,17 @@ then, failing at the first phase that does not hold:
    whether triton imports);
 2. prints each build's time and the compiler's register/spill report;
    K1/K2's and K3/K4's registers, spills and resident blocks per SM; and
-   for K5's three kernels (K5a solve, K5b node pass at each order, K5c
-   epilogue) their registers, spills, stack frame and local memory per
-   thread (each source is built as its kernel and its probe, ``BUILDS`` in
-   ``kernels/column1m.py``, ``column2m.py`` and ``column_p3.py``, and
-   ``column2m.cu``, whose parameters and variant are compiled in, once for
-   each 2M parameter block and variant phase 7 runs: default,
-   ``is_limited=False``, Chen 2022; both 1M and 2M sources once more for
-   phase 16's calibrated sets); and the registers and resident blocks per
+   for K5's three kernels (K5a solve, K5b node pass, K5c epilogue) of the
+   GL-4, GL-8 and GL-16 builds their registers, spills, stack frame, local
+   and shared memory per thread (each source is built as its kernel and
+   its probe, ``BUILDS`` in ``kernels/column1m.py``, ``column2m.py`` and
+   ``column_p3.py``; ``column2m.cu``, whose parameters and variant are
+   compiled in, once for each 2M parameter block and variant phase 7 runs:
+   default, ``is_limited=False``, Chen 2022; both 1M and 2M sources once
+   more for phase 16's calibrated sets; ``column_p3.cu`` once for each
+   variant of ``kernels/column_p3.variant`` that phases 10-12 and 19 run:
+   dtype, quadrature order, slope law, aspect ratio, ice rain PSD); and
+   the registers and resident blocks per
    SM of K6 (``copy_scale``) and the probe (``exp_chain``), both in
    ``roof.cu``;
 3. compares both 1M kernel entry points (packed, K1, and unpacked, K2)
@@ -72,7 +75,7 @@ then, failing at the first phase that does not hold:
 10. holds K5a's log lambda against the plain shape solve on the ladder
     states, cold and warm-started, bit for bit; then compares the 2M + P3
     step (K5: K5a, K5b, K5c) with its plain version at quadrature
-    orders 4, 8 and 16 on the 10 curated ladder states tiled over
+    orders 4, 8 and 16 (a build each) on the 10 curated ladder states tiled over
     (640, 16), a seeded mixed-regime (4096, 64) state and a ragged
     (1000, 40) one, each cold and warm-started from the plain step's log
     lambda, under log lambda rtol 2e-5 and fields rtol 3e-5 / atol 1e-10
@@ -196,7 +199,26 @@ then, failing at the first phase that does not hold:
     SM), registers and spills; times each option set's K1 at full width;
     and holds the float64 K1-K4 to the JAX float64 record of the 1M and 2M
     steps (``data/column_records_f64.json``), printing the float32
-    kernels' per-field error beside the JAX float32 step's.
+    kernels' per-field error beside the JAX float32 step's;
+19. drives ``ColumnP3Step`` through the rest of the JAX step's scope, each
+    one more build of ``column_p3.cu`` (started with phase 2's): GL-40
+    (ClimaAtmos's production order) and Chebyshev-Gauss 100 (the
+    reference default) at float32, float64 at GL-16, 4096 x 512 at GL-16,
+    and ``SlopeConstant``, ``NoAspectRatio`` and the unlimited ice rain PSD
+    at GL-16, each on phase 11's cell (``p3_bench_state``, 16384 x 128,
+    cast to the dtype): bit for bit against its plain step, cold and
+    warm-started, through two tilings, on phase 10's ladder, mixed and
+    ragged states (their column counts cut for the high orders, PERF.md
+    §4; 512 and 300 levels for the 512-level path), the float64 step also
+    against the JAX float64 record to ``tests/test_torch_p3_ladder.py``'s
+    rtol 1e-9; then at full width a cold step and a rollout (10 steps, 3
+    at CG-100) with the launch counters set to 0 just before and read just
+    after (finite, non-negative, ``q_rim <= q_ice``), the cold step held
+    bit for bit against the plain step (over the whole state at GL-16, in
+    column chunks as phase 11's; over every 8th column at GL-40 and every
+    64th at CG-100), the best single step and K5a, K5b and K5c alone by
+    CUDA events, the operation count of its probe build (as phase 12's)
+    for the bound, and its registers, spills and shared memory.
 
 Then it prints the ``expf`` probe's JSON object on a line of its own,
 phase 15's JSON object (``{"zero_d": ...}``, with the card's name and
@@ -205,7 +227,8 @@ on another, phase 17's (``{"sharded": ...}``, likewise) on another, the
 card's name and power limit as
 ``nvidia-smi`` gives them, and, on the line before the last, a JSON object
 with one entry per kernel (K5's with its three kernels under
-``subkernels``, K1-K4's with phase 18's under ``variants``); the last line
+``subkernels`` and phase 19's paths under ``variants``, K1-K4's with phase
+18's under ``variants``); the last line
 is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits with a non-zero code and prints no result.
 """
@@ -477,34 +500,47 @@ def _device_kernels(fn):
     return len(names) or None
 
 
-def _k5_build_report(K5):
-    """Phase 2 for K5: each kernel's registers, local memory and static
-    shared memory (CUDA runtime) and its spills and stack frame (the
-    compiler's report). Returns the runtime's numbers per order."""
+def _k5_report_row(K5, v, label=None):
+    """K5a, K5b and K5c of the build for variant ``v``: registers, local
+    memory and static shared memory (CUDA runtime), spills and stack frame
+    (the compiler's report). Prints a line each; returns the runtime's
+    numbers with the spills."""
     from cloudmicrophysics_tpu_torch.kernels import _build
 
-    log = (K5.library_path().parent / "build.log").read_text()
+    log = (K5.library_path("kernel", v).parent / "build.log").read_text()
     report = _build.ptxas_report(log)
-    lib = K5._library()
-    attrs = {order: K5.kernel_attrs(lib, order) for order in K5.ORDERS}
+    attrs = K5.kernel_attrs(K5._library("kernel", v))
     names = {"K5a": "column_p3_solve_kernel",
-             "K5c": "column_p3_epilogue_kernelILb1ELb0E"}
-    rows = [("K5a", "all orders", names["K5a"], attrs[16]["K5a"])]
-    rows += [("K5b", f"GL-{o}", f"column_p3_nodes_kernelILi{o}E",
-              attrs[o]["K5b"]) for o in K5.ORDERS]
-    rows += [("K5c", "limited rain PSD, SB2006 fall speeds", names["K5c"],
-              attrs[16]["K5c"])]
-    for key, tag, part, a in rows:
-        ptx = next((v for f, v in report.items() if part in f), {})
-        print(f"  {key} ({tag}): {a['registers']} registers, "
+             "K5b": f"column_p3_nodes_kernelILi{v.order}E",
+             "K5c": "column_p3_epilogue_kernelILb1ELb0ELb0E"}
+    for key, part in names.items():
+        ptx = next((r for f, r in report.items() if part in f), {})
+        a = attrs[key]
+        a.update(spill_stores=ptx.get("spill_stores"),
+                 spill_loads=ptx.get("spill_loads"), stack=ptx.get("stack"))
+        print(f"  {key} ({label or v.tag()}): {a['registers']} registers, "
               f"{a['local_bytes']} B local memory per thread, "
               f"{a['shared_bytes']} B static shared memory; ptxas: "
               f"{ptx.get('spill_stores', '?')} B spill stores, "
               f"{ptx.get('spill_loads', '?')} B spill loads, "
               f"{ptx.get('stack', '?')} B stack frame")
+    return attrs
+
+
+def _k5_build_report(K5):
+    """Phase 2 for K5: each kernel's registers, local memory and static
+    shared memory (CUDA runtime) and its spills and stack frame (the
+    compiler's report), for the GL-4, GL-8 and GL-16 (default) builds of
+    phases 10-12. Returns the runtime's numbers per order."""
+    from cloudmicrophysics_tpu_torch.kernels import _build
+
+    attrs = {order: _k5_report_row(K5, K5.Variant(order=order),
+                                   f"GL-{order}") for order in P3_ORDERS}
+    report = _build.ptxas_report(
+        (K5.library_path().parent / "build.log").read_text())
     for part in ("logLdivN", "gamma_inc_inv4"):
-        ptx = next((v for f, v in report.items()
-                    if part in f and "registers" not in v), None)
+        ptx = next((r for f, r in report.items()
+                    if part in f and "registers" not in r), None)
         if ptx:
             print(f"  {part} (called by K5a): {ptx['stack']} B stack frame, "
                   f"{ptx['spill_stores']} B spill stores")
@@ -649,8 +685,16 @@ def main():
     params = K.kernel_params(mp, tps, tv)
     jobs = [(f"{K.SOURCE} ({b}: {' '.join(K.BUILDS[b])})",
              lambda b=b: K._library(params, b)) for b in K.BUILDS]
-    jobs += [(f"{K5.SOURCE} ({b}: {' '.join(K5.BUILDS[b])})",
-              lambda b=b: K5._library(b)) for b in K5.BUILDS]
+    # column_p3.cu: one build per variant: phases 10-12's orders, the
+    # default's probe, and each of phase 19's variants, its kernel and its
+    # probe
+    k5_builds = [(K5.Variant(order=o), "kernel") for o in P3_ORDERS] + [
+        (K5.DEFAULT_VARIANT, "probe")] + [
+        (K5.variant(m, dt), b) for _, m, dt, *_ in _k5_scope_cases(
+            microphysics_2m_params) for b in K5.BUILDS]
+    jobs += [(f"{K5.SOURCE} ({v.tag()}, {b}: {' '.join(K5.BUILDS[b])})",
+              lambda v=v, b=b: K5._library(b, v))
+             for v, b in dict.fromkeys(k5_builds)]
     jobs += [(f"{R.SOURCE} ({b}: {' '.join(R.BUILDS[b])})",
               lambda b=b: R._library(b)) for b in R.BUILDS]
     # column2m.cu: each 2M parameter block and variant phase 7 runs, and the
@@ -876,6 +920,8 @@ def main():
     sharded = _run_sharded(device, gpu_line)
     variants = _run_scope(device, K, K2M, Column1MStep, Column2MStep, tps, tv,
                           timing, bounds)
+    variants["K5"] = _run_k5_scope(device, K5, ColumnP3Step,
+                                   microphysics_2m_params, tps, timing)
 
     csrc = "cloudmicrophysics_tpu_torch/kernels/csrc/"
     entries = [
@@ -1234,6 +1280,7 @@ P3_NCOL, P3_NLEV = 16384, 128   # the repo's P3 size (BENCH_SUITE.json batch)
 P3_STEPS, P3_ROLLOUTS = 10, 3   # the P3 bench's n_iter, and three rollouts
 P3_LL_RTOL, P3_RTOL, P3_ATOL = 2e-5, 3e-5, 1e-10   # tests/test_kernels.py:192
 P3_CHUNKS = 16                  # column chunks of the plain full-size step
+P3_ORDERS = (4, 8, 16)          # the Gauss-Legendre orders of phases 10-11
 RECORD = "cloudmicrophysics_tpu_torch/data/p3_ladder_gl16.json"
 
 
@@ -1368,7 +1415,7 @@ def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs,
             raise AssertionError(f"K5a log lambda ({start}) disagrees with "
                                  f"the plain solve")
     n_cases = n_bit = 0
-    runs = [(order, {}) for order in K.ORDERS] + [
+    runs = [(order, {}) for order in P3_ORDERS] + [
         (8, {"is_limited": False, "rain_velocity": "chen2022"})]
     for order, opts in runs:
         mp = microphysics_2m_params(with_ice=True, quadrature_order=order,
@@ -1528,115 +1575,118 @@ def _run_p3(device, K, ColumnP3Step, microphysics_2m_params, tps, copy_gbs,
              "mufu_ops": total.mufu, "subkernels": subkernels})
 
 
-def _k5_parts(K, model, state, guess, device):
-    """ms of each of K5's kernels alone at GL-16 by CUDA events (best of
-    5), with ``nvidia-smi`` sampling the SM clock and power beside them."""
+def _k5_launches(K, model, state, guess, device, lib):
+    """K5a, K5b and K5c of ``model``'s build (``lib``, the kernel or the
+    probe) on ``state`` as three calls, with their own outputs and scratch
+    record."""
     import torch
 
     from cloudmicrophysics_tpu_torch.models.column import _block_cols
 
-    mp = model.mp
+    mp, dtype = model.mp, state.rho.dtype
     ncol, nlev = state.rho.shape
-    plan = K.launch_plan(ncol, nlev, 16, _block_cols(ncol))
-    lib, params = K._library(), model.params
-    scratch = torch.empty(plan.scratch_shape, dtype=torch.float32,
-                          device=device)
+    plan = K.launch_plan(ncol, nlev, mp.ice.quad.n, _block_cols(ncol))
+    params = model.block(dtype)
+    scratch = torch.empty(plan.scratch_shape, dtype=dtype, device=device)
     loglam = torch.empty_like(state.rho)
     out = type(state)(*(torch.empty_like(t) for t in state))
-    variant = K.K2M._variant(type(mp)(warm_rain=mp.warm_rain, ice=None))
+    warm = K.warm_variant(mp)
     calls = {
         "K5a": lambda: K.launch_solve(lib, state, guess, loglam, scratch,
                                       params, plan, device),
-        "K5b": lambda: K.launch_nodes(lib, state, scratch, params, 16, plan,
+        "K5b": lambda: K.launch_nodes(lib, state, scratch, params, plan,
                                       device),
         "K5c": lambda: K.launch_epilogue(lib, state, out, scratch, params,
-                                         plan, DT, DZ, variant, device),
+                                         plan, DT, DZ, warm, device),
     }
+    return calls, plan, loglam
+
+
+def _k5_parts(K, model, state, guess, device, reps=5):
+    """ms of each of K5's kernels alone on ``state`` (the build of
+    ``model`` and the state's dtype) by CUDA events (best of ``reps``),
+    with ``nvidia-smi`` sampling the SM clock and power beside them."""
+    v = K.variant(model.mp, state.rho.dtype)
+    calls, _, _ = _k5_launches(K, model, state, guess, device,
+                               K._library("kernel", v))
     for fn in calls.values():
         fn()
     times, clock = _with_sm_clock(
-        lambda: {k: min(_time_ms(fn, reps=5)) for k, fn in calls.items()})
-    print(f"  K5 kernels alone at GL-16: "
+        lambda: {k: min(_time_ms(fn, reps=reps)) for k, fn in calls.items()})
+    print(f"  K5 kernels alone, {v.tag()} {tuple(state.rho.shape)}: "
           + ", ".join(f"{k} {t:.6g} ms" for k, t in times.items())
           + f"; {clock}")
     return times
 
 
-def _k5_ops(K, model, state, guess, device):
-    """Operations K5a, K5b and K5c run on ``state`` at GL-16: the probe
-    build's per-region executions times each region's operations on its
-    least path through the timed build's SASS (kernels/opcount.py). Returns
-    per kernel the :class:`opcount.Tally`, the instructions with every arm
-    counted, and the warp instructions issued; writes the SASS and the
-    probe's counts to ``kernels/build/``."""
+def _k5_ops(K, model, state, guess, device, quiet=False):
+    """Operations K5a, K5b and K5c run on ``state`` (the build of ``model``
+    and the state's dtype): the probe build's per-region executions times
+    each region's operations on its least path through the timed build's
+    SASS (kernels/opcount.py). Returns per kernel the
+    :class:`opcount.Tally`, the instructions with every arm counted, and
+    the warp instructions issued; writes the SASS and the probe's counts to
+    ``kernels/build/`` (the default build's as ``column_p3.*``, another
+    variant's with its tag in the name)."""
     import gzip
 
     import torch
 
     from cloudmicrophysics_tpu_torch.kernels import _build, opcount
-    from cloudmicrophysics_tpu_torch.models.column import _block_cols
 
+    v = K.variant(model.mp, state.rho.dtype)
     src = (_build.CSRC_DIR / K.SOURCE).read_text()
-    names, sites = opcount.region_names(src), opcount.probe_sites(src)
+    names = opcount.region_names(src)
+    sites = opcount.probe_sites(src, K.probe_unrolls(v))
     if set(names) != set(sites):
         raise AssertionError(f"regions without one K5_COUNT site: "
                              f"{sorted(set(names) ^ set(sites))}")
-    plib = K._library("probe")
+    plib = K._library("probe", v)
     if plib.column_p3_probe_regions() != len(names):
         raise AssertionError("probe build with another region list")
-    mp = model.mp
-    ncol, nlev = state.rho.shape
-    plan = K.launch_plan(ncol, nlev, 16, _block_cols(ncol))
-    params = model.params
-    scratch = torch.empty(plan.scratch_shape, dtype=torch.float32,
-                          device=device)
-    loglam = torch.empty_like(state.rho)
-    out = type(state)(*(torch.empty_like(t) for t in state))
-    variant = K.K2M._variant(type(mp)(warm_rain=mp.warm_rain, ice=None))
+    calls, plan, loglam = _k5_launches(K, model, state, guess, device, plib)
     counts, warps = {}, {}
-
-    def probe(key, threads, fn):
+    threads = {"K5a": plan.solve_grid * K.SOLVE_THREADS,
+               "K5b": plan.nodes_grid * K.NODE_THREADS,
+               "K5c": plan.epilogue_grid * plan.epilogue_block}
+    for key, fn in calls.items():
         # rows: each region's thread executions, then its warp executions
-        buf = torch.zeros((2 * len(names), threads), dtype=torch.int32,
+        buf = torch.zeros((2 * len(names), threads[key]), dtype=torch.int32,
                           device=device)
-        err = plib.column_p3_probe_set(buf.data_ptr(), threads, device.index)
+        err = plib.column_p3_probe_set(buf.data_ptr(), threads[key],
+                                       device.index)
         if err:
             raise RuntimeError(f"column_p3_probe_set: CUDA error {err}")
         fn()
         sums = buf.sum(dim=1, dtype=torch.int64).tolist()
         counts[key] = dict(zip(names, sums[:len(names)]))
         warps[key] = dict(zip(names, sums[len(names):]))
-
-    probe("K5a", plan.solve_grid * K.SOLVE_THREADS,
-          lambda: K.launch_solve(plib, state, guess, loglam, scratch, params,
-                                 plan, device))
-    probe("K5b", plan.nodes_grid * K.NODE_THREADS,
-          lambda: K.launch_nodes(plib, state, scratch, params, 16, plan,
-                                 device))
-    probe("K5c", plan.epilogue_grid * plan.epilogue_block,
-          lambda: K.launch_epilogue(plib, state, out, scratch, params, plan,
-                                    DT, DZ, variant, device))
+        del buf
     same = torch.equal(loglam, model(state, guess)[1])
-    sass = opcount.disassemble(K.library_path())
-    (_build.BUILD_DIR / "column_p3.sass.gz").write_bytes(
+    sass = opcount.disassemble(K.library_path("kernel", v))
+    stem = "column_p3" + ("" if v == K.DEFAULT_VARIANT else
+                          "-" + v.tag().replace(" ", "_"))
+    (_build.BUILD_DIR / f"{stem}.sass.gz").write_bytes(
         gzip.compress(sass.encode()))
-    (_build.BUILD_DIR / "column_p3_probe_counts.json").write_text(
+    (_build.BUILD_DIR / f"{stem}_probe_counts.json").write_text(
         json.dumps({"threads": counts, "warps": warps}))
-    limited, chen = variant
+    limited, chen = K.warm_variant(model.mp)
+    tall = int(plan.epilogue_levels < state.rho.shape[1])
     instrs = [i for i in opcount.parse_sass(sass)
-              if ("nodes_kernel" not in i.function or "ILi16E" in i.function)
-              and ("epilogue_kernel" not in i.function
-                   or f"ILb{limited}ELb{chen}E" in i.function)]
+              if "epilogue_kernel" not in i.function
+              or f"ILb{limited}ELb{chen}ELb{tall}E" in i.function]
     per, static, copies, lost = opcount.region_tallies(instrs, sites,
                                                        K.SOURCE)
-    print(f"  K5 operation count, GL-16: {len(instrs)} SASS instructions of "
-          f"the timed build (the launched variants), {lost} of them in "
-          f"slow-path subroutines or outside every counted region; probe "
-          f"run's log lambda equal to the timed build's: {same}")
-    print("    region: instructions per copy on the least path (with every "
-          "arm) x copies, float32 operations and MUFU per copy, thread "
-          "executions (unroll), instructions run, SIMT efficiency (thread "
-          "executions / 32 x warp executions)")
+    print(f"  K5 operation count, {v.tag()}: {len(instrs)} SASS "
+          f"instructions of the timed build (the launched variants), {lost} "
+          f"of them in slow-path subroutines or outside every counted "
+          f"region; probe run's log lambda equal to the timed build's: "
+          f"{same}")
+    if not quiet:
+        print("    region: instructions per copy on the least path (with "
+              "every arm) x copies, float32 operations and MUFU per copy, "
+              "thread executions (unroll), instructions run, SIMT "
+              "efficiency (thread executions / 32 x warp executions)")
     ops, every_arm, warp_issued = {}, {}, {}
     for key, c in counts.items():
         dyn = opcount.dynamic_count(per, c, sites)
@@ -1646,7 +1696,7 @@ def _k5_ops(K, model, state, guess, device):
         warp_issued[key] = sum(t.issued for t in opcount.dynamic_count(
             per, warps[key], sites).values())
         for n in names:
-            if c[n]:
+            if c[n] and not quiet:
                 print(f"    {key} {n}: {per[n].issued:.6g} ({static[n]:.6g}) "
                       f"x {copies[n]}, {per[n].flops:.6g}, {per[n].mufu:.6g}, "
                       f"{c[n]} ({sites[n].unroll}), {dyn[n].issued:.6g}, "
@@ -1662,14 +1712,15 @@ def _k5_ops(K, model, state, guess, device):
             dup = dup + pair.scale(c[arm + "_DUP"] / 2)
     print(f"    K5a duplicate chains: {c['R_GI_SERIES2_DUP']} series, "
           f"{c['R_GI_CF2_DUP']} continued fraction, {dup.flops:.6g} float32 "
-          f"operations and {dup.mufu:.6g} MUFU, not counted as K5a's work")
+          f"and {dup.fp64:.6g} float64 operations and {dup.mufu:.6g} MUFU, "
+          f"not counted as K5a's work")
     ops["K5a"] = ops["K5a"] + dup.scale(-1.0)
     return ops, every_arm, warp_issued
 
 
-def _drive_p3(model, state, K, tag, rollouts=P3_ROLLOUTS):
+def _drive_p3(model, state, K, tag, rollouts=P3_ROLLOUTS, nsteps=P3_STEPS):
     """A P3 path at full width: one cold step of ``model`` on ``state``,
-    then ``rollouts`` timed rollouts of ``P3_STEPS`` steps, each starting
+    then ``rollouts`` timed rollouts of ``nsteps`` steps, each starting
     from a rollout-distinct copy of ``state`` and the cold step's log
     lambda, carrying log lambda as the next step's guess. The launch
     counters (the step's and each of its three kernels') are set to 0 just
@@ -1694,11 +1745,11 @@ def _drive_p3(model, state, K, tag, rollouts=P3_ROLLOUTS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(P3_STEPS):
+        for _ in range(nsteps):
             s, ll = model(s, ll)
         end.record()
         end.synchronize()
-        steps += P3_STEPS
+        steps += nsteps
         times.append(start.elapsed_time(end))
         checksums.append(float(s.q_ice.double().sum()))
         ends.append((s, ll))
@@ -1711,8 +1762,7 @@ def _drive_p3(model, state, K, tag, rollouts=P3_ROLLOUTS):
                                              range(rollouts)],
                              [(first, first_ll)] + ends):
         for f, v in zip(x._fields, x):
-            if tuple(v.shape) != (P3_NCOL, P3_NLEV) or not bool(
-                    v.isfinite().all()):
+            if v.shape != state.rho.shape or not bool(v.isfinite().all()):
                 raise AssertionError(f"{tag} {name}: {f} not finite or "
                                      f"misshapen")
             if f.startswith(("q_", "n_", "b_")) and bool((v < 0).any()):
@@ -1721,17 +1771,16 @@ def _drive_p3(model, state, K, tag, rollouts=P3_ROLLOUTS):
             raise AssertionError(f"{tag} {name}: q_rim > q_ice")
         if bool(torch.isnan(ll).any()) or bool(torch.isposinf(ll).any()):
             raise AssertionError(f"{tag} {name}: log lambda NaN or +inf")
-    ms = [t / P3_STEPS for t in times]
-    pts = [P3_NCOL * P3_NLEV / (m * 1e-3) for m in ms]
+    ms = [t / nsteps for t in times]
+    pts = [state.rho.numel() / (m * 1e-3) for m in ms]
     print(f"  {tag} ms/step: best {min(ms):.6g}, median "
           f"{float(np.median(ms)):.6g} (per rollout {[round(m, 6) for m in ms]})")
     print(f"  {tag} grid-points/s: best {max(pts):.6g}, median "
           f"{float(np.median(pts)):.6g}")
     print(f"  {tag} checksum sum(q_ice) per rollout: {checksums}")
     print(f"  {tag} launches in this path: {launches} (each = {steps} "
-          f"steps: 1 cold + {rollouts} x {P3_STEPS})")
+          f"steps: 1 cold + {rollouts} x {nsteps})")
     return first, first_ll, launches, ms
-
 
 # ---------------------------------------------------------------------------
 # The 0-D drivers and the point-wise processes (phase 15)
@@ -3522,6 +3571,259 @@ def _scope_records(device, Column1MStep, Column2MStep, tps, tv):
                               f"{f} {e:.3e} ({jax[f]:.3e})"
                               for f, e in row.items()))
 
+
+
+# ---------------------------------------------------------------------------
+# K5's whole scope (phase 19)
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_p3_ladder.py's tolerance of the port's float64 step
+# against the JAX float64 record
+P3_RECORD_RTOL, P3_RECORD_ATOL_REL = 1e-9, 1e-12
+
+
+def _k5_scope_cases(microphysics_2m_params):
+    """Phase 19's paths: (tag, parameters, dtype, full-width (ncol, nlev),
+    rollout steps, parity states, column stride of the full-width check),
+    each parity state (label, kind, ncol, nlev, seed, two tilings): the
+    curated ladder states over ``ncol`` columns of 16 levels, or a seeded
+    mixed-regime state. The GL-16 paths take phase 10's states; the parity
+    column counts of the high orders, and the columns of their full-width
+    check, are cut so that their plain steps stay within the phase's time
+    (PERF.md §4)."""
+    import dataclasses
+
+    import torch
+
+    def mp(order=16, ice_rain_limited=True, **kw):
+        m = microphysics_2m_params(with_ice=True, quadrature_order=order,
+                                   **kw)
+        if not ice_rain_limited:
+            m = dataclasses.replace(m, ice=dataclasses.replace(
+                m.ice, rain_pdf=dataclasses.replace(m.ice.rain_pdf,
+                                                    is_limited=False)))
+        return m
+
+    f32, f64 = torch.float32, torch.float64
+    full = (P3_NCOL, P3_NLEV)
+    # phase 10's states and tilings
+    gl16 = [("ladder (640, 16)", "ladder", 640, 16, None, (128, 10)),
+            ("mixed (4096, 64)", "mixed", 4096, 64, 3, (128, 2)),
+            ("ragged (1000, 40)", "mixed", 1000, 40, 5, (8, 40))]
+    return [
+        ("GL-40 (ClimaAtmos)", mp(40), f32, full, P3_STEPS,
+         [("ladder (160, 16)", "ladder", 160, 16, None, (32, 2)),
+          ("mixed (256, 64)", "mixed", 256, 64, 67, (128, 2))], 8),
+        ("CG-100 (the reference default)", mp(100), f32, full, 3,
+         [("ladder (40, 16)", "ladder", 40, 16, None, (8, 2)),
+          ("mixed (64, 64)", "mixed", 64, 64, 67, (64, 2))], 64),
+        ("float64 GL-16", mp(16), f64, full, P3_STEPS, gl16, 1),
+        ("GL-16 at 4096 x 512", mp(16), f32, (4096, 512), P3_STEPS,
+         [("mixed (64, 512)", "mixed", 64, 512, 515, (64, 2)),
+          ("mixed (6, 300)", "mixed", 6, 300, 303, (2, 2))], 1),
+        ("SlopeConstant GL-16", mp(16, slope_law="constant"), f32, full,
+         P3_STEPS, gl16, 1),
+        ("NoAspectRatio GL-16", mp(16, aspect_ratio="NoAspectRatio"), f32,
+         full, P3_STEPS, gl16, 1),
+        ("unlimited ice rain PSD GL-16", mp(16, ice_rain_limited=False),
+         f32, full, P3_STEPS, gl16, 1),
+    ]
+
+
+def _k5_scope_parity(K, m, dtype, tag, cases, record, device, tps):
+    """Each parity state of a phase-19 path, cold and warm-started from the
+    plain step's log lambda, through two tilings: K5 must be bit-identical
+    to its plain step (log lambda and every field) and the tilings to each
+    other. Returns the comparisons and the largest absolute difference."""
+    import torch
+
+    n = 0
+    worst = 0.0
+    for label, kind, ncol, nlev, seed, tilings in cases:
+        st = (_p3_ladder_state(record["states"], ncol // 10, nlev, device)
+              if kind == "ladder" else
+              _p3_mixed_state(ncol, nlev, device, seed=seed))
+        st = type(st)(*(t.to(dtype) for t in st))
+        ref, ref_ll = K.step_column_p3_plain(st, m, tps, DT, DZ)
+        for start, guess in (("cold", None), ("warm", ref_ll)):
+            st_in = st if guess is None else ref
+            want, want_ll = (ref, ref_ll) if guess is None else \
+                K.step_column_p3_plain(st_in, m, tps, DT, DZ, guess)
+            outs = [K.step_column_p3_fused(st_in, m, tps, DT, DZ, guess,
+                                           block_cols=bc) for bc in tilings]
+            (a, la), (b, lb) = outs
+            same = torch.equal(la, want_ll) and all(
+                torch.equal(x, y) for x, y in zip(a, want))
+            fin = torch.isfinite(want_ll)
+            worst = max([worst, float((la - want_ll)[fin].abs().max())
+                         if bool(fin.any()) else 0.0] +
+                        [float((x - y).abs().max()) for x, y in zip(a, want)])
+            n += 1
+            if not same:
+                raise AssertionError(f"K5 {tag} {label} {start}: differs "
+                                     f"from the plain step")
+            if not (torch.equal(la, lb) and all(
+                    torch.equal(x, y) for x, y in zip(a, b))):
+                raise AssertionError(f"K5 {tag} {label} {start}: tilings "
+                                     f"{tilings} differ")
+    return n, worst
+
+
+def _k5_full_check(K, m, tps, tag, state, first, first_ll, stride):
+    """A phase-19 path's full-width cold step (``first``, ``first_ll``)
+    against the plain step on the same inputs, bit for bit: over every
+    ``stride``-th column of ``state`` (1: the whole state), the plain step
+    in P3_CHUNKS column chunks as phase 11's. Returns the columns checked,
+    the largest absolute difference and the plain step's seconds."""
+    import torch
+
+    cols = slice(None, None, stride)
+    sub = type(state)(*(t[cols].contiguous() for t in state))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, ref_ll = K.step_column_p3_plain(sub, m, tps, DT, DZ,
+                                         col_chunks=P3_CHUNKS)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    got_ll = first_ll[cols]
+    same = torch.equal(got_ll, ref_ll) and all(
+        torch.equal(a[cols], b) for a, b in zip(first, ref))
+    fin = torch.isfinite(ref_ll)
+    worst = max([float((got_ll - ref_ll)[fin].abs().max())
+                 if bool(fin.any()) else 0.0]
+                + [float((a[cols] - b).abs().max())
+                   for a, b in zip(first, ref)])
+    n = sub.rho.shape[0]
+    if not same:
+        raise AssertionError(f"K5 {tag}: the full-width cold step differs "
+                             f"from the plain step over {n} columns "
+                             f"(largest difference {worst:.3e})")
+    return n, worst, plain_s
+
+
+def _k5_scope_record(K, m, device, tps, record):
+    """The float64 K5 against the JAX float64 record of the GL-16 step on
+    the ladder states, to tests/test_torch_p3_ladder.py's tolerance."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models.column import ColumnStateP3
+
+    cols = np.asarray(record["states"], dtype=np.float64).T
+    st = ColumnStateP3(*(torch.from_numpy(c[:, None].copy()).to(device)
+                         for c in cols))
+    out, ll = K.step_column_p3_fused(st, m, tps, record["dt"], record["dz"],
+                                     block_cols=10)
+    worst = 0.0
+    for name, x in zip(out._fields, out):
+        want = np.asarray(record["step"][name])
+        got = x[:, 0].cpu().numpy()
+        atol = P3_RECORD_ATOL_REL * float(np.max(np.abs(want)))
+        err = np.abs(got - want)
+        worst = max(worst, float(err.max()) / max(float(np.max(np.abs(want))),
+                                                  1e-300))
+        if not (err <= atol + P3_RECORD_RTOL * np.abs(want)).all():
+            raise AssertionError(f"K5 float64: {name} misses the JAX "
+                                 f"float64 record")
+    want = np.asarray(record["loglambda"])
+    got = ll[:, 0].cpu().numpy()
+    fin = np.isfinite(want)
+    if not ((np.isfinite(got) == fin).all() and np.allclose(
+            got[fin], want[fin], rtol=P3_RECORD_RTOL, atol=0.0)):
+        raise AssertionError("K5 float64: log lambda misses the JAX float64 "
+                             "record")
+    print(f"  K5 float64 GL-16 on the ladder states: matches the JAX "
+          f"float64 record (rtol {P3_RECORD_RTOL}, floor "
+          f"{P3_RECORD_ATOL_REL} of each field); largest error over the "
+          f"field's scale {worst:.3e}")
+
+
+def _run_k5_scope(device, K, ColumnP3Step, microphysics_2m_params, tps,
+                  timing):
+    """Phase 19: ColumnP3Step through the rest of the JAX step's scope, one
+    build of column_p3.cu each (built in phase 2): GL-40, CG-100, float64,
+    512 levels, SlopeConstant, NoAspectRatio, the unlimited ice rain PSD.
+    Each is held bit for bit to its plain step at small size, driven at
+    full width with its launch counters set to 0 just before and read just
+    after, timed (the step and K5a/K5b/K5c alone) and bounded by its
+    operation count. Returns K5's ``variants``."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models.bench_states import (
+        p3_bench_state,
+    )
+
+    t0 = time.perf_counter()
+    print("== 19. K5 scope: quadrature orders, float64, 512 levels, "
+          "SlopeConstant, NoAspectRatio, the unlimited ice rain PSD")
+    record = json.loads(
+        (Path(__file__).resolve().parent / RECORD).read_text())
+    variants, n_all, seconds = [], 0, {}
+    for tag, m, dtype, (ncol, nlev), steps, cases, stride in \
+            _k5_scope_cases(microphysics_2m_params):
+        t1 = time.perf_counter()
+        v = K.variant(m, dtype)
+        n, worst = _k5_scope_parity(K, m, dtype, tag, cases, record, device,
+                                    tps)
+        n_all += n
+        print(f"  K5 {tag} ({v.tag()}): bit-identical to the plain step in "
+              f"{n} of {n} comparisons (" + ", ".join(c[0] for c in cases)
+              + ", cold and warm, two tilings each)")
+        if dtype == torch.float64:
+            _k5_scope_record(K, m, device, tps, record)
+        model = ColumnP3Step(m, tps, DT, DZ, device=device)
+        state = p3_bench_state(ncol, nlev, device)
+        state = type(state)(*(t.to(dtype) for t in state))
+        first, first_ll, launches, ms = _drive_p3(model, state, K, tag,
+                                                  rollouts=1, nsteps=steps)
+        n_cols, err, plain_s = _k5_full_check(K, m, tps, tag, state, first,
+                                              first_ll, stride)
+        del first
+        worst = max(worst, err)
+        n_all += 1
+        print(f"  K5 {tag}: the full-width cold step bit-identical to the "
+              f"plain step over "
+              + ("every column" if stride == 1 else
+                 f"every {stride}th column ({n_cols} of {ncol})")
+              + f" of ({ncol}, {nlev}); plain step {plain_s:.1f} s")
+        reps = 2 if v.order > 64 else 4
+        kern = min(_time_ms(lambda: model(state, first_ll), reps=reps))
+        parts = _k5_parts(K, model, state, first_ll, device, reps=reps)
+        ops, _, _ = _k5_ops(K, model, state, first_ll, device, quiet=True)
+        total = ops["K5a"] + ops["K5b"] + ops["K5c"]
+        cells = ncol * nlev
+        nbytes = 24 * dtype.itemsize * cells   # 12 fields read, 12 written
+        bound_ms, bound_by = _bound(nbytes, total)
+        attrs = _k5_report_row(K, v, tag)
+        print(f"  K5 {tag}: {kern:.6g} ms/step (best single step), rollout "
+              f"{min(ms):.6g} ms/step; per cell {total.flops / cells:.6g} "
+              f"float32, {total.fp64 / cells:.6g} float64 and "
+              f"{total.mufu / cells:.6g} MUFU operations; bound "
+              f"{bound_ms:.6g} ms ({bound_by}), {bound_ms / kern:.4g} of it; "
+              f"default GL-16 float32 K5 in this run {timing['K5'][0]:.6g} "
+              f"ms/step; K5 {launches['K5']} launches")
+        if bound_ms > kern:
+            raise AssertionError(f"K5 {tag}: bound above the time")
+        variants.append({
+            "name": f"{tag} ({ncol}x{nlev})", "variant": v.tag(), "ms": kern,
+            "rollout_ms": min(ms), "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": worst,
+            "launches": launches["K5"], "full_width_columns": n_cols,
+            "full_width_plain_s": plain_s,
+            "subkernels": {k: {"ms": parts[k], "launches": launches[k],
+                               "bound_ms": _ops_ms(ops[k]),
+                               "registers": attrs[k]["registers"],
+                               "spill_stores": attrs[k]["spill_stores"],
+                               "local_bytes": attrs[k]["local_bytes"],
+                               "shared_bytes": attrs[k]["shared_bytes"]}
+                           for k in ("K5a", "K5b", "K5c")}})
+        del model, state, first_ll
+        torch.cuda.empty_cache()
+        seconds[tag] = time.perf_counter() - t1
+    print(f"  K5 scope bit-identical to the plain step in {n_all} of {n_all} "
+          f"comparisons")
+    print(f"== phase 19: {time.perf_counter() - t0:.1f} s (by path: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
+    return variants
 
 if __name__ == "__main__":
     sys.exit(main())

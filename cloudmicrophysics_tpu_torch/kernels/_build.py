@@ -59,13 +59,15 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def index_header(names, guard: str) -> str:
-    """A C header with ``#define P_<name> <index>`` for each name and
-    ``N_PARAMS``: the device-side view of a parameter buffer's order."""
+def index_header(names, guard: str, defines=()) -> str:
+    """A C header with ``#define P_<name> <index>`` for each name,
+    ``defines`` (pairs of a macro name and its value) and ``N_PARAMS``: the
+    device-side view of a parameter buffer's order."""
     lines = [f"// Generated from the parameter list of the kernel's Python "
              f"module; do not edit.",
              f"#ifndef {guard}", f"#define {guard}"]
     lines += [f"#define P_{name} {i}" for i, name in enumerate(names)]
+    lines += [f"#define {name} {value}" for name, value in defines]
     lines += [f"#define N_PARAMS {len(names)}", "#endif", ""]
     return "\n".join(lines)
 

@@ -5,21 +5,25 @@ Port of ``cloudmicrophysics_tpu/kernels/column_p3.py``. The CUDA source
 ``csrc/column_p3.cu`` (with the warm-rain device code of ``csrc/warm2m.cuh``,
 shared with the 2M kernel) computes everything
 :func:`..models.column.step_column_p3` computes, in three kernels launched
-one after the other on the current stream and joined by a float32 scratch
-record of :data:`SCRATCH_FIELDS` rows of ``ncol * nlev`` (:func:`launch_plan`
-gives their grids):
+one after the other on the current stream and joined by a scratch record
+of :data:`SCRATCH_FIELDS` rows of ``ncol * nlev`` in the state's dtype
+(:func:`launch_plan` gives their grids):
 
 * K5a (:func:`launch_solve`), a thread per cell: the P3 shape solve
   (warm-started from an optional ``loglambda_guess``), the sanitized state,
   the PSD and the integration bounds, the cloud window of the collisions
   and the node pass's per-cell factors; :func:`loglambda_p3_fused` runs it
   alone;
-* K5b (:func:`launch_nodes`), a warp per cell (half a warp at order 4), a
-  lane per ice quadrature node: every contraction over the ice nodes
-  (liquid-ice collisions, blocked self-collection, melt, the weighted fall
-  speeds), each node-axis sum added one node at a time in node order;
+* K5b (:func:`launch_nodes`), a warp per cell (4N lanes when they divide a
+  warp), walking the cell's 4N ice quadrature nodes in chunks of two nodes
+  a lane at float32 and one at float64: every contraction over the ice
+  nodes (liquid-ice collisions,
+  blocked self-collection, melt, the weighted fall speeds), each node-axis
+  sum added one node at a time in node order;
 * K5c (:func:`launch_epilogue`), a thread per cell in blocks of whole
-  columns: the nucleation, freezing, sublimation/deposition and
+  columns, each walked from the top in chunks of at most
+  :data:`EPILOGUE_THREADS` levels: the nucleation, freezing,
+  sublimation/deposition and
   number-adjustment rates, the SB2006 warm rates, rain and ice
   sedimentation, latent heating, the clamp and ``q_rim <= q_ice``.
 
@@ -27,21 +31,26 @@ gives their grids):
 loglambda)``.
 
 A CPU tensor takes the plain version (:func:`step_column_p3_plain`, the eager
-step). A CUDA tensor launches the kernels, or raises ``NotImplementedError``
-for what they do not cover: dtypes other than float32, more than 256
-levels, quadrature orders other than 4, 8 and 16 (compiled variants of
-K5b), a slope law other than ``SlopePowerLaw``, an aspect ratio other than
-``Oblate``, ice nucleation other than ``Frostenberg2023``, an unlimited ice
-rain PSD, and the 2M kernel's exclusions. Both ``is_limited`` values and
-both rain velocity types of the warm rain are compiled variants of K5c,
-picked at launch; any float override is data in the parameter buffer.
+step). A CUDA tensor launches the kernels, in the whole scope of the eager
+step: float32 and float64, any number of levels, any quadrature order
+(Gauss-Legendre or Chebyshev-Gauss), either slope law, either aspect ratio,
+a limited or unlimited ice rain PSD, and the warm rain's options. It raises
+``NotImplementedError`` only for what the JAX step cannot run either:
+parameters without P3 ice, ice nucleation other than ``Frostenberg2023``,
+another dtype, and a rain velocity type the 2M step does not take. What
+changes the code is a build of the source (:func:`variant`: the dtype, the
+order, the slope law, the aspect ratio, the ice rain PSD's limiters), built
+at its first launch and cached on disk; both ``is_limited`` values and both
+rain velocity types of the warm rain are compiled variants of K5c, picked at
+launch; any float override is data in the parameter buffer.
 
-The kernels read the parameters from one float32 device buffer built on
-the host in float64 by :func:`kernel_params_p3`: the scalars, in the order of
-:data:`PARAM_NAMES` (which starts with the 2M kernel's list, so the shared
-warm-rain code reads the same indices), then the Gauss node/weight tables of
-the compiled order. The build writes the matching ``#define P_<name>``
-header from :data:`PARAM_NAMES`.
+The kernels read the parameters from one device buffer of the state's
+dtype, built on the host in float64 by :func:`kernel_params_p3`: the
+scalars, in the order of :data:`PARAM_NAMES` (which starts with the 2M
+kernel's list, so the shared warm-rain code reads the same indices), then
+the node/weight tables of the order's rules. The build writes the matching
+``#define P_<name>`` header from :data:`PARAM_NAMES`, with the variant's
+macros.
 """
 
 from __future__ import annotations
@@ -59,7 +68,7 @@ from ..ops import p3 as P3
 from ..ops import thermo as TDI
 from ..ops.p3_processes import liquid_quadrature, self_collection_inner_orders
 from ..parameters.ice_nucleation import Frostenberg2023
-from ..parameters.p3 import OBLATE, SlopePowerLaw
+from ..parameters.p3 import OBLATE, SlopeConstant, SlopePowerLaw
 from ..parameters.thermodynamics import ThermodynamicsParameters
 from ..utils.quadrature import GaussLegendre
 from ..utils.special import machine_eps
@@ -68,23 +77,17 @@ from . import column2m as K2M
 from .column1m import _check_cuda, _check_tiling
 
 __all__ = [
-    "ORDERS",
     "PARAM_NAMES",
     "SCRATCH_FIELDS",
+    "Variant",
     "kernel_params_p3",
     "launch_plan",
     "loglambda_p3_fused",
     "loglambda_p3_plain",
     "step_column_p3_fused",
     "step_column_p3_plain",
+    "variant",
 ]
-
-# K5c's threads per block (kEpiThreads in csrc/column_p3.cu): a block steps
-# whole columns, so nlev may not exceed it.
-MAX_NLEV = 256
-
-# Quadrature orders with a compiled variant of the kernel.
-ORDERS = (4, 8, 16)
 
 # Second blocks, in the order of the 2M blocks they shadow: the ice rain PSD
 # (read by the shared pdf_rain at an offset) and the ice container's Chen
@@ -106,12 +109,13 @@ PARAM_NAMES = K2M.PARAM_NAMES + ICE_RAIN_PDF_NAMES + ICE_CHEN_NAMES + (
     # thermodynamics
     "LH_F0", "CPLI", "LH_S0", "DCP_VI", "KV_I", "CL_I", "T_FRZ", "T_FRZ_M4",
     "E_SI_FRZ", "CP_L", "K_THERM", "D_VAPOR", "FOUR_K_THERM", "TAU_SD",
-    # P3 scheme: mass, area, slope, rime, ventilation
+    # P3 scheme: mass, area, slope (power law; constant), rime, ventilation
     "PI_F", "INV_PI", "ALPHA_VA", "BETA_VA", "RHO_I", "INV_RHO_I", "RHOI_PI6",
     "SIX_ALPHA", "THR_EXP", "D_TH", "RHO_RIM_MAX", "RHOD_NEGP", "RHOD_1MP",
     "THREE_SQRT_PI", "AREA_GAMMA", "AREA_SIGMA", "SLOPE_A", "SLOPE_B",
-    "SLOPE_C", "MU_MAX", "P3_T_FREEZE", "INV_TAU_WET", "P3_VENT_A",
-    "P3_VENT_BC", "RRL_A", "RRL_B", "RRL_C", "RRL_RHO8", "RRL_RHO_ICE",
+    "SLOPE_C", "MU_MAX", "SLOPE_MU", "P3_T_FREEZE", "INV_TAU_WET",
+    "P3_VENT_A", "P3_VENT_BC", "RRL_A", "RRL_B", "RRL_C", "RRL_RHO8",
+    "RRL_RHO_ICE",
     # Chen 2022 ice velocities
     "CS_A", "CS_B", "CS_C", "CS_E", "CS_F", "CS_C0U", "CS_C1U",
     "CL_A", "CL_B", "CL_E", "CL_H", "CL_U0", "CL_U1", "CL_B0", "CL_B1",
@@ -128,6 +132,9 @@ PARAM_NAMES = K2M.PARAM_NAMES + ICE_RAIN_PDF_NAMES + ICE_CHEN_NAMES + (
     "INV_XI_MAX", "INV_TAU_NI",
 )
 
+# the numpy scalar of each dtype a build takes
+_NP = {torch.float32: np.float32, torch.float64: np.float64}
+
 
 def _p_sat_ice_at_freezing(tps: ThermodynamicsParameters) -> float:
     """The saturation vapor pressure over ice at ``tps.T_freeze``, a Python
@@ -136,23 +143,34 @@ def _p_sat_ice_at_freezing(tps: ThermodynamicsParameters) -> float:
     return float(TDI.saturation_vapor_pressure_over_ice(tps, T))
 
 
-def _param_values_p3(mp, tps: ThermodynamicsParameters) -> dict:
-    """Every scalar the kernel reads, keyed by :data:`PARAM_NAMES`. The
-    products the eager code folds from Python floats are folded here the
-    same way, in float64; ``INV_<x>`` is ``1/x`` in float64 (PyTorch's CUDA
-    division of a tensor by a Python float multiplies by that reciprocal,
-    rounded once to float32). The tail probabilities are the float32 values
-    the eager step forms from its float32 tensors."""
+def _slope_values(slope) -> dict:
+    """The slope law's parameters: the power law's, or the constant mu (the
+    other law's entries are 0 and not read by its build)."""
+    if isinstance(slope, SlopeConstant):
+        return dict(SLOPE_A=0.0, SLOPE_B=0.0, SLOPE_C=0.0, MU_MAX=0.0,
+                    SLOPE_MU=slope.mu)
+    return dict(SLOPE_A=slope.a, SLOPE_B=slope.b, SLOPE_C=slope.c,
+                MU_MAX=slope.mu_max, SLOPE_MU=0.0)
+
+
+def _param_values_p3(mp, tps: ThermodynamicsParameters,
+                     dtype: torch.dtype = torch.float32) -> dict:
+    """Every scalar the kernel reads, keyed by :data:`PARAM_NAMES`, with the
+    thresholds of ``dtype``. The products the eager code folds from Python
+    floats are folded here the same way, in float64; ``INV_<x>`` is ``1/x``
+    in float64 (PyTorch's CUDA division of a tensor by a Python float
+    multiplies by that reciprocal, rounded once to the tensor's dtype). The
+    tail probabilities are the values the eager step forms from its tensors
+    of ``dtype``, rounded as it rounds them."""
     ice = mp.ice
     p3 = ice.scheme
     aps = mp.warm_rain.air_properties
     vel = ice.terminal_velocity
     pdf_c, pdf_r = ice.cloud_pdf, ice.rain_pdf
-    f32 = torch.float32
-    eps = machine_eps(f32)
+    eps = machine_eps(dtype)
     pi = math.pi
 
-    v = K2M._param_values(mp, tps)
+    v = K2M._param_values(mp, tps, dtype)
     # the second blocks: the ice rain PSD and the ice Chen rain coefficients
     ice_rain = K2M.rain_pdf_values(pdf_r)
     ice_chen = K2M.chen_rain_values(vel.rain)
@@ -161,10 +179,13 @@ def _param_values_p3(mp, tps: ThermodynamicsParameters) -> dict:
     for name, src in zip(ICE_CHEN_NAMES, _CHEN_BLOCK):
         v[name] = ice_chen[src]
 
-    # probabilities as the eager step rounds them in float32
-    one = np.float32(1.0)
-    ib_p_lo = np.float32(1e-6)
-    ib_p_hi = np.float32(1 - 1e-6)
+    # probabilities as the eager step rounds them in dtype: the ice bounds'
+    # p and 1 - p are tensors of it (ops/p3.py:integral_bounds), the cloud
+    # bounds' 1 - p is taken of a tensor of it (ops/m2.py)
+    r = _NP[dtype]
+    one = r(1.0)
+    ib_p_lo = r(1e-6)
+    ib_p_hi = r(1 - 1e-6)
     cb_p_hi = one - ib_p_lo
     nuD, muD = 3 * pdf_c.nu_c + 2, 3 * pdf_c.mu_c
     k_m = pdf_c.rho_w * pi / 6
@@ -182,7 +203,7 @@ def _param_values_p3(mp, tps: ThermodynamicsParameters) -> dict:
 
     v.update(
         ONE_M_EPS=1 - eps, EPS2=eps**2,
-        TWO_EPS=2 * eps, BIG=float(torch.finfo(f32).max), GI_TINY=1e-30,
+        TWO_EPS=2 * eps, BIG=float(torch.finfo(dtype).max), GI_TINY=1e-30,
         GI_BIG=1 / 1e-30, HALF_LOG_2PI=0.5 * math.log(2 * math.pi),
         SGS_UPPER=min(1.0 - eps, 42.0 * eps), SGS_K=-1.0 / math.log2(1.0 - eps),
         SGS_LO=-1.0 + eps, SGS_HI=min(1.0, 42.0 * eps),
@@ -203,8 +224,8 @@ def _param_values_p3(mp, tps: ThermodynamicsParameters) -> dict:
         D_TH=(6 * mass.alpha_va / (pi * p3.rho_i)) ** p,
         RHO_RIM_MAX=0.8 * p3.rho_l, RHOD_NEGP=-p, RHOD_1MP=1 - p,
         THREE_SQRT_PI=3 * math.sqrt(pi), AREA_GAMMA=p3.area.gamma,
-        AREA_SIGMA=p3.area.sigma, SLOPE_A=p3.slope.a, SLOPE_B=p3.slope.b,
-        SLOPE_C=p3.slope.c, MU_MAX=p3.slope.mu_max, P3_T_FREEZE=p3.T_freeze,
+        AREA_SIGMA=p3.area.sigma, **_slope_values(p3.slope),
+        P3_T_FREEZE=p3.T_freeze,
         INV_TAU_WET=1 / p3.tau_wet, P3_VENT_A=p3.vent.av,
         P3_VENT_BC=p3.vent.bv * (aps.nu_air / aps.D_vapor) ** (1.0 / 3.0),
         RRL_A=rrl.a, RRL_B=rrl.b, RRL_C=rrl.c,
@@ -256,18 +277,21 @@ def _tables(mp) -> np.ndarray:
 
 
 def kernel_params_p3(mp, tps: ThermodynamicsParameters,
-                     device: torch.device | str | None = None) -> torch.Tensor:
-    """The kernel's float32 parameter buffer: the scalars in
-    :data:`PARAM_NAMES` order, then the node/weight tables."""
-    values = _param_values_p3(mp, tps)
+                     device: torch.device | str | None = None,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The kernel's parameter buffer for states of ``dtype`` (float32 or
+    float64), on ``device``: the scalars in :data:`PARAM_NAMES` order, then
+    the node/weight tables, each folded in float64 and rounded once to
+    ``dtype``."""
+    _build.check_dtype(dtype, "P3")
+    values = _param_values_p3(mp, tps, dtype)
     if set(values) != set(PARAM_NAMES):
         raise AssertionError(
             "kernel parameter list out of sync: "
             f"{sorted(set(values) ^ set(PARAM_NAMES))}")
     scalars = np.array([float(values[n]) for n in PARAM_NAMES], np.float64)
     buf = np.concatenate([scalars, _tables(mp)])
-    return torch.tensor(buf, dtype=torch.float64, device=device).to(
-        torch.float32)
+    return torch.tensor(buf, dtype=torch.float64, device=device).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -295,8 +319,92 @@ def loglambda_p3_plain(state: ColumnStateP3, mp, loglambda_guess=None):
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrappers
+# Builds: one library per variant
 # ---------------------------------------------------------------------------
+
+class Variant(NamedTuple):
+    """What one build of the source is for: the state's dtype, the ice
+    quadrature order, and the P3 options that change the code."""
+
+    dtype: str = "float32"
+    order: int = 16
+    slope_constant: bool = False    # SlopeConstant, else SlopePowerLaw
+    oblate: bool = True             # the Oblate aspect ratio, else none
+    ice_rain_limited: bool = True   # mp.ice.rain_pdf.is_limited
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def tag(self) -> str:
+        """A short name: ``f32 GL-16``, ``f64 CG-100 SlopeConstant`` ..."""
+        from ..utils.quadrature import build_quadrature
+
+        rule = type(build_quadrature(self.order)).__name__
+        parts = [{"float32": "f32", "float64": "f64"}[self.dtype],
+                 f"{'GL' if rule == 'GaussLegendre' else 'CG'}-{self.order}"]
+        if self.slope_constant:
+            parts.append("SlopeConstant")
+        if not self.oblate:
+            parts.append("NoAspectRatio")
+        if not self.ice_rain_limited:
+            parts.append("unlimited ice rain PSD")
+        return " ".join(parts)
+
+
+DEFAULT_VARIANT = Variant()
+
+
+def variant(mp, dtype: torch.dtype = torch.float32) -> Variant:
+    """The build a step of ``mp`` on a state of ``dtype`` launches."""
+    scheme = mp.ice.scheme
+    return Variant(str(dtype).removeprefix("torch."), int(mp.ice.quad.n),
+                   isinstance(scheme.slope, SlopeConstant),
+                   scheme.aspect_ratio == OBLATE,
+                   bool(mp.ice.rain_pdf.is_limited))
+
+
+SOURCE = "column_p3.cu"
+# nvcc flags of each build of the source: the one the wrappers launch
+# (-lineinfo leaves the code as it is and maps each SASS instruction to its
+# source line, which kernels/opcount.py reads) and the operation-count
+# probe.
+BUILDS = {
+    "kernel": ("-lineinfo",),
+    "probe": ("-lineinfo", "-DK5_PROBE"),
+}
+
+
+def header(v: Variant = DEFAULT_VARIANT) -> str:
+    """The generated header of a build: ``#define P_<name> <index>`` of
+    :data:`PARAM_NAMES`, ``N_PARAMS`` and the variant's macros (``K5_REAL``,
+    ``K5_ORDER``, ``K5_SLOPE_CONSTANT``, ``K5_OBLATE``,
+    ``K5_ICE_RAIN_LIMITED``)."""
+    if v.order < 1:
+        raise ValueError(f"a quadrature order is at least 1, not {v.order}")
+    defines = (("K5_REAL", _build.c_type(v.torch_dtype)),
+               ("K5_ORDER", int(v.order)),
+               ("K5_SLOPE_CONSTANT", int(v.slope_constant)),
+               ("K5_OBLATE", int(v.oblate)),
+               ("K5_ICE_RAIN_LIMITED", int(v.ice_rain_limited)))
+    return _build.index_header(PARAM_NAMES, "COLUMN_P3_PARAMS_H", defines)
+
+
+def _flags(v: Variant, build: str) -> tuple:
+    return BUILDS[build] + _build.dtype_flags(v.torch_dtype)
+
+
+def library_path(build: str = "kernel", v: Variant = DEFAULT_VARIANT):
+    """The file of one of the kernel library's :data:`BUILDS` for variant
+    ``v`` (built if needed)."""
+    return _build.build(SOURCE, "column_p3_params.h", header(v), _flags(v, build))
+
+
+def probe_unrolls(v: Variant = DEFAULT_VARIANT) -> dict:
+    """The unroll factors the source's ``K5_COUNT`` sites name by constant,
+    as variant ``v`` sets them (``kernels/opcount.probe_sites``)."""
+    return {"kGiUnroll": 2 if v.dtype == "float64" else 4}
+
 
 # Threads per block of K5a, K5b and at most K5c (kSolveThreads, kNodeThreads,
 # kEpiThreads in csrc/column_p3.cu).
@@ -326,14 +434,28 @@ class LaunchPlan(NamedTuple):
     lanes_per_cell: int
     cells_per_block: int      # K5b cells per NODE_THREADS block
     epilogue_cols: int        # K5c: whole columns per block
-    epilogue_block: int       # K5c threads per block (epilogue_cols * nlev)
+    epilogue_levels: int      # K5c: levels of a column per chunk
+    epilogue_block: int       # K5c threads per block (cols * levels)
     epilogue_grid: int
 
 
 def lanes_per_cell(order: int) -> int:
     """K5b's lanes per cell: one per ice node (4 segments x ``order``
-    nodes), at most a warp."""
-    return min(32, 4 * order)
+    nodes) when they divide a warp, else a warp, which walks the nodes in
+    chunks of 32 (the last one ragged)."""
+    nodes = 4 * order
+    return nodes if nodes <= 32 and 32 % nodes == 0 else 32
+
+
+def node_chunks(order: int, dtype: torch.dtype = torch.float32
+                ) -> tuple[int, int]:
+    """K5b's walk over a cell's 4 x ``order`` ice nodes: (nodes per chunk,
+    chunks). Each of the cell's :func:`lanes_per_cell` lanes takes up to
+    two nodes a chunk at float32 and one at float64; lanes past the last
+    node of the last chunk are masked."""
+    nodes, lanes = 4 * order, lanes_per_cell(order)
+    per = min(-(-nodes // lanes), 2 if dtype == torch.float32 else 1)
+    return per * lanes, -(-nodes // (per * lanes))
 
 
 def launch_plan(ncol: int, nlev: int, order: int,
@@ -342,20 +464,17 @@ def launch_plan(ncol: int, nlev: int, order: int,
     quadrature ``order``. ``block_cols`` must divide ``ncol``; K5c's block
     steps the largest divisor of ``block_cols`` whose columns fit in
     EPILOGUE_THREADS threads (so that the blocks fill the card however
-    large ``block_cols`` is)."""
+    large ``block_cols`` is), each walked in chunks of at most
+    EPILOGUE_THREADS levels."""
     _check_tiling(ncol, block_cols)
-    if nlev > MAX_NLEV:
-        raise NotImplementedError(
-            f"the CUDA P3 column kernel supports nlev <= {MAX_NLEV}, "
-            f"not {nlev}")
-    if order not in ORDERS:
-        raise NotImplementedError(
-            f"the CUDA P3 column kernel supports quadrature orders {ORDERS}, "
-            f"not {order}")
+    if nlev < 1 or order < 1:
+        raise ValueError(f"the CUDA P3 column kernel needs nlev >= 1 and a "
+                         f"quadrature order >= 1, got {nlev} and {order}")
     ncells = ncol * nlev
     lanes = lanes_per_cell(order)
     per_block = NODE_THREADS // lanes
-    fit = EPILOGUE_THREADS // nlev
+    levels = min(nlev, EPILOGUE_THREADS)
+    fit = EPILOGUE_THREADS // levels
     cols = max(d for d in range(1, min(block_cols, fit) + 1)
                if block_cols % d == 0)
     return LaunchPlan(
@@ -363,86 +482,80 @@ def launch_plan(ncol: int, nlev: int, order: int,
         solve_grid=-(-ncells // SOLVE_THREADS),
         nodes_grid=-(-ncells // per_block),
         lanes_per_cell=lanes, cells_per_block=per_block,
-        epilogue_cols=cols, epilogue_block=cols * nlev,
-        epilogue_grid=ncol // cols)
+        epilogue_cols=cols, epilogue_levels=levels,
+        epilogue_block=cols * levels, epilogue_grid=ncol // cols)
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_F = ctypes.c_float
 
-SOURCE = "column_p3.cu"
-# nvcc flags of each build of the source: the one the wrappers launch
-# (-lineinfo leaves the code as it is and maps each SASS instruction to its
-# source line, which kernels/opcount.py reads) and the operation-count
-# probe.
-BUILDS = {
-    "kernel": ("-lineinfo",),
-    "probe": ("-lineinfo", "-DK5_PROBE"),
-}
+_LIBRARIES = {}
 
 
-def _header() -> str:
-    return _build.index_header(PARAM_NAMES, "COLUMN_P3_PARAMS_H")
-
-
-def library_path(build: str = "kernel"):
-    """The file of one of the kernel library's :data:`BUILDS` (built if
-    needed)."""
-    return _build.build(SOURCE, "column_p3_params.h", _header(),
-                        BUILDS[build])
-
-
-def _library(build: str = "kernel") -> ctypes.CDLL:
-    """One of the kernel library's :data:`BUILDS`, loaded."""
-    lib = _build.load(SOURCE, "column_p3_params.h", _header(), BUILDS[build])
-    if not getattr(lib, "_signatures_set", False):
-        lib.column_p3_solve.argtypes = [_P, _P, _P, _P, _P, _L, _I, _I, _P]
-        lib.column_p3_nodes.argtypes = [_P, _P, _P, _I, _L, _I, _I, _P]
-        lib.column_p3_epilogue.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
-                                           _F, _F, _I, _I, _I, _P]
-        for fn in (lib.column_p3_solve, lib.column_p3_nodes,
-                   lib.column_p3_epilogue, lib.column_p3_num_params,
-                   lib.column_p3_scratch_fields):
-            fn.restype = _I
-        for fn in (lib.column_p3_threads, lib.column_p3_lanes_per_cell,
-                   lib.column_p3_table_len):
-            fn.argtypes, fn.restype = [_I], _I
-        lib.column_p3_kernel_attrs.argtypes = [_I, _I, _P]
-        lib.column_p3_kernel_attrs.restype = _I
-        if build == "probe":
-            lib.column_p3_probe_set.argtypes = [_P, _L, _I]
-            lib.column_p3_probe_set.restype = _I
-            lib.column_p3_probe_regions.restype = _I
-        if lib.column_p3_num_params() != len(PARAM_NAMES):
-            raise RuntimeError("column_p3 library built from another "
-                               "parameter list")
-        if lib.column_p3_scratch_fields() != len(SCRATCH_FIELDS):
-            raise RuntimeError("column_p3 library built with another "
-                               "scratch record")
-        threads = (SOLVE_THREADS, NODE_THREADS, EPILOGUE_THREADS)
-        if tuple(lib.column_p3_threads(k) for k in range(3)) != threads:
-            raise RuntimeError("column_p3 library built with other block "
-                               "sizes")
-        for order in ORDERS:
-            if (lib.column_p3_table_len(order) != _table_len(order)
-                    or lib.column_p3_lanes_per_cell(order)
-                    != lanes_per_cell(order)):
-                raise RuntimeError("column_p3 library built with other "
-                                   "quadrature tables")
-        lib._signatures_set = True
+def _library(build: str = "kernel", v: Variant = DEFAULT_VARIANT
+             ) -> ctypes.CDLL:
+    """One of the kernel library's :data:`BUILDS` for variant ``v``, loaded
+    (built at its first launch) and checked against this module."""
+    key = (build, v)
+    lib = _LIBRARIES.get(key)
+    if lib is not None:
+        return lib
+    lib = _build.load(SOURCE, "column_p3_params.h", header(v), _flags(v, build))
+    _F = _build.c_scalar(v.torch_dtype)
+    lib.column_p3_solve.argtypes = [_P, _P, _P, _P, _P, _L, _I, _I, _P]
+    lib.column_p3_nodes.argtypes = [_P, _P, _P, _L, _I, _I, _P]
+    lib.column_p3_epilogue.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _F, _F, _I, _I, _I, _P]
+    for fn in (lib.column_p3_solve, lib.column_p3_nodes,
+               lib.column_p3_epilogue, lib.column_p3_num_params,
+               lib.column_p3_scratch_fields, lib.column_p3_lanes_per_cell,
+               lib.column_p3_node_chunk, lib.column_p3_node_chunks,
+               lib.column_p3_table_len):
+        fn.restype = _I
+    lib.column_p3_threads.argtypes, lib.column_p3_threads.restype = [_I], _I
+    lib.column_p3_kernel_attrs.argtypes = [_I, _P]
+    lib.column_p3_kernel_attrs.restype = _I
+    lib.column_p3_variant.argtypes, lib.column_p3_variant.restype = [_P], _I
+    if build == "probe":
+        lib.column_p3_probe_set.argtypes = [_P, _L, _I]
+        lib.column_p3_probe_set.restype = _I
+        lib.column_p3_probe_regions.restype = _I
+    if lib.column_p3_num_params() != len(PARAM_NAMES):
+        raise RuntimeError("column_p3 library built from another "
+                           "parameter list")
+    if lib.column_p3_scratch_fields() != len(SCRATCH_FIELDS):
+        raise RuntimeError("column_p3 library built with another "
+                           "scratch record")
+    threads = (SOLVE_THREADS, NODE_THREADS, EPILOGUE_THREADS)
+    if tuple(lib.column_p3_threads(k) for k in range(3)) != threads:
+        raise RuntimeError("column_p3 library built with other block "
+                           "sizes")
+    built = (ctypes.c_int * 5)()
+    lib.column_p3_variant(built)
+    want = (v.torch_dtype.itemsize, v.order, int(v.slope_constant),
+            int(v.oblate), int(v.ice_rain_limited))
+    if tuple(built) != want:
+        raise RuntimeError(f"column_p3 library built for {tuple(built)}, "
+                           f"not the variant {want}")
+    if (lib.column_p3_table_len() != _table_len(v.order)
+            or lib.column_p3_lanes_per_cell() != lanes_per_cell(v.order)
+            or (lib.column_p3_node_chunk(), lib.column_p3_node_chunks())
+            != node_chunks(v.order, v.torch_dtype)):
+        raise RuntimeError("column_p3 library built with other quadrature "
+                           "tables or node chunks")
+    _LIBRARIES[key] = lib
     return lib
 
 
-def kernel_attrs(lib: ctypes.CDLL, order: int) -> dict:
+def kernel_attrs(lib: ctypes.CDLL) -> dict:
     """Registers, local memory bytes per thread, static shared memory
-    bytes and the largest block of K5a, K5b (at ``order``) and K5c, as the
-    CUDA runtime reports them."""
+    bytes and the largest block of K5a, K5b and K5c of a loaded library,
+    as the CUDA runtime reports them."""
     out = {}
     for k, name in enumerate(("K5a", "K5b", "K5c")):
         vals = (ctypes.c_int * 4)()
-        err = lib.column_p3_kernel_attrs(k, order, vals)
+        err = lib.column_p3_kernel_attrs(k, vals)
         if err:
             raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error "
                                f"{err}")
@@ -458,50 +571,35 @@ def _table_len(order: int) -> int:
 
 
 def _check_supported(mp, nlev: int, dtype: torch.dtype) -> None:
+    """Raise ``NotImplementedError`` for what the JAX step cannot run
+    either: no P3 ice parameters, ice nucleation other than
+    ``Frostenberg2023`` (the step's nucleation code reads that scheme's
+    fields), a dtype other than float32 and float64, a rain velocity type
+    the 2M step does not take, a slope law neither package knows."""
     ice = getattr(mp, "ice", None)
     if ice is None:
         raise NotImplementedError(
             "the CUDA P3 column kernel needs the P3 ice parameters (mp.ice)")
-    if nlev > MAX_NLEV:
-        raise NotImplementedError(
-            f"the CUDA P3 column kernel supports nlev <= {MAX_NLEV}, "
-            f"not {nlev}")
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA P3 column kernel supports float32, not {dtype}")
+    _build.check_dtype(dtype, "P3")
     K2M._check_supported(
         type(mp)(warm_rain=mp.warm_rain, ice=None), nlev, dtype)
-    if ice.quadrature_order not in ORDERS or ice.quad.n != ice.quadrature_order:
-        raise NotImplementedError(
-            f"the CUDA P3 column kernel supports quadrature orders {ORDERS}, "
-            f"not {ice.quadrature_order}")
-    scheme = ice.scheme
-    if not isinstance(scheme.slope, SlopePowerLaw):
-        raise NotImplementedError(
-            "the CUDA P3 column kernel supports the SlopePowerLaw slope law, "
-            f"not {type(scheme.slope).__name__}")
-    if scheme.aspect_ratio != OBLATE:
-        raise NotImplementedError(
-            f"the CUDA P3 column kernel supports aspect_ratio={OBLATE!r}, "
-            f"not {scheme.aspect_ratio!r}")
     if not isinstance(ice.ice_nucleation, Frostenberg2023):
         raise NotImplementedError(
             "the CUDA P3 column kernel supports Frostenberg2023 ice "
             f"nucleation, not {type(ice.ice_nucleation).__name__}")
-    if not ice.rain_pdf.is_limited:
+    if not isinstance(ice.scheme.slope, (SlopePowerLaw, SlopeConstant)):
         raise NotImplementedError(
-            "the CUDA P3 column kernel supports the limited ice rain PSD "
-            "(mp.ice.rain_pdf.is_limited)")
+            f"unknown slope law {type(ice.scheme.slope).__name__}")
 
 
-def _device_params(params, mp, tps, device) -> torch.Tensor:
-    n = len(PARAM_NAMES) + _table_len(mp.ice.quadrature_order)
+def _device_params(params, mp, tps, device, dtype) -> torch.Tensor:
+    n = len(PARAM_NAMES) + _table_len(mp.ice.quad.n)
     if params is None:
-        return kernel_params_p3(mp, tps, device=device)
-    if (params.device != device or params.dtype != torch.float32
+        return kernel_params_p3(mp, tps, device=device, dtype=dtype)
+    if (params.device != device or params.dtype != dtype
             or params.shape != (n,) or not params.is_contiguous()):
         raise ValueError(
-            f"params must be a contiguous float32 ({n},) tensor on {device}")
+            f"params must be a contiguous {dtype} ({n},) tensor on {device}")
     return params
 
 
@@ -526,29 +624,36 @@ def launch_solve(lib, state, guess, loglam, scratch, params, plan, device):
     launch_solve.launches += 1
 
 
-def launch_nodes(lib, state, scratch, params, order, plan, device):
+def launch_nodes(lib, state, scratch, params, plan, device):
     """K5b on the current stream: the node-pass sums of ``scratch``."""
     _raise_on(lib.column_p3_nodes(
-        _ptrs(state), scratch.data_ptr(), params.data_ptr(), order,
+        _ptrs(state), scratch.data_ptr(), params.data_ptr(),
         state.rho.numel(), plan.nodes_grid, device.index,
         torch.cuda.current_stream(device).cuda_stream), "column_p3_nodes")
     launch_nodes.launches += 1
 
 
-def launch_epilogue(lib, state, out, scratch, params, plan, dt, dz, variant,
+def launch_epilogue(lib, state, out, scratch, params, plan, dt, dz, warm,
                     device):
-    """K5c on the current stream: the eleven fields of ``out``."""
+    """K5c on the current stream: the eleven fields of ``out``; ``warm``:
+    the warm rain's ``(is_limited, chen)`` variant."""
     ncol, nlev = state.rho.shape
-    limited, chen = variant
+    limited, chen = warm
     _raise_on(lib.column_p3_epilogue(
         _ptrs(state), _ptrs(out), scratch.data_ptr(), params.data_ptr(),
-        ncol, nlev, plan.epilogue_cols, plan.epilogue_grid, float(dt),
-        float(dz), limited, chen, device.index,
-        torch.cuda.current_stream(device).cuda_stream), "column_p3_epilogue")
+        ncol, nlev, plan.epilogue_cols, plan.epilogue_levels,
+        plan.epilogue_grid, float(dt), float(dz), limited, chen,
+        device.index, torch.cuda.current_stream(device).cuda_stream),
+        "column_p3_epilogue")
     launch_epilogue.launches += 1
 
 
 launch_solve.launches = launch_nodes.launches = launch_epilogue.launches = 0
+
+
+def warm_variant(mp) -> tuple:
+    """K5c's template variant: the warm rain's ``(is_limited, chen)``."""
+    return K2M._variant(type(mp)(warm_rain=mp.warm_rain, ice=None))
 
 
 def _check_fields(state, loglambda_guess, block_cols, where):
@@ -572,14 +677,14 @@ def loglambda_p3_fused(state: ColumnStateP3, mp, tps, loglambda_guess=None,
     if device is None:
         return loglambda_p3_plain(state, mp, loglambda_guess)
     ncol, nlev = state.rho.shape
-    _check_supported(mp, nlev, state.rho.dtype)
-    plan = launch_plan(ncol, nlev, mp.ice.quadrature_order, 1)
-    params = _device_params(params, mp, tps, device)
+    dtype = state.rho.dtype
+    _check_supported(mp, nlev, dtype)
+    plan = launch_plan(ncol, nlev, mp.ice.quad.n, 1)
+    params = _device_params(params, mp, tps, device, dtype)
     loglam = torch.empty_like(state.rho)
-    scratch = torch.empty(plan.scratch_shape, dtype=torch.float32,
-                          device=device)
-    launch_solve(_library(), state, loglambda_guess, loglam, scratch, params,
-                 plan, device)
+    scratch = torch.empty(plan.scratch_shape, dtype=dtype, device=device)
+    launch_solve(_library("kernel", variant(mp, dtype)), state,
+                 loglambda_guess, loglam, scratch, params, plan, device)
     return loglam
 
 
@@ -590,34 +695,34 @@ def step_column_p3_fused(state: ColumnStateP3, mp, tps, dt, dz,
     ``(new_state, loglambda)`` like :func:`step_column_p3`.
 
     On CUDA tensors it launches K5a (shape solve and bounds), K5b (ice node
-    pass) and K5c (rates, sedimentation, update) on the current stream,
-    joined by a ``(len(SCRATCH_FIELDS), ncol * nlev)`` float32 scratch
-    record it allocates (see :func:`launch_plan`). ``loglambda_guess``: an
+    pass) and K5c (rates, sedimentation, update) of the build for
+    :func:`variant` on the current stream, joined by a
+    ``(len(SCRATCH_FIELDS), ncol * nlev)`` scratch record of the state's
+    dtype it allocates (see :func:`launch_plan`). ``loglambda_guess``: an
     optional ``(ncol, nlev)`` warm start for the shape solve (the previous
     step's ``loglambda``). ``ncol`` must be a multiple of ``block_cols``.
-    ``params``: the buffer of :func:`kernel_params_p3`, built here when not
-    given. CPU tensors take :func:`step_column_p3_plain`.
+    ``params``: the buffer of :func:`kernel_params_p3` for the state's
+    dtype, built here when not given. CPU tensors take
+    :func:`step_column_p3_plain`.
     """
     device = _check_fields(state, loglambda_guess, block_cols,
                            "step_column_p3_fused")
     if device is None:
         return step_column_p3_plain(state, mp, tps, dt, dz, loglambda_guess)
     ncol, nlev = state.rho.shape
-    _check_supported(mp, nlev, state.rho.dtype)
-    order = mp.ice.quadrature_order
-    plan = launch_plan(ncol, nlev, order, block_cols)
-    params = _device_params(params, mp, tps, device)
-    lib = _library()
+    dtype = state.rho.dtype
+    _check_supported(mp, nlev, dtype)
+    plan = launch_plan(ncol, nlev, mp.ice.quad.n, block_cols)
+    params = _device_params(params, mp, tps, device, dtype)
+    lib = _library("kernel", variant(mp, dtype))
     out = ColumnStateP3(*(torch.empty_like(t) for t in state))
     loglam = torch.empty_like(state.rho)
-    scratch = torch.empty(plan.scratch_shape, dtype=torch.float32,
-                          device=device)
-    variant = K2M._variant(type(mp)(warm_rain=mp.warm_rain, ice=None))
+    scratch = torch.empty(plan.scratch_shape, dtype=dtype, device=device)
     launch_solve(lib, state, loglambda_guess, loglam, scratch, params, plan,
                  device)
-    launch_nodes(lib, state, scratch, params, order, plan, device)
-    launch_epilogue(lib, state, out, scratch, params, plan, dt, dz, variant,
-                    device)
+    launch_nodes(lib, state, scratch, params, plan, device)
+    launch_epilogue(lib, state, out, scratch, params, plan, dt, dz,
+                    warm_variant(mp), device)
     step_column_p3_fused.launches += 1
     return out, loglam
 

@@ -64,6 +64,11 @@ __device__ __forceinline__ Dbl sqrt_(Dbl x) { return Dbl(sqrt(x.v)); }
 __device__ __forceinline__ Dbl pow_(Dbl x, Dbl p) { return Dbl(pow(x.v, p.v)); }
 __device__ __forceinline__ Dbl lgamma_(Dbl x) { return Dbl(lgamma(x.v)); }
 __device__ __forceinline__ Dbl fabs_(Dbl x) { return Dbl(fabs(x.v)); }
+__device__ __forceinline__ Dbl tanh_(Dbl x) { return Dbl(tanh(x.v)); }
+__device__ __forceinline__ Dbl atanh_(Dbl x) { return Dbl(atanh(x.v)); }
+__device__ __forceinline__ bool isnan_(Dbl x) { return isnan(x.v); }
+__device__ __forceinline__ bool isinf_(Dbl x) { return isinf(x.v); }
+__device__ __forceinline__ bool isfinite_(Dbl x) { return isfinite(x.v); }
 __device__ __forceinline__ bool same_bits(Dbl a, Dbl b) {
   return __double_as_longlong(a.v) == __double_as_longlong(b.v);
 }
@@ -83,6 +88,11 @@ __device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
 __device__ __forceinline__ float pow_(float x, float p) { return powf(x, p); }
 __device__ __forceinline__ float lgamma_(float x) { return lgammaf(x); }
 __device__ __forceinline__ float fabs_(float x) { return fabsf(x); }
+__device__ __forceinline__ float tanh_(float x) { return tanhf(x); }
+__device__ __forceinline__ float atanh_(float x) { return atanhf(x); }
+__device__ __forceinline__ bool isnan_(float x) { return isnan(x); }
+__device__ __forceinline__ bool isinf_(float x) { return isinf(x); }
+__device__ __forceinline__ bool isfinite_(float x) { return isfinite(x); }
 
 // equal bit patterns (NaN and -0 included)
 __device__ __forceinline__ bool same_bits(float a, float b) {

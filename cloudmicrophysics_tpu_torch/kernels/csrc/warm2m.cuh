@@ -3,9 +3,10 @@
 //
 // The includer first includes its generated parameter header, and chooses
 // how a parameter is read:
-// * by default from the float32 parameter buffer `P` in global memory, at
-//   the index P_<name> of the header (both parameter lists start with the
-//   2M list, so the indices agree): the 2M + P3 kernel;
+// * by default from the parameter buffer `P` in global memory (float for
+//   float cells, double for Dbl cells: param_t), at the index P_<name> of
+//   the header (both parameter lists start with the 2M list, so the indices
+//   agree), as the cells' type: the 2M + P3 kernel;
 // * with WARM2M_LITERAL_PARAMS defined before the include, as the exact
 //   float literal PC_<name> of the header, an immediate operand: the 2M
 //   column kernel, built once per parameter block. The functions' `P`
@@ -13,9 +14,9 @@
 //   second block of the list (PVO takes OFF == 0 only).
 //
 // The cell functions are templates on the scalar type R of the cells,
-// deduced from their arguments: float for the 2M + P3 kernel and the
-// float32 2M build, real.cuh's Dbl for the float64 2M build (literal
-// parameters only: the header of a float64 build writes double literals).
+// deduced from their arguments: float for the float32 builds, real.cuh's
+// Dbl for the float64 builds (a literal header writes double literals, a
+// float64 parameter buffer holds doubles).
 // Their math calls go through real.cuh, so R = float is the float code it
 // always was.
 //
@@ -47,12 +48,29 @@ struct NoOffset {
 #define PV(name) (PC_##name)
 #define PVO(name) ((void)sizeof(::warm2m::NoOffset<OFF>), (PC_##name))
 #else
-#define PV(name) __ldg(P + P_##name)
+#define PV(name) ::warm2m::ldp(P + P_##name)
 // the same name OFF entries further on: a second block of the parameter list
 // laid out in the same order (the P3 kernel's ice rain PSD and ice Chen 2022
 // rain coefficients)
-#define PVO(name) __ldg(P + P_##name + OFF)
+#define PVO(name) ::warm2m::ldp(P + P_##name + OFF)
 #endif
+
+// the element type of the parameter buffer of cells computing on R, and a
+// read-only load of one parameter as R
+template <typename R>
+struct ParamOf;
+template <>
+struct ParamOf<float> {
+  using type = float;
+};
+template <>
+struct ParamOf<Dbl> {
+  using type = double;
+};
+template <typename R>
+using param_t = typename ParamOf<R>::type;
+__device__ __forceinline__ float ldp(const float* p) { return __ldg(p); }
+__device__ __forceinline__ Dbl ldp(const double* p) { return Dbl(__ldg(p)); }
 
 constexpr float kThird = (float)(1.0 / 3.0);
 constexpr float kSixth = (float)(1.0 / 6.0);
@@ -103,7 +121,7 @@ using RainPDF = RainPDFT<float>;
 // ops/m2.py:pdf_rain_parameters; OFF selects the block of the PSD's
 // parameters (XR_MIN ... PI_RHO_W, in that order)
 template <bool LIMITED, int OFF = 0, typename R>
-__device__ __forceinline__ RainPDFT<R> pdf_rain(const float* __restrict__ P,
+__device__ __forceinline__ RainPDFT<R> pdf_rain(const param_t<R>* __restrict__ P,
                                                 R q, R rho, R N) {
   const R em = PV(EM), en = PV(EN);
   const R safe_q = maxf(q, em);
@@ -175,7 +193,7 @@ struct ChenRainT {
 using ChenRain = ChenRainT<float>;
 
 template <int OFF = 0, typename R>
-__device__ __forceinline__ ChenRainT<R> chen_rain_coeffs(const float* __restrict__ P,
+__device__ __forceinline__ ChenRainT<R> chen_rain_coeffs(const param_t<R>* __restrict__ P,
                                                          R rho) {
   const R rho_a = maxf(rho, R(0));
   const R shared = exp_(PVO(CH_RHO0) * rho_a - PVO(CH_BRHO) * rho_a * PVO(LOG1000));
@@ -206,7 +224,7 @@ using WarmRates = WarmRatesT<float>;
 // n_rai is negative, and equal arguments give equal results: the second is
 // then the first, not evaluated again.
 template <bool LIMITED, typename R>
-__device__ __forceinline__ void rain_pdfs(const float* __restrict__ P, R rho,
+__device__ __forceinline__ void rain_pdfs(const param_t<R>* __restrict__ P, R rho,
                                           R q_rai, R n_rai,
                                           RainPDFT<R>& rates, RainPDFT<R>& speeds) {
   const R em = PV(EM), en = PV(EN);
@@ -227,7 +245,7 @@ __device__ __forceinline__ void rain_pdfs(const float* __restrict__ P, R rho,
 // q_ice in the moist heat capacity and the vapor content (0 without ice);
 // `pdf`: the rain PSD of the rates (rain_pdfs), evaluated here when null
 template <bool LIMITED, typename R>
-__device__ __forceinline__ WarmRatesT<R> warm_rates(const float* __restrict__ P,
+__device__ __forceinline__ WarmRatesT<R> warm_rates(const param_t<R>* __restrict__ P,
                                                     R rho, R T, R q_tot,
                                                     R q_lcl, R n_lcl,
                                                     R q_rai, R n_rai,
@@ -393,7 +411,7 @@ using RainSpeeds = RainSpeedsT<float>;
 // step calls it: SB2006 (Rogers-type) or Chen 2022 fall speeds; `pdf`: the
 // rain PSD of the fall speeds (rain_pdfs), evaluated here when null
 template <bool LIMITED, bool CHEN, typename R>
-__device__ __forceinline__ RainSpeedsT<R> rain_fall_speeds(const float* __restrict__ P,
+__device__ __forceinline__ RainSpeedsT<R> rain_fall_speeds(const param_t<R>* __restrict__ P,
                                                            R rho, R q_rai,
                                                            R n_rai,
                                                            const RainPDFT<R>* pdf = nullptr) {

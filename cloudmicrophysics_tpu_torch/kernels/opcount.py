@@ -8,7 +8,9 @@ Two sources meet here:
   inlined calls that led there) and its branches;
 * how often each region of the source ran: for K5, the probe build of
   ``csrc/column_p3.cu`` (``-DK5_PROBE``), whose ``K5_COUNT(region[,
-  unroll])`` sites count per thread how often each region ran; for K1-K4,
+  unroll])`` sites count per thread how often each region ran (an unroll
+  factor is a number, or a constant of the source whose value the caller
+  gives for the build); for K1-K4,
   the per-cell function ``cell_step`` (:func:`function_block`), which runs
   once per cell at its one call site (:func:`call_site_tally`).
 
@@ -133,7 +135,7 @@ def _tally(ins: Instr) -> Tally:
     return Tally(1.0, flops, 1.0 if base == "MUFU" else 0.0, fp64)
 
 
-_SITE = re.compile(r"\bK5_COUNT\((\w+)(?:\s*,\s*(\d+))?\)")
+_SITE = re.compile(r"\bK5_COUNT\((\w+)(?:\s*,\s*(\w+))?\)")
 
 
 def region_names(source: str) -> list:
@@ -163,9 +165,12 @@ def _brace_blocks(source: str) -> list:
     return blocks
 
 
-def probe_sites(source: str) -> dict:
+def probe_sites(source: str, unrolls=None) -> dict:
     """Region name -> :class:`Site` for every K5_COUNT in ``source`` (the
-    macro's own definition excluded); each region has one site."""
+    macro's own definition excluded); each region has one site. An unroll
+    factor named by a constant takes its value from ``unrolls`` (a dict of
+    the build's constants); a name missing there raises ``ValueError``."""
+    unrolls = unrolls or {}
     blocks = _brace_blocks(source)
     sites = {}
     for lineno, line in enumerate(source.splitlines(), 1):
@@ -180,7 +185,13 @@ def probe_sites(source: str) -> dict:
             if not inner:
                 raise ValueError(f"K5_COUNT({name}) outside any block")
             start, end = max(inner, key=lambda b: b[0])
-            sites[name] = Site(start, end, int(m.group(2) or 1))
+            factor = m.group(2) or "1"
+            if not factor.isdigit():
+                if factor not in unrolls:
+                    raise ValueError(f"K5_COUNT({name}): no value given for "
+                                     f"the unroll factor {factor}")
+                factor = unrolls[factor]
+            sites[name] = Site(start, end, int(factor))
     return sites
 
 

@@ -575,12 +575,17 @@ def step_column_p3(state: ColumnStateP3, mp, tps: ThermodynamicsParameters,
 
 
 class ColumnP3Step(nn.Module):
-    """One fused 2M warm-rain + P3 ice column step (explicit Euler).
+    """One fused 2M warm-rain + P3 ice column step (explicit Euler), in the
+    whole scope of :func:`step_column_p3`: any quadrature order, either
+    slope law and aspect ratio, a limited or unlimited ice rain PSD, float32
+    or float64 states, any number of levels.
 
     Holds the parameters, ``dt``, ``dz`` and the kernel's float32 parameter
-    buffer (computed on the host in float64, stored on ``device``: the GPU
-    unless ``device="cpu"`` is asked for; it follows the module through
-    ``.to(device)``). ``forward(state, loglambda_guess=None)`` advances a
+    buffer ``params`` (computed on the host in float64, rounded once and
+    stored on ``device``: the GPU unless ``device="cpu"`` is asked for; it
+    follows the module through ``.to(device)``); a float64 state steps with
+    a float64 buffer, registered at its first step (:meth:`block`).
+    ``forward(state, loglambda_guess=None)`` advances a
     :class:`ColumnStateP3` by one step and returns ``(state, loglambda)``;
     pass the returned ``loglambda`` as the next step's guess to warm-start
     the shape solve. On CUDA tensors it launches the step's three kernels
@@ -601,11 +606,29 @@ class ColumnP3Step(nn.Module):
                                                         device=device),
                              persistent=False)
 
+    def block(self, dtype: torch.dtype) -> torch.Tensor:
+        """The parameter buffer for states of ``dtype``: ``params`` when it
+        is of that dtype, else a buffer registered as ``params_<dtype>`` on
+        ``params``' device at its first use."""
+        from ..kernels.column_p3 import kernel_params_p3
+
+        if dtype == self.params.dtype:
+            return self.params
+        name = "params_" + str(dtype).removeprefix("torch.")
+        if name not in self._buffers:
+            self.register_buffer(name, kernel_params_p3(
+                self.mp, self.tps, device=self.params.device, dtype=dtype),
+                persistent=False)
+        return self._buffers[name]
+
     def forward(self, state: ColumnStateP3, loglambda_guess=None):
         from ..kernels.column_p3 import step_column_p3_fused
 
         if _sharded(state):
             return _per_shard(self.forward, state, loglambda_guess)
+        dtype = state.rho.dtype
+        params = (self.block(dtype)
+                  if dtype in (torch.float32, torch.float64) else None)
         return step_column_p3_fused(
             state, self.mp, self.tps, self.dt, self.dz, loglambda_guess,
-            block_cols=_block_cols(state.rho.shape[0]), params=self.params)
+            block_cols=_block_cols(state.rho.shape[0]), params=params)

@@ -343,8 +343,14 @@ def test_p3_kernel_keeps_its_parameter_loads():
     assert '#include "column_p3_params.h"\n#include "warm2m.cuh"' in src
     shared = _source("warm2m.cuh")
     default = shared[shared.index("#else"):shared.index("#endif")]
-    assert "#define PV(name) __ldg(P + P_##name)" in default
-    assert "#define PVO(name) __ldg(P + P_##name + OFF)" in default
+    assert "#define PV(name) ::warm2m::ldp(P + P_##name)" in default
+    assert "#define PVO(name) ::warm2m::ldp(P + P_##name + OFF)" in default
+    # a read-only load as the cells' type: float from a float32 buffer,
+    # real.cuh's Dbl from a float64 one
+    assert ("__device__ __forceinline__ float ldp(const float* p) { return "
+            "__ldg(p); }") in shared
+    assert ("__device__ __forceinline__ Dbl ldp(const double* p) { return "
+            "Dbl(__ldg(p)); }") in shared
 
 
 @pytest.mark.parametrize("options", [OPTIONS[0], OPTIONS[3]])

@@ -153,6 +153,12 @@ def test_column_p3_step_module_equals_step(dtype):
     st = _torch_state(_arrays(), dtype)
     model = TC.ColumnP3Step(MP_T, TPS_T, DT, DZ, device="cpu")
     assert model.params.dtype == torch.float32
+    assert model.block(torch.float32) is model.params
+    # the buffer a state steps with is in the state's dtype
+    block = model.block(dtype)
+    assert block.dtype == dtype and model.block(dtype) is block
+    torch.testing.assert_close(
+        block, TK.kernel_params_p3(MP_T, TPS_T, dtype=dtype), rtol=0, atol=0)
     before = TK.step_column_p3_fused.launches
     out, ll = model(st)
     ref, ll_ref = TC.step_column_p3(st, MP_T, TPS_T, DT, DZ)
@@ -180,32 +186,81 @@ def test_fused_wrapper_checks_shapes_and_tiling():
 # what the CUDA path accepts, and the kernel's parameter buffer
 # ---------------------------------------------------------------------------
 
-def _p3(**kw):
-    return TP.microphysics_2m_params(with_ice=True, **kw)
+def _p3(ice_rain_limited=True, **kw):
+    mp = TP.microphysics_2m_params(with_ice=True, **kw)
+    if ice_rain_limited:
+        return mp
+    return dataclasses.replace(mp, ice=dataclasses.replace(
+        mp.ice, rain_pdf=dataclasses.replace(mp.ice.rain_pdf,
+                                             is_limited=False)))
+
+
+# the quadrature orders the CUDA path is held to: every Gauss-Legendre order
+# of build_quadrature, and Chebyshev-Gauss orders where 32 does not divide
+# 4N and N is odd (5, 25) and the reference default (100)
+SCOPE_ORDERS = (4, 8, 16, 32, 40, 64, 5, 25, 100)
 
 
 @pytest.mark.parametrize("mp,nlev,dtype,match", [
     (TP.microphysics_2m_params(), 16, torch.float32, "mp.ice"),
-    (_p3(), 16, torch.float64, "float32"),
-    (_p3(), TK.MAX_NLEV + 1, torch.float32, "nlev"),
-    (_p3(quadrature_order=32), 16, torch.float32, "quadrature orders"),
-    (_p3(slope_law="constant"), 16, torch.float32, "SlopePowerLaw"),
-    (_p3(aspect_ratio="NoAspectRatio"), 16, torch.float32, "aspect_ratio"),
+    (TP.microphysics_1m_params(), 16, torch.float32, "mp.ice"),
+    (_p3(ice_nucleation=TP.Mohler2006()), 16, torch.float32,
+     "Frostenberg2023"),
+    (_p3(), 16, torch.float16, "float32 and float64"),
+    (_p3(), 16, torch.bfloat16, "float32 and float64"),
 ])
 def test_cuda_path_rejects_what_the_kernel_lacks(mp, nlev, dtype, match):
+    # only what the JAX step cannot run either (tests/
+    # test_torch_column_p3_scope.py holds both packages to it)
     with pytest.raises(NotImplementedError, match=match):
         TK._check_supported(mp, nlev, dtype)
 
 
-@pytest.mark.parametrize("order", TK.ORDERS)
+@pytest.mark.parametrize("order", SCOPE_ORDERS)
 @pytest.mark.parametrize("options", [
-    {}, dict(is_limited=False, rain_velocity="chen2022")])
+    {}, dict(is_limited=False, rain_velocity="chen2022"),
+    dict(slope_law="constant"), dict(aspect_ratio="NoAspectRatio"),
+    dict(ice_rain_limited=False), dict(dtype=torch.float64),
+    dict(nlev=512)])
 def test_cuda_path_accepts_its_scope(order, options):
-    TK._check_supported(_p3(quadrature_order=order, **options), TK.MAX_NLEV,
-                        torch.float32)
+    options = dict(options)
+    dtype = options.pop("dtype", torch.float32)
+    nlev = options.pop("nlev", 128)
+    mp = _p3(quadrature_order=order, **options)
+    TK._check_supported(mp, nlev, dtype)
+    v = TK.variant(mp, dtype)
+    assert v == TK.Variant(str(dtype).removeprefix("torch."), order,
+                           options.get("slope_law") == "constant",
+                           "aspect_ratio" not in options,
+                           options.get("ice_rain_limited", True))
+    header = TK.header(v)
+    for macro, value in (("K5_REAL", _build.c_type(dtype)),
+                         ("K5_ORDER", order),
+                         ("K5_SLOPE_CONSTANT", int(v.slope_constant)),
+                         ("K5_OBLATE", int(v.oblate)),
+                         ("K5_ICE_RAIN_LIMITED", int(v.ice_rain_limited))):
+        assert f"#define {macro} {value}\n" in header
+    plan = TK.launch_plan(8, nlev, order, 8)
+    assert plan.epilogue_levels == min(nlev, TK.EPILOGUE_THREADS)
+    params = TK.kernel_params_p3(mp, TPS_T, dtype=dtype)
+    assert params.dtype == dtype
+    assert params.shape == (len(TK.PARAM_NAMES) + TK._table_len(order),)
 
 
-@pytest.mark.parametrize("order", TK.ORDERS)
+def test_variant_tags_and_headers_differ():
+    tags = {TK.variant(_p3(quadrature_order=o), dt).tag()
+            for o in (16, 40, 100) for dt in (torch.float32, torch.float64)}
+    assert "f32 GL-16" in tags and "f64 CG-100" in tags and len(tags) == 6
+    assert TK.Variant(slope_constant=True, oblate=False,
+                      ice_rain_limited=False).tag() == (
+        "f32 GL-16 SlopeConstant NoAspectRatio unlimited ice rain PSD")
+    headers = {TK.header(TK.Variant(order=o)) for o in (4, 5, 16)}
+    assert len(headers) == 3
+    with pytest.raises(ValueError, match="at least 1"):
+        TK.header(TK.Variant(order=0))
+
+
+@pytest.mark.parametrize("order", SCOPE_ORDERS)
 def test_kernel_params_buffer(order):
     mp = _p3(quadrature_order=order)
     p = TK.kernel_params_p3(mp, TPS_T)
@@ -227,6 +282,52 @@ def test_kernel_params_buffer(order):
                                   y.ravel().astype(np.float32))
     np.testing.assert_array_equal(p[n + order:n + 2 * order].numpy(),
                                   w.ravel().astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_params_thresholds_are_the_eager_steps(dtype):
+    """The eps-derived constants and the tail probabilities of the buffer
+    are those the eager step of ``dtype`` forms: machine eps of ``dtype``,
+    the ice bounds' ``p`` and ``1 - p`` as tensors of it
+    (ops/p3.py:integral_bounds), the cloud bounds' ``1 - p`` taken of a
+    tensor of it (ops/m2.py:size_distribution_bounds_cloud)."""
+    p = TK.kernel_params_p3(_p3(quadrature_order=8), TPS_T, dtype=dtype)
+    at = {name: p[i] for i, name in enumerate(TK.PARAM_NAMES)}
+    fi = torch.finfo(dtype)
+    eps = fi.eps
+
+    def t(v):
+        return torch.tensor(v, dtype=dtype)
+
+    for name, want in (
+            ("EPS_MACH", t(eps)), ("EM", t(eps)), ("TINY", t(fi.tiny)),
+            ("ONE_M_EPS", t(1 - eps)), ("EPS2", t(eps**2)),
+            ("TWO_EPS", t(2 * eps)), ("BIG", t(fi.max)),
+            ("SGS_UPPER", t(min(1.0 - eps, 42.0 * eps))),
+            ("SGS_LO", t(-1.0 + eps)), ("SGS_HI", t(42.0 * eps)),
+            ("IB_P_LO", t(1e-6)), ("IB_Q_LO", 1 - t(1e-6)),
+            ("IB_P_HI", t(1 - 1e-6)), ("IB_Q_HI", 1 - t(1 - 1e-6)),
+            ("CB_P_LO", t(1e-6)), ("CB_Q_LO", 1 - t(1e-6)),
+            ("CB_P_HI", 1 - t(1e-6)), ("CB_Q_HI", 1 - (1 - t(1e-6)))):
+        assert torch.equal(at[name], want), name
+    # float64's are not float32's rounded up
+    if dtype == torch.float64:
+        assert at["ONE_M_EPS"].item() > float(np.float32(1 - 2**-23))
+        assert at["IB_Q_HI"].item() != float(np.float32(1) - np.float32(
+            1 - 1e-6))
+
+
+def test_kernel_params_slope_laws():
+    names = TK.PARAM_NAMES
+    power = TK.kernel_params_p3(_p3(), TPS_T, dtype=torch.float64)
+    const = TK.kernel_params_p3(_p3(slope_law="constant"), TPS_T,
+                                dtype=torch.float64)
+    slope = _p3().ice.scheme.slope
+    assert power[names.index("SLOPE_A")].item() == slope.a
+    assert power[names.index("MU_MAX")].item() == slope.mu_max
+    assert const[names.index("SLOPE_MU")].item() == \
+        _p3(slope_law="constant").ice.scheme.slope.mu
+    assert const[names.index("SLOPE_A")].item() == 0.0
 
 
 def test_kernel_params_take_overrides():
@@ -265,10 +366,11 @@ def test_cuda_source_reads_exactly_the_parameter_list():
 # the launch plan of K5's three kernels
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("order", TK.ORDERS)
+@pytest.mark.parametrize("order", SCOPE_ORDERS)
 @pytest.mark.parametrize("ncol,nlev,block_cols", [
     (16384, 128, 128), (640, 16, 64), (4096, 64, 256), (1000, 40, 8),
-    (1000, 40, 40), (96, 256, 32), (7, 5, 7), (3, 1, 3)])
+    (1000, 40, 40), (96, 256, 32), (7, 5, 7), (3, 1, 3), (4096, 512, 128),
+    (6, 300, 3)])
 def test_launch_plan_covers_every_cell(ncol, nlev, order, block_cols):
     plan = TK.launch_plan(ncol, nlev, order, block_cols)
     ncells = ncol * nlev
@@ -276,20 +378,49 @@ def test_launch_plan_covers_every_cell(ncol, nlev, order, block_cols):
     # K5a: a thread per cell
     assert (plan.solve_grid - 1) * TK.SOLVE_THREADS < ncells \
         <= plan.solve_grid * TK.SOLVE_THREADS
-    # K5b: a lane per ice node (4 segments x order), at most a warp a cell
-    assert plan.lanes_per_cell == min(32, 4 * order)
-    assert 32 % plan.lanes_per_cell == 0
-    assert plan.cells_per_block * plan.lanes_per_cell == TK.NODE_THREADS
+    # K5b: a lane per ice node (4 segments x order) when they divide a
+    # warp, else a warp walking the nodes in chunks, the last one ragged
+    lanes = plan.lanes_per_cell
+    assert lanes == (4 * order if 32 % (4 * order) == 0 else 32)
+    assert 32 % lanes == 0
+    for dtype in (torch.float32, torch.float64):
+        per, chunks = TK.node_chunks(order, dtype)
+        assert per % lanes == 0 and chunks * per >= 4 * order \
+            > (chunks - 1) * per
+    assert plan.cells_per_block * lanes == TK.NODE_THREADS
     assert (plan.nodes_grid - 1) * plan.cells_per_block < ncells \
         <= plan.nodes_grid * plan.cells_per_block
     # K5c: blocks of whole columns tiling block_cols, within a block's
-    # threads, and as many columns as fit
-    cols = plan.epilogue_cols
+    # threads, and as many columns as fit; each column in chunks of at
+    # most a block's threads of levels
+    cols, levels = plan.epilogue_cols, plan.epilogue_levels
+    assert levels == min(nlev, TK.EPILOGUE_THREADS)
+    assert -(-nlev // levels) * levels >= nlev
     assert block_cols % cols == 0 and plan.epilogue_grid * cols == ncol
-    assert plan.epilogue_block == cols * nlev <= TK.EPILOGUE_THREADS
-    fit = TK.EPILOGUE_THREADS // nlev
+    assert plan.epilogue_block == cols * levels <= TK.EPILOGUE_THREADS
+    fit = TK.EPILOGUE_THREADS // levels
     assert all(block_cols % d for d in range(cols + 1, min(block_cols, fit)
                                              + 1))
+
+
+@pytest.mark.parametrize("dtype,order,lanes,per,chunks,masked", [
+    ("float32", 1, 4, 4, 1, 0), ("float32", 2, 8, 8, 1, 0),
+    ("float32", 4, 16, 16, 1, 0), ("float32", 8, 32, 32, 1, 0),
+    ("float32", 16, 32, 64, 1, 0), ("float32", 5, 32, 32, 1, 12),
+    ("float32", 25, 32, 64, 2, 28), ("float32", 40, 32, 64, 3, 32),
+    ("float32", 100, 32, 64, 7, 48), ("float32", 3, 32, 32, 1, 20),
+    ("float64", 4, 16, 16, 1, 0), ("float64", 16, 32, 32, 2, 0),
+    ("float64", 5, 32, 32, 1, 12), ("float64", 40, 32, 32, 5, 0),
+    ("float64", 100, 32, 32, 13, 16)])
+def test_launch_plan_ragged_node_chunks(dtype, order, lanes, per, chunks,
+                                        masked):
+    """K5b's lanes per cell and its chunks of ice nodes (two nodes a lane
+    at float32, one at float64): the lanes of the last chunk past the
+    cell's 4N nodes are masked, not dropped. The library's own numbers
+    are checked against these at load."""
+    assert TK.lanes_per_cell(order) == lanes
+    assert TK.node_chunks(order, getattr(torch, dtype)) == (per, chunks)
+    assert chunks * per - 4 * order == masked
 
 
 def test_launch_plan_fills_the_card_at_the_p3_size():
@@ -303,9 +434,8 @@ def test_launch_plan_fills_the_card_at_the_p3_size():
 @pytest.mark.parametrize("ncol,nlev,order,block_cols,error,match", [
     (100, 16, 16, 48, ValueError, "not a multiple"),
     (100, 16, 16, 0, ValueError, "block_cols"),
-    (8, TK.MAX_NLEV + 1, 16, 8, NotImplementedError, "nlev"),
-    (8, 16, 32, 8, NotImplementedError, "quadrature orders"),
-    (8, 16, 6, 8, NotImplementedError, "quadrature orders"),
+    (8, 0, 16, 8, ValueError, "nlev >= 1"),
+    (8, 16, 0, 8, ValueError, "order >= 1"),
 ])
 def test_launch_plan_rejects(ncol, nlev, order, block_cols, error, match):
     with pytest.raises(error, match=match):
@@ -326,7 +456,7 @@ def test_scratch_record_matches_the_source():
         assert re.search(rf"\b{const} = {value}\b", src), const
 
 
-@pytest.mark.parametrize("order", TK.ORDERS)
+@pytest.mark.parametrize("order", SCOPE_ORDERS)
 def test_loglambda_wrapper_takes_the_plain_solve_on_cpu(order):
     mp = _p3(quadrature_order=order)
     st = _torch_state(_arrays(), torch.float32)

@@ -291,14 +291,11 @@ def test_2m_cuda_rejections(device):
     with pytest.raises(NotImplementedError, match="float32 and float64"):
         K2.step_column_2m_fused(_state_2m(64, 16, device, torch.bfloat16), mp,
                                 TPS, DT, DZ, block_cols=16)
-    # K5 keeps its own bounds: float32 and at most 256 levels
+    # K5 refuses what the JAX step cannot run either: another dtype
     mp3 = microphysics_2m_params(with_ice=True, quadrature_order=8)
-    with pytest.raises(NotImplementedError, match="supports float32"):
-        K5.step_column_p3_fused(_state_p3(64, 16, device, torch.float64), mp3,
-                                TPS, DT, DZ, block_cols=16)
-    with pytest.raises(NotImplementedError, match="nlev"):
-        K5.step_column_p3_fused(_state_p3(4, K5.MAX_NLEV + 1, device), mp3,
-                                TPS, DT, DZ, block_cols=4)
+    with pytest.raises(NotImplementedError, match="float32 and float64"):
+        K5.step_column_p3_fused(_state_p3(64, 16, device, torch.bfloat16),
+                                mp3, TPS, DT, DZ, block_cols=16)
     with pytest.raises(ValueError, match="contiguous"):
         K2.step_column_2m_fused(
             st._replace(T=st.T.t().contiguous().t()), mp, TPS, DT, DZ,
@@ -335,7 +332,13 @@ def _assert_close_p3(out, ref):
         torch.testing.assert_close(a, b, rtol=3e-5, atol=1e-10)
 
 
-@pytest.mark.parametrize("order", K5.ORDERS)
+# the quadrature orders K5 is held to: every Gauss-Legendre order of
+# build_quadrature, Chebyshev-Gauss 5 and 25 (32 does not divide 4N, N odd)
+# and the reference default CG-100
+P3_ORDERS = (4, 8, 16, 32, 40, 64, 5, 25, 100)
+
+
+@pytest.mark.parametrize("order", P3_ORDERS)
 @pytest.mark.parametrize("ncol,nlev,tilings", [(256, 64, (64, 32)),
                                                (250, 40, (10, 25))])
 def test_p3_kernel_matches_plain(device, order, ncol, nlev, tilings):
@@ -368,6 +371,70 @@ def test_p3_kernel_options(device):
                      K5.step_column_p3_plain(st, mp, TPS, DT, DZ))
 
 
+def _p3_scope(order=16, ice_rain_limited=True, **kw):
+    import dataclasses
+
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=order, **kw)
+    if ice_rain_limited:
+        return mp
+    return dataclasses.replace(mp, ice=dataclasses.replace(
+        mp.ice, rain_pdf=dataclasses.replace(mp.ice.rain_pdf,
+                                             is_limited=False)))
+
+
+def _assert_same_p3(out, ref):
+    (st, ll), (st_ref, ll_ref) = out, ref
+    assert torch.equal(ll, ll_ref)
+    for name, a, b in zip(st._fields, st, st_ref):
+        assert torch.equal(a, b), name
+
+
+# K5's scope beyond the defaults: each a build of its own, bit for bit
+# against its plain step, cold and warm-started, through two tilings
+P3_SCOPE = {
+    "SlopeConstant": (dict(slope_law="constant"), torch.float32, 256, 32),
+    "NoAspectRatio": (dict(aspect_ratio="NoAspectRatio"), torch.float32,
+                      256, 32),
+    "unlimited ice rain PSD": (dict(ice_rain_limited=False), torch.float32,
+                               256, 32),
+    "float64 GL-16": (dict(), torch.float64, 256, 32),
+    "float64 CG-5": (dict(order=5), torch.float64, 128, 32),
+    "float64 options": (dict(slope_law="constant",
+                             aspect_ratio="NoAspectRatio",
+                             ice_rain_limited=False, is_limited=False,
+                             rain_velocity="chen2022"), torch.float64, 64, 16),
+    "nlev 300": (dict(), torch.float32, 8, 300),
+    "nlev 512 float64": (dict(order=8), torch.float64, 4, 512),
+    "CG-100 float64": (dict(order=100), torch.float64, 16, 16),
+    # 80 liquid nodes: K5b holds their factors 64 at a time
+    "CG-160": (dict(order=160), torch.float32, 16, 16),
+    # 4 lanes a cell, 32 cells a block
+    "CG-1": (dict(order=1), torch.float32, 64, 16),
+}
+
+
+@pytest.mark.parametrize("name", list(P3_SCOPE))
+def test_p3_kernel_scope_is_bit_identical(device, name):
+    opts, dtype, ncol, nlev = P3_SCOPE[name]
+    mp = _p3_scope(**opts)
+    st = _state_p3(ncol, nlev, device, dtype)
+    ref = K5.step_column_p3_plain(st, mp, TPS, DT, DZ)
+    counted = (K5.step_column_p3_fused, K5.launch_solve, K5.launch_nodes,
+               K5.launch_epilogue)
+    before = [fn.launches for fn in counted]
+    tilings = (ncol, ncol // 2 if ncol % 2 == 0 else 1)
+    outs = [K5.step_column_p3_fused(st, mp, TPS, DT, DZ, block_cols=bc)
+            for bc in tilings]
+    assert [fn.launches for fn in counted] == [n + 2 for n in before]
+    for out in outs:
+        _assert_same_p3(out, ref)
+    warm = K5.step_column_p3_fused(ref[0], mp, TPS, DT, DZ, ref[1],
+                                   block_cols=tilings[0])
+    _assert_same_p3(warm, K5.step_column_p3_plain(ref[0], mp, TPS, DT, DZ,
+                                                  ref[1]))
+    assert warm[0].rho.dtype == dtype
+
+
 def test_column_p3_step_module(device):
     mp = microphysics_2m_params(with_ice=True, quadrature_order=8)
     model = ColumnP3Step(mp, TPS, DT, DZ).to(device)
@@ -378,6 +445,11 @@ def test_column_p3_step_module(device):
     out2 = model(*out)
     _assert_close_p3(out2, K5.step_column_p3_plain(out[0], mp, TPS, DT, DZ,
                                                    out[1]))
+    # a float64 state steps with a float64 buffer on the module's device
+    st64 = _state_p3(64, 48, device, torch.float64)
+    out64 = model(st64)
+    assert model.block(torch.float64).device == device
+    _assert_same_p3(out64, K5.step_column_p3_plain(st64, mp, TPS, DT, DZ))
 
 
 def test_p3_cuda_rejections(device):
@@ -385,21 +457,21 @@ def test_p3_cuda_rejections(device):
     st = _state_p3(64, 16, device)
     with pytest.raises(ValueError, match="not a multiple"):
         K5.step_column_p3_fused(st, mp, TPS, DT, DZ, block_cols=48)
-    with pytest.raises(NotImplementedError, match="float32"):
-        K5.step_column_p3_fused(_state_p3(64, 16, device, torch.float64), mp,
+    # only what the JAX step cannot run either: another dtype, ice
+    # nucleation other than Frostenberg2023, no P3 ice
+    with pytest.raises(NotImplementedError, match="float32 and float64"):
+        K5.step_column_p3_fused(_state_p3(64, 16, device, torch.float16), mp,
                                 TPS, DT, DZ, block_cols=16)
-    with pytest.raises(NotImplementedError, match="nlev"):
-        K5.step_column_p3_fused(_state_p3(4, K5.MAX_NLEV + 1, device), mp,
-                                TPS, DT, DZ, block_cols=4)
-    with pytest.raises(NotImplementedError, match="aspect_ratio"):
+    from cloudmicrophysics_tpu_torch.parameters import Mohler2006
+
+    with pytest.raises(NotImplementedError, match="Frostenberg2023"):
         K5.step_column_p3_fused(
             st, microphysics_2m_params(with_ice=True, quadrature_order=8,
-                                       aspect_ratio="NoAspectRatio"),
+                                       ice_nucleation=Mohler2006()),
             TPS, DT, DZ, block_cols=16)
-    with pytest.raises(NotImplementedError, match="quadrature orders"):
-        K5.step_column_p3_fused(
-            st, microphysics_2m_params(with_ice=True, quadrature_order=32),
-            TPS, DT, DZ, block_cols=16)
+    with pytest.raises(NotImplementedError, match="mp.ice"):
+        K5.step_column_p3_fused(st, microphysics_2m_params(), TPS, DT, DZ,
+                                block_cols=16)
     with pytest.raises(ValueError, match="contiguous"):
         K5.step_column_p3_fused(st._replace(T=st.T.t().contiguous().t()),
                                 mp, TPS, DT, DZ, block_cols=16)

@@ -6,13 +6,14 @@ compiler-log texts in the formats of ``nvdisasm -g -gi`` and ``-Xptxas
 import pytest
 
 from cloudmicrophysics_tpu_torch.kernels import _build, opcount
+from cloudmicrophysics_tpu_torch.kernels import column_p3 as K5
 
 SOURCE = (_build.CSRC_DIR / "column_p3.cu").read_text()
 
 
 def test_every_region_has_one_site_in_a_block():
     names = opcount.region_names(SOURCE)
-    sites = opcount.probe_sites(SOURCE)
+    sites = opcount.probe_sites(SOURCE, K5.probe_unrolls())
     assert names[0] == "R_SOLVE" and "R_COUNT" not in names
     assert set(sites) == set(names)
     lines = SOURCE.splitlines()
@@ -21,11 +22,19 @@ def test_every_region_has_one_site_in_a_block():
         block = "\n".join(lines[site.start - 1:site.end])
         assert f"K5_COUNT({name}" in block
         assert site.unroll in (1, 4)
-    # the partly unrolled loops of the incomplete gamma say so
+    # the partly unrolled loops of the incomplete gamma say so: 4 at
+    # float32 (20 trips), 2 at float64 (30 trips), as the build sets them
     assert sites["R_GI_SERIES_IT"].unroll == 4
     assert sites["R_GI_CF_IT"].unroll == 4
     assert sites["R_BRENT_IT"].unroll == 1
     assert sites["R_GI_SERIES2_IT"].unroll == sites["R_SUM_IT"].unroll == 4
+    sites64 = opcount.probe_sites(SOURCE, K5.probe_unrolls(
+        K5.Variant("float64")))
+    assert {n for n in sites if sites64[n] != sites[n]} == {
+        "R_GI_SERIES_IT", "R_GI_CF_IT", "R_GI_SERIES2_IT", "R_GI_CF2_IT"}
+    assert sites64["R_GI_CF2_IT"].unroll == 2
+    assert "kGiUnroll = kF64 ? 2 : 4;" in SOURCE
+    assert "kGiTrips = kF64 ? 30 : 20;" in SOURCE
     # nested regions: a loop body inside its arm
     outer, inner = sites["R_GI_SERIES"], sites["R_GI_SERIES_IT"]
     assert outer.start < inner.start <= inner.end < outer.end
@@ -56,6 +65,7 @@ def test_function_block_finds_cell_step(source):
     ("K5_COUNT(R_A);", "outside any block"),
     ("void f() { {", "unbalanced '{'"),
     ("} void f() {}", "unbalanced '}'"),
+    ("void f() { K5_COUNT(R_A, kUnroll); }", "unroll factor kUnroll"),
 ])
 def test_probe_sites_rejects(text, match):
     with pytest.raises(ValueError, match=match):
