@@ -218,12 +218,28 @@ then, failing at the first phase that does not hold:
     column chunks as phase 11's; over every 8th column at GL-40 and every
     64th at CG-100), the best single step and K5a, K5b and K5c alone by
     CUDA events, the operation count of its probe build (as phase 12's)
-    for the bound, and its registers, spills and shared memory.
+    for the bound, and its registers, spills and shared memory;
+20. runs the twelve examples (``cloudmicrophysics_tpu_torch/examples``)
+    on the card against their JAX record (``data/examples_f64.json``):
+    first K5 against the plain step at every one of the squall's 120 steps
+    (256 x 64, GL-8, bit for bit, each carrying its own log lambda) and K5
+    one step from each recorded state of the JAX squall rollout, tiled to
+    256 x 64 GL-8 and 16384 x 128 GL-16 (every column bit-equal to column
+    0; per field at most twice JAX float32's own error against JAX's
+    float64 step plus 1e-6); then, with K5's launch counters set to 0,
+    every example's ``run()`` (float64 parcels and box within rtol 1e-6 of
+    the record, NonEq and Tully cut to each run's first 2000 steps, the
+    runs that draw over 4 seeds inside the record's 16-key band; the squall
+    at its script's size) and the squall at 16384 x 128 GL-16 for 120
+    steps (ms/step, finite, every column bit-equal to column 0), the
+    counters read just after; K5's launches in the kernels line are these.
 
 Then it prints the ``expf`` probe's JSON object on a line of its own,
 phase 15's JSON object (``{"zero_d": ...}``, with the card's name and
 power limit) on another, phase 16's (``{"calibration": ...}``, likewise)
-on another, phase 17's (``{"sharded": ...}``, likewise) on another, the
+on another, phase 17's (``{"sharded": ...}``, likewise) on another,
+phase 20's (``{"examples": ...}``, each example's steps, seconds, steps/s,
+largest relative error and verdict) on another, the
 card's name and power limit as
 ``nvidia-smi`` gives them, and, on the line before the last, a JSON object
 with one entry per kernel (K5's with its three kernels under
@@ -922,6 +938,10 @@ def main():
                           timing, bounds)
     variants["K5"] = _run_k5_scope(device, K5, ColumnP3Step,
                                    microphysics_2m_params, tps, timing)
+    examples, ex_launches = _run_examples(device, K5, gpu_line)
+    print(f"  K5's launches: {launches['K5']} on phase 11's path, "
+          f"{ex_launches['K5']} on the examples' (the kernels line's)")
+    launches["K5"] = ex_launches["K5"]
 
     csrc = "cloudmicrophysics_tpu_torch/kernels/csrc/"
     entries = [
@@ -941,6 +961,8 @@ def main():
                                  if k in variants else {})}
         for k, fn, src, tpu in entries]
     kernels[-1]["subkernels"] = k5["subkernels"]
+    for key, sub in zip(("K5a", "K5b", "K5c"), k5["subkernels"]):
+        sub["launches"] = ex_launches[key]
     kernels.append({
         "name": "copy_scale (K6, K6b, K6c)", "route": "cuda",
         "source": k6["source"],
@@ -956,6 +978,7 @@ def main():
     print(json.dumps({"zero_d": zero_d}))
     print(json.dumps({"calibration": calibration}))
     print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"examples": examples}))
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3824,6 +3847,278 @@ def _run_k5_scope(device, K, ColumnP3Step, microphysics_2m_params, tps,
     print(f"== phase 19: {time.perf_counter() - t0:.1f} s (by path: "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
     return variants
+
+
+# ---------------------------------------------------------------------------
+# The examples (phase 20)
+# ---------------------------------------------------------------------------
+
+EXAMPLES_RECORD = "cloudmicrophysics_tpu_torch/data/examples_f64.json"
+EX_RTOL, EX_FLOOR = 1e-6, 1e-12     # tests/test_torch_examples_parcel.py
+EX_SEEDS = (0, 1, 2, 3)             # of the runs that draw
+# the pairs of summary numbers between which a content or number moves:
+# each one's absolute floor is EX_FLOOR of the larger of the two
+PHASE_PAIRS = (("q_liq", "q_ice"), ("N_liq", "N_ice"))
+SQUALL_FULL = dict(ncol=P3_NCOL, nlev=P3_NLEV, dz=125.0, order=16)
+
+
+def _ex_errors(got, want, path, out):
+    """Append ``(path, relative error, within tolerance)`` for every number
+    of a nested record of an example: rtol EX_RTOL, with an absolute floor
+    of EX_FLOOR of the condensate present for a summary's liquid and ice
+    contents and numbers and of S_l for the peak supersaturation S_l - 1;
+    integers and flags exactly. A number at or below
+    its floor reports relative error 0."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{path}: keys {set(got) ^ set(want)}")
+        floors = {k: EX_FLOOR * max(abs(want[a]), abs(want[b]))
+                  for a, b in PHASE_PAIRS if a in want for k in (a, b)}
+        if "peak_S" in want:    # S_l - 1: the floor of S_l
+            floors["peak_S"] = EX_FLOOR * (1 + abs(want["peak_S"]))
+        for k in want:
+            if k in floors:
+                d, w = abs(got[k] - want[k]), abs(want[k])
+                out.append((f"{path}.{k}", d / w if w > floors[k] else 0.0,
+                            d <= floors[k] + EX_RTOL * w))
+            else:
+                _ex_errors(got[k], want[k], f"{path}.{k}", out)
+    elif isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: length {len(got)} != {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _ex_errors(g, w, f"{path}[{i}]", out)
+    elif isinstance(want, (bool, int)):
+        out.append((path, 0.0 if got == want else float("inf"), got == want))
+    else:
+        d, w = abs(got - want), abs(want)
+        out.append((path, d / w if w else d, d <= EX_RTOL * w))
+    return out
+
+
+def _in_band(got, band, path, out):
+    """Each number within the range of the record's 16 JAX keys, widened
+    by half of it on either side (as tests/test_torch_examples_random.py);
+    the relative error reported is the distance outside the range."""
+    for k, (_, _, lo, hi) in band.items():
+        pad = 0.5 * (hi - lo)
+        v = got[k]
+        out_by = max(lo - pad - v, v - hi - pad, 0.0)
+        out.append((f"{path}.{k}", out_by / max(abs(hi), abs(lo), 1e-300),
+                    out_by == 0.0))
+
+
+def _squall_error(got, want):
+    """tests/test_torch_examples.squall_error over every cell of one
+    column: per field the largest absolute difference over the field's
+    largest magnitude."""
+    return {name: float(np.max(np.abs(g - w))
+                        / max(float(np.max(np.abs(w))), 1e-300))
+            for name, g, w in zip(got[0]._fields, got[0], want[0])}
+
+
+def _same_columns(*tensors):
+    """Every column of every tensor bit-equal to column 0."""
+    return all(bool((t == t[:1]).all()) for t in tensors)
+
+
+def _squall_vs_plain(device, SQ, step_column_p3, mp):
+    """K5 against the port's plain step on the card at every step of the
+    script's rollout (256 x 64, GL-8, float32), each carrying its own log
+    lambda as the next step's guess: bit for bit, in every field."""
+    import torch
+
+    st = SQ.column_state(256, 64, 250.0, device)
+    fused = SQ.stepper(mp, 2.0, 250.0, device)
+    a, ga, b, gb = st, None, st, None
+    for i in range(120):
+        a, ga = fused(a, ga)
+        b, gb = step_column_p3(b, mp, SQ.TPS, 2.0, 250.0, gb)
+        same = torch.equal(ga, gb) and all(torch.equal(x, y)
+                                           for x, y in zip(a, b))
+        if not same:
+            bad = [f for f, x, y in zip(a._fields, a, b)
+                   if not torch.equal(x, y)]
+            raise AssertionError(f"squall step {i}: K5 differs from the "
+                                 f"plain step in {bad or ['log lambda']}")
+    print("  squall (256, 64) GL-8: K5 bit-identical to the plain step at "
+          "every one of 120 steps, every field and log lambda")
+    return 120
+
+
+def _squall_vs_record(device, SQ, record, microphysics_2m_params):
+    """K5 one step from each state of the record's JAX float32 rollout,
+    tiled to the configuration's width: every column bit-equal to column
+    0, and per field at most twice JAX float32's own error against JAX's
+    float64 step plus 1e-6, over every cell. Returns
+    the largest ratio of K5's error to that bound."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.models.column import ColumnStateP3
+
+    worst = 0.0
+    for cfg, ncol in (("small", 256), ("full", SQUALL_FULL["ncol"])):
+        rec = record["squall"][cfg]
+        mp = microphysics_2m_params(with_ice=True,
+                                    quadrature_order=rec["order"])
+        step = SQ.stepper(mp, rec["dt"], rec["dz"], device)
+        nlev = rec["nlev"]
+
+        def tile(v):
+            return torch.tensor(v, dtype=torch.float32, device=device) \
+                .expand(ncol, nlev).contiguous()
+
+        for k, inp, want, jerr in zip(rec["input_steps"], rec["inputs"],
+                                      rec["f64_step"],
+                                      rec["jax_float32_error"]):
+            st = ColumnStateP3(*(tile(inp["state"][f])
+                                 for f in ColumnStateP3._fields))
+            g = None if inp["guess"] is None else tile(inp["guess"])
+            out, ll = step(st, g)
+            if not _same_columns(*out, ll):
+                raise AssertionError(f"squall {cfg} step {k}: columns "
+                                     f"differ from column 0")
+            got = (ColumnStateP3(*(t[0].double().cpu().numpy()
+                                   for t in out)),
+                   ll[0].double().cpu().numpy())
+            ref = (ColumnStateP3(*(np.asarray(want["state"][f])
+                                   for f in ColumnStateP3._fields)),
+                   np.asarray(want["loglambda"]))
+            for f, e in _squall_error(got, ref).items():
+                bound = 2 * jerr[f] + 1e-6
+                worst = max(worst, e / bound)
+                if e > bound:
+                    raise AssertionError(
+                        f"squall {cfg} step {k}: {f} error {e:.3e} above "
+                        f"2 x JAX float32's {jerr[f]:.3e} + 1e-6")
+        print(f"  squall {cfg} ({ncol}, {nlev}) GL-{rec['order']}: K5 one "
+              f"step from each of the JAX rollout's states "
+              f"{rec['input_steps']}: columns bit-equal, error within 2 x "
+              f"JAX float32's + 1e-6 in every field")
+    print(f"  squall: largest ratio of K5's error to its bound {worst:.4g}")
+    return worst
+
+
+def _run_examples(device, K5, gpu_line):
+    """Phase 20: the twelve examples on the card through their ``run()``,
+    against the JAX record; the squall's K5 against the plain step and the
+    record; the squall at full width. Returns the phase's JSON entries and
+    K5's launches on its main path."""
+    import importlib
+
+    import torch
+
+    from cloudmicrophysics_tpu_torch.examples import NAMES
+    from cloudmicrophysics_tpu_torch.examples import column_squall_p3 as SQ
+    from cloudmicrophysics_tpu_torch.models.column import step_column_p3
+    from cloudmicrophysics_tpu_torch.parameters import microphysics_2m_params
+
+    t_phase = time.perf_counter()
+    print("== 20. the examples on the card, against the JAX record "
+          f"({EXAMPLES_RECORD})")
+    record = json.loads(
+        (Path(__file__).resolve().parent / EXAMPLES_RECORD).read_text())
+    torch.cuda.empty_cache()
+    # kernel parity first: these launches are not the main path's
+    mp8 = microphysics_2m_params(with_ice=True, quadrature_order=8)
+    _squall_vs_plain(device, SQ, step_column_p3, mp8)
+    squall_ratio = _squall_vs_record(device, SQ, record,
+                                     microphysics_2m_params)
+
+    counted = {"K5": K5.step_column_p3_fused, "K5a": K5.launch_solve,
+               "K5b": K5.launch_nodes, "K5c": K5.launch_epilogue}
+    torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+    entries = []
+    for name in NAMES:
+        mod = importlib.import_module(f"cloudmicrophysics_tpu_torch."
+                                      f"examples.{name}")
+        kw = record["cut_kwargs"].get(name, {})
+        seeded = "seed" in mod.run.__code__.co_varnames
+        errs = []
+        t0 = time.perf_counter()
+        steps = 0
+        for seed in (EX_SEEDS if seeded else (None,)):
+            out = mod.run(device, **kw, **({"seed": seed} if seeded else {}))
+            steps += out["steps"]
+            if name == "column_squall_p3":
+                continue
+            want = record["cut" if kw else "full"][name]
+            bands = record["bands"].get(name, {})
+            if name == "box_alpert_knopf_2016":
+                _in_band(out, bands, f"{name}[seed {seed}]", errs)
+                _ex_errors({k: out[k] for k in want if k not in bands},
+                           {k: want[k] for k in want if k not in bands},
+                           name, errs)
+                continue
+            for k in want:
+                if k in bands:
+                    _in_band(out[k], bands[k], f"{name}.{k}[seed {seed}]",
+                             errs)
+                else:
+                    _ex_errors(out[k], want[k], f"{name}.{k}", errs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        # the squall's run() raises on a non-finite field; its rollout is
+        # held step by step above, not against the record
+        bad = [p for p, _, ok in errs if not ok]
+        worst = max((e for _, e, _ in errs), default=None)
+        entries.append({"name": name, "steps": steps, "seconds": seconds,
+                        "steps_per_s": steps / seconds,
+                        "max_rel_err": worst, "pass": not bad,
+                        **({"cut": kw} if kw else {}),
+                        **({"seeds": list(EX_SEEDS)} if seeded else {})})
+        print(f"  {name}{' ' + str(kw) if kw else ''}: {steps} steps in "
+              f"{seconds:.3f} s, {steps / seconds:.1f} steps/s; "
+              + ("finite (its steps are held above)" if worst is None else
+                 f"largest relative error against the record {worst:.3e}")
+              + (f" over seeds {list(EX_SEEDS)} (band)" if seeded else "")
+              + ("" if not bad else f"; FAILED: {bad[:6]}"))
+        if bad:
+            raise AssertionError(f"{name}: {bad[:6]} outside the record's "
+                                 f"tolerance")
+
+    # the squall at full width, through the module's own stepper
+    cfg = SQUALL_FULL
+    mp16 = microphysics_2m_params(with_ice=True,
+                                  quadrature_order=cfg["order"])
+    state = SQ.column_state(cfg["ncol"], cfg["nlev"], cfg["dz"], device)
+    step = SQ.stepper(mp16, 2.0, cfg["dz"], device)
+    ms, (final, ll, rows) = _event_ms(
+        lambda: SQ.rollout(state, step, 120, cfg["dz"]))
+    launches = {k: fn.launches for k, fn in counted.items()}
+    squall_steps = 120 + entries[-1]["steps"]
+    if set(launches.values()) != {squall_steps}:
+        raise AssertionError(f"squall: launch counts {launches} != the "
+                             f"{squall_steps} steps driven")
+    for f, x in zip(final._fields, final):
+        if not bool(x.isfinite().all()):
+            raise AssertionError(f"full-width squall: {f} not finite")
+    if not _same_columns(*final, ll):
+        raise AssertionError("full-width squall: columns differ from "
+                             "column 0")
+    lwp, rwp, iwp = SQ.water_paths(final, cfg["dz"])
+    ens = record["squall"]["full"]["ensemble_iwp"]
+    print(f"  squall ({cfg['ncol']}, {cfg['nlev']}) GL-{cfg['order']} "
+          f"float32, 120 steps: {ms / 120:.6g} ms/step (CUDA events, the "
+          f"table's 7 host reads included), every column bit-equal to "
+          f"column 0, every field finite; column 0 LWP {lwp:.6g} RWP "
+          f"{rwp:.6g} IWP {iwp:.6g} kg/m^2 (JAX's 16 one-ulp-perturbed "
+          f"columns: {min(ens):.6g} to {max(ens):.6g})")
+    print(f"  launches on the examples' path (counters set to 0 before the "
+          f"examples, read after the full-width squall): {launches}")
+    entries.append({"name": "column_squall_p3 (16384x128 GL-16)",
+                    "steps": 120, "seconds": ms / 1e3,
+                    "steps_per_s": 120 / (ms / 1e3), "ms_per_step": ms / 120,
+                    "max_rel_err": None, "k5_error_over_bound": squall_ratio,
+                    "pass": True,
+                    "iwp": iwp, "jax_ensemble_iwp": [min(ens), max(ens)]})
+    del state, final, ll
+    torch.cuda.empty_cache()
+    print(f"== phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return {"gpu": gpu_line, "examples": entries}, launches
+
 
 if __name__ == "__main__":
     sys.exit(main())

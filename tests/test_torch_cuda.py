@@ -18,7 +18,10 @@ with the shipped calibrated TOML parameter sets. The 0-D drivers, the
 boosted-trees fit and the UKI calibration run on the card against
 float64 or the CPU (tolerances at each test). K2, K3 and K5 stepped
 column-sharded on a one-rank NCCL group are bit-identical to the
-unsharded steps.
+unsharded steps. The examples run on the card by default: the liquid-only
+parcel within rtol 1e-6 of the JAX record
+(``cloudmicrophysics_tpu_torch/data/examples_f64.json``), and the squall
+through K5, bit for bit with the plain step.
 """
 
 import json
@@ -38,6 +41,7 @@ from cloudmicrophysics_tpu_torch.models.column import (
     ColumnState,
     ColumnState2M,
     ColumnStateP3,
+    step_column_p3,
 )
 from cloudmicrophysics_tpu_torch.parameters import (
     ThermodynamicsParameters,
@@ -851,3 +855,33 @@ def test_world1_sharded_kernels_are_bit_identical(device, one_rank_mesh,
         K.step_column_1m_fused(shard_columns(_state(64, 16, device),
                                              one_rank_mesh),
                                MP, TPS, TV, DT, DZ, block_cols=16)
+
+
+def test_examples_run_on_the_card_by_default(device):
+    from cloudmicrophysics_tpu_torch.examples import column_squall_p3 as SQ
+    from cloudmicrophysics_tpu_torch.examples import parcel_liquid_only
+
+    record = json.loads((Path(__file__).resolve().parent.parent
+                         / "cloudmicrophysics_tpu_torch" / "data"
+                         / "examples_f64.json").read_text())
+    out = parcel_liquid_only.run()
+    want = record["full"]["parcel_liquid_only"]
+    for dsd in parcel_liquid_only.DSDS:
+        for k in ("S_l", "T", "q_liq", "N_liq", "peak_S"):
+            np.testing.assert_allclose(out[dsd][k], want[dsd][k], rtol=1e-6,
+                                       atol=1e-12, err_msg=f"{dsd} {k}")
+    assert out["rogers_max_err"] < 0.1
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=8)
+    step = SQ.stepper(mp, 2.0, 250.0, device)
+    assert isinstance(step, ColumnP3Step)
+    with pytest.raises(ValueError, match="col_chunks"):
+        SQ.stepper(mp, 2.0, 250.0, device, col_chunks=2)
+    K5.step_column_p3_fused.launches = 0
+    state = SQ.column_state(8, 64, 250.0, device)
+    got, ll_got, _ = SQ.rollout(state, step, 6, 250.0)
+    assert K5.step_column_p3_fused.launches == 6
+    want, ll_want = state, None
+    for _ in range(6):
+        want, ll_want = step_column_p3(want, mp, TPS, 2.0, 250.0, ll_want)
+    assert torch.equal(ll_got, ll_want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

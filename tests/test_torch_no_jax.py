@@ -1,9 +1,9 @@
 """The port runs without JAX: importing it and stepping a column on the CPU
 loads no ``jax`` module, every module of the package imports with JAX
 blocked, the 2M column step (also column-sharded on a one-rank gloo
-group), the 2M + P3 column step, a short parcel run, a short EKI, a
-trees fit and a TOML override load run with JAX blocked, and no module of
-the package imports one."""
+group), the 2M + P3 column step, a short parcel run, the liquid-only
+example, a short EKI, a trees fit and a TOML override load run with JAX
+blocked, and no module of the package imports one."""
 
 import os
 import re
@@ -126,7 +126,12 @@ def test_every_module_imports_with_jax_blocked():
             "ops/susceptibility", "models/parcel", "models/box",
             "models/p3_sandbox", "models/calibration", "models/aida",
             "models/emulator", "parameters/config", "utils/show",
-            "utils/artifacts", "parallel/comms", "parallel/dryrun"} <= modules
+            "utils/artifacts", "parallel/comms", "parallel/dryrun",
+            "examples/__init__", "examples/__main__", "examples/common",
+            "examples/column_squall_p3"} <= modules
+    from cloudmicrophysics_tpu_torch.examples import NAMES
+
+    assert {f"examples/{n}" for n in NAMES} <= modules
     assert f"IMPORTED {len(modules)}" in proc.stdout, proc.stdout
 
 
@@ -186,6 +191,22 @@ print("JAX_MODULES", mods)
 
 def test_parcel_runs_with_jax_blocked():
     proc = _run(_PARCEL_SCRIPT)
+    assert "JAX_MODULES []" in proc.stdout, proc.stdout
+
+
+_EXAMPLE_SCRIPT = _BLOCK + """
+from cloudmicrophysics_tpu_torch.examples import parcel_liquid_only
+out = parcel_liquid_only.main(["--device", "cpu"])
+assert out["steps"] == 80 and out["rogers_max_err"] < 0.1
+mods = sorted(m for m in sys.modules if m.split(".")[0] in
+              ("jax", "jaxlib", "cloudmicrophysics_tpu"))
+print("JAX_MODULES", mods)
+"""
+
+
+def test_example_runs_with_jax_blocked():
+    proc = _run(_EXAMPLE_SCRIPT)
+    assert "max |S - Rogers1975|" in proc.stdout, proc.stdout
     assert "JAX_MODULES []" in proc.stdout, proc.stdout
 
 
