@@ -112,7 +112,7 @@ then, failing at the first phase that does not hold:
     Fails if a bound exceeds the kernel's time. The SASS and the probe's
     counts go to ``kernels/build/``;
 13. runs the port's roofline (``cloudmicrophysics_tpu_torch.roofline``) at
-    full width, with every launch counter set to 0 just before and read
+    full width, with every launch counter read just before and again
     just after: K6's copy roof and the ``expf`` rate at 524288 x 128, K1
     and K3 at that size and K5 at 16384 x 128 GL-16, and prints its rows
     and each kernel's share of both roofs; fails unless every kernel of the
@@ -142,8 +142,8 @@ then, failing at the first phase that does not hold:
 16. drives calibration, the activation emulators and the calibrated
     parameter sets, which reach no kernel of their own apart from K1 and
     K3 (plain PyTorch, float64 Kalman updates, the GP's Cholesky solve by
-    ``torch.linalg``), with the K1 and K3 launch counters set to 0 just
-    before and read just after: EKI on ``tests/test_calibration.py``'s
+    ``torch.linalg``), with the K1 and K3 launch counters read just
+    before and again just after: EKI on ``tests/test_calibration.py``'s
     linear map and on its ABIFM perfect model (``calibrate_abifm`` with
     25 members and 8 iterations, float64, over the chamber's 120 s), UKI
     on both (the ABIFM route at 5 sigma points, 8 iterations, over the
@@ -162,7 +162,7 @@ then, failing at the first phase that does not hold:
     size, with their ms/step;
 17. shards the column steps over ``torch.distributed``
     (``cloudmicrophysics_tpu_torch.parallel``), with each path's launch
-    counter set to 0 just before each sharded run and read just after:
+    counter read just before each sharded run and again just after:
     (a) in this process, a one-rank NCCL group: ``Column1MStep`` on the 1M
     state (K2) and ``step_column_2m(impl="fused")`` on the 2M state (K3),
     both at 524288 x 128, and ``ColumnP3Step`` at GL-16 on the P3 state
@@ -189,7 +189,7 @@ then, failing at the first phase that does not hold:
     131072 x 512 for the levels), drives ``Column1MStep`` in
     ``linearized_average`` (``nsub`` 1 and 4) and at float64, and
     ``Column2MStep`` at float64, and both at 512 levels, with the launch
-    counters set to 0 just before each and read just after, each held bit
+    counters read just before each and again just after, each held bit
     for bit against its plain step (on a 65536-column slice where the plain
     step's temporaries do not fit) and timed by CUDA events (best single
     launch and a 30-step rollout, packed and unpacked) beside the default
@@ -212,7 +212,7 @@ then, failing at the first phase that does not hold:
     §4; 512 and 300 levels for the 512-level path), the float64 step also
     against the JAX float64 record to ``tests/test_torch_p3_ladder.py``'s
     rtol 1e-9; then at full width a cold step and a rollout (10 steps, 3
-    at CG-100) with the launch counters set to 0 just before and read just
+    at CG-100) with the launch counters read just before and again just
     after (finite, non-negative, ``q_rim <= q_ice``), the cold step held
     bit for bit against the plain step (over the whole state at GL-16, in
     column chunks as phase 11's; over every 8th column at GL-40 and every
@@ -226,7 +226,7 @@ then, failing at the first phase that does not hold:
     one step from each recorded state of the JAX squall rollout, tiled to
     256 x 64 GL-8 and 16384 x 128 GL-16 (every column bit-equal to column
     0; per field at most twice JAX float32's own error against JAX's
-    float64 step plus 1e-6); then, with K5's launch counters set to 0,
+    float64 step plus 1e-6); then, counting K5's launches from there,
     every example's ``run()`` (float64 parcels and box within rtol 1e-6 of
     the record, NonEq and Tully cut to each run's first 2000 steps, the
     runs that draw over 4 seeds inside the record's 16-key band; the squall
@@ -393,6 +393,17 @@ def _with_sm_clock(fn):
     return result, note
 
 
+def _launch_counts(wrappers, base=None):
+    """Each kernel wrapper's launch counter by key (``wrappers``: key ->
+    wrapper; the counter ``launches.<name>`` of the package's trace
+    registry), less ``base``, an earlier reading, when given."""
+    from cloudmicrophysics_tpu_torch import trace
+
+    now = {k: trace.counter(f"launches.{fn.__name__}")
+           for k, fn in wrappers.items()}
+    return now if base is None else {k: now[k] - base[k] for k in now}
+
+
 def _time_ms(fn, reps, warmup=1):
     """Per-call milliseconds of ``fn`` by CUDA events, ``reps`` samples."""
     import torch
@@ -416,7 +427,7 @@ def _drive(model, state, pack, unpack, fused, packed_fused, names):
     """A path at full width: one step of ``model`` on the unpacked
     ``state``, then ``N_ROLLOUTS`` timed rollouts of ``N_STEPS`` packed
     steps with the benchmark's ``q_tot`` affine schedule, the launch
-    counters set to 0 just before and read just after. Checks that the
+    counters read just before and again just after. Checks that the
     counters (``names``: packed, unpacked kernel) equal the steps driven
     and that the results are finite and non-negative; prints ms/step and
     grid-points/s. Returns the first step, the packed state and the
@@ -424,7 +435,8 @@ def _drive(model, state, pack, unpack, fused, packed_fused, names):
     import torch
 
     torch.cuda.synchronize()
-    fused.launches = packed_fused.launches = 0
+    counted = dict(zip(names, (packed_fused, fused)))
+    base = _launch_counts(counted)
     first = model(state)                      # one step on the unpacked state
     packed = pack(state)
     s = model(packed, q_tot_affine=(1.0, 1e-9))   # warm-up, schedule i = 0
@@ -445,7 +457,7 @@ def _drive(model, state, pack, unpack, fused, packed_fused, names):
         times.append(start.elapsed_time(end))
         checksums.append(float(s[5].double().sum()))
     k_packed, k_unpacked = names
-    launches = {k_packed: packed_fused.launches, k_unpacked: fused.launches}
+    launches = _launch_counts(counted, base)
     torch.cuda.synchronize()
     if launches != {k_packed: steps_packed, k_unpacked: 1}:
         raise AssertionError(f"launch counts {launches} != steps driven "
@@ -1092,8 +1104,8 @@ def _run_roof(device, R, packed):
 
 
 def _run_roofline(K, K2M, K5, R, timing, mufu):
-    """Phase 13: the port's roofline at full width, its launch counters set
-    to 0 just before and read just after; each of K1-K5 (its time of
+    """Phase 13: the port's roofline at full width, its launch counters
+    read just before and again just after; each of K1-K5 (its time of
     phases 5, 9 and 12, and its MUFU operations per step, ``mufu``) as a
     share of the measured copy roof and of the measured expf rate. Returns
     the launch counts of K6 and the probe."""
@@ -1108,12 +1120,11 @@ def _run_roofline(K, K2M, K5, R, timing, mufu):
                "K3": K2M.step_column_2m_fused_packed,
                "K5": K5.step_column_p3_fused}
     torch.cuda.synchronize()
-    for fn in counted.values():
-        fn.launches = 0
+    base = _launch_counts(counted)
     rows = roofline.main(["--ncol", str(NCOL), "--nlev", str(NLEV),
                           "--p3-ncol", str(P3_NCOL),
                           "--p3-nlev", str(P3_NLEV)])
-    launches = {k: fn.launches for k, fn in counted.items()}
+    launches = _launch_counts(counted, base)
     torch.cuda.synchronize()
     runs = 1 + roofline.REPS * roofline.N_ITER
     want = {k: runs for k in counted}
@@ -1746,8 +1757,8 @@ def _drive_p3(model, state, K, tag, rollouts=P3_ROLLOUTS, nsteps=P3_STEPS):
     then ``rollouts`` timed rollouts of ``nsteps`` steps, each starting
     from a rollout-distinct copy of ``state`` and the cold step's log
     lambda, carrying log lambda as the next step's guess. The launch
-    counters (the step's and each of its three kernels') are set to 0 just
-    before and read just after; checks that each equals the steps driven,
+    counters (the step's and each of its three kernels') are read just
+    before and again just after; checks that each equals the steps driven,
     that the results are finite and non-negative, and that q_rim <= q_ice.
     Returns the cold step, its log lambda, the launch counts and the
     ms/step of each rollout."""
@@ -1756,8 +1767,7 @@ def _drive_p3(model, state, K, tag, rollouts=P3_ROLLOUTS, nsteps=P3_STEPS):
     counted = {"K5": K.step_column_p3_fused, "K5a": K.launch_solve,
                "K5b": K.launch_nodes, "K5c": K.launch_epilogue}
     torch.cuda.synchronize()
-    for fn in counted.values():
-        fn.launches = 0
+    base = _launch_counts(counted)
     first, first_ll = model(state)
     steps = 1
     times, checksums, ends = [], [], []
@@ -1776,7 +1786,7 @@ def _drive_p3(model, state, K, tag, rollouts=P3_ROLLOUTS, nsteps=P3_STEPS):
         times.append(start.elapsed_time(end))
         checksums.append(float(s.q_ice.double().sum()))
         ends.append((s, ll))
-    launches = {k: fn.launches for k, fn in counted.items()}
+    launches = _launch_counts(counted, base)
     torch.cuda.synchronize()
     if set(launches.values()) != {steps}:
         raise AssertionError(f"{tag}: launch counts {launches} != steps "
@@ -2741,7 +2751,7 @@ def _cal_config(device, K, K2M, tps, tv):
 def _run_calibration(device, gpu_line, K, K2M):
     """Phase 16: calibration (EKI, UKI, AIDA), the three activation
     emulators and the calibrated parameter sets on the card, with the K1
-    and K3 launch counters set to 0 just before and read just after.
+    and K3 launch counters read just before and again just after.
     Returns the phase's JSON object."""
     import torch
 
@@ -2759,8 +2769,7 @@ def _run_calibration(device, gpu_line, K, K2M):
         raise AssertionError("TF32 matrix products are on")
     counters = {"K1": K.step_column_1m_fused_packed,
                 "K3": K2M.step_column_2m_fused_packed}
-    for fn in counters.values():
-        fn.launches = 0
+    base = _launch_counts(counters)
     parts = {"eki": lambda: _cal_eki(device, tps),
              "uki": lambda: _cal_uki(device, tps),
              "aida": lambda: _cal_aida(device, tps),
@@ -2773,7 +2782,7 @@ def _run_calibration(device, gpu_line, K, K2M):
         out[name] = part()
         wall[name] = time.perf_counter() - t0
     torch.cuda.synchronize()
-    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    out["launches"] = _launch_counts(counters, base)
     out["wall_s"] = wall
     print(f"  launches in this path: {out['launches']}")
     print(f"  phase 16 wall seconds by part: "
@@ -2919,7 +2928,7 @@ def _shard_rank(out_dir):
                        weights_only=False)   # written by (a) in this run
         xs = shard_columns(x, mesh)
         torch.cuda.synchronize()
-        counter.launches = 0
+        base = _launch_counts({tag: counter})
         out = _rollout(step, xs, 2)
         dist.barrier()
         t0 = time.perf_counter()
@@ -2927,7 +2936,7 @@ def _shard_rank(out_dir):
         torch.cuda.synchronize()
         dist.barrier()
         pair_s = time.perf_counter() - t0
-        launches = counter.launches
+        launches = _launch_counts({tag: counter}, base)[tag]
         check_sharded(f"{tag} rank {rank}", out)
         torch.save({"out": list(_leaves(_local(out, "cpu"))),
                     "launches": launches,
@@ -2947,8 +2956,8 @@ def _run_sharded(device, gpu_line):
     module, timed against it by CUDA events (rollouts of ``SHARD_STEPS``
     steps in the order ``SHARD_ORDER``; the best of each), with the host
     time to enqueue a step and the device's idle share over sharded
-    steps, and the launch counter of each path set to 0 just before each
-    sharded run and read just after; (b) two ranks sharing card 0 over
+    steps, and the launch counter of each path read just before each
+    sharded run and again just after; (b) two ranks sharing card 0 over
     gloo, each on half the columns of (a)'s inputs, the two steps' shards
     gathered on the CPU bit for bit against (a), and the pair's ms/step;
     (c) ``dryrun_multichip(2)`` on the same two ranks. Returns the phase's
@@ -3044,9 +3053,9 @@ def _world1_path(tag, kernel, step, x, counter, xs, refs):
 
     def counted(fn, steps):
         torch.cuda.synchronize()
-        counter.launches = 0
+        base = _launch_counts({tag: counter})
         value = fn()
-        counts[0] += counter.launches
+        counts[0] += _launch_counts({tag: counter}, base)[tag]
         counts[1] += steps
         return value
 
@@ -3303,13 +3312,13 @@ def _checked_full(tags, step, plain, state, bits, cls, pack, unpack):
 def _timed(tag, model, x, counter):
     """Best single launch (10, by CUDA events) and a SCOPE_STEPS rollout of
     ``model`` on ``x`` (a packed state or a field state), with ``counter``
-    (the wrapper it launches) set to 0 just before and read just after;
+    (the wrapper it launches) read just before and again just after;
     fails unless every call launched it and the rollout ends finite and
     non-negative."""
     import torch
 
     torch.cuda.synchronize()
-    counter.launches = 0
+    base = _launch_counts({tag: counter})
     single = min(_time_ms(lambda: model(x), reps=10))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -3319,7 +3328,7 @@ def _timed(tag, model, x, counter):
         s = model(s)
     end.record()
     end.synchronize()
-    launches = counter.launches
+    launches = _launch_counts({tag: counter}, base)[tag]
     if launches != 11 + SCOPE_STEPS:
         raise AssertionError(f"{tag}: {launches} launches for "
                              f"{11 + SCOPE_STEPS} calls")
@@ -3766,7 +3775,7 @@ def _run_k5_scope(device, K, ColumnP3Step, microphysics_2m_params, tps,
     build of column_p3.cu each (built in phase 2): GL-40, CG-100, float64,
     512 levels, SlopeConstant, NoAspectRatio, the unlimited ice rain PSD.
     Each is held bit for bit to its plain step at small size, driven at
-    full width with its launch counters set to 0 just before and read just
+    full width with its launch counters read just before and again just
     after, timed (the step and K5a/K5b/K5c alone) and bounded by its
     operation count. Returns K5's ``variants``."""
     import torch
@@ -4028,8 +4037,7 @@ def _run_examples(device, K5, gpu_line):
     counted = {"K5": K5.step_column_p3_fused, "K5a": K5.launch_solve,
                "K5b": K5.launch_nodes, "K5c": K5.launch_epilogue}
     torch.cuda.synchronize()
-    for fn in counted.values():
-        fn.launches = 0
+    base = _launch_counts(counted)
     entries = []
     for name in NAMES:
         mod = importlib.import_module(f"cloudmicrophysics_tpu_torch."
@@ -4087,7 +4095,7 @@ def _run_examples(device, K5, gpu_line):
     step = SQ.stepper(mp16, 2.0, cfg["dz"], device)
     ms, (final, ll, rows) = _event_ms(
         lambda: SQ.rollout(state, step, 120, cfg["dz"]))
-    launches = {k: fn.launches for k, fn in counted.items()}
+    launches = _launch_counts(counted, base)
     squall_steps = 120 + entries[-1]["steps"]
     if set(launches.values()) != {squall_steps}:
         raise AssertionError(f"squall: launch counts {launches} != the "
@@ -4106,8 +4114,8 @@ def _run_examples(device, K5, gpu_line):
           f"column 0, every field finite; column 0 LWP {lwp:.6g} RWP "
           f"{rwp:.6g} IWP {iwp:.6g} kg/m^2 (JAX's 16 one-ulp-perturbed "
           f"columns: {min(ens):.6g} to {max(ens):.6g})")
-    print(f"  launches on the examples' path (counters set to 0 before the "
-          f"examples, read after the full-width squall): {launches}")
+    print(f"  launches on the examples' path (counted from before the "
+          f"examples to after the full-width squall): {launches}")
     entries.append({"name": "column_squall_p3 (16384x128 GL-16)",
                     "steps": 120, "seconds": ms / 1e3,
                     "steps_per_s": 120 / (ms / 1e3), "ms_per_step": ms / 120,

@@ -13,6 +13,10 @@ package (which stays the reference it is tested against), with
                     mesh (column data parallelism)
 * ``kernels/``    — hand-written CUDA kernels for the fused hot path, each
                     beside its plain PyTorch version
+* ``trace``       — spans at the step path's and set-up's layer boundaries
+                    (recorded while a ``torch.profiler`` records) and
+                    always-on counters (launches, library builds and loads,
+                    set-up seconds)
 
 Importing the package builds nothing: a kernel is compiled with ``nvcc``
 the first time it is launched on a CUDA tensor.
@@ -20,4 +24,4 @@ the first time it is launched on a CUDA tensor.
 
 __version__ = "0.1.0"
 
-from . import kernels, models, ops, parallel, parameters, utils
+from . import kernels, models, ops, parallel, parameters, trace, utils

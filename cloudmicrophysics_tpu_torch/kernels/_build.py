@@ -7,10 +7,18 @@ happens at the first launch, into ``build/`` beside this file (listed in
 ``.gitignore``), keyed by a hash of the source, the shared headers of
 ``csrc/`` (``*.cuh``), the generated header and the flags (a source may add
 its own), so an edited source is rebuilt and an unchanged one is reused.
+
+What building and loading cost is counted in :mod:`..trace`:
+``kernels.builds`` and ``kernels.build_s`` (``nvcc`` runs, the span
+``kernels.build``), ``kernels.loads`` (libraries loaded) and
+``kernels.load_s`` (a library's ``dlopen``, binding and checks, the span
+``kernels.load`` (:func:`loading`), and its first launch, where CUDA loads
+the library's module (:func:`launching`)).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -18,10 +26,14 @@ import os
 import re
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from .. import trace
 
 KERNELS_DIR = Path(__file__).resolve().parent
 CSRC_DIR = KERNELS_DIR / "csrc"
@@ -164,6 +176,12 @@ def kernel_attrs(lib: ctypes.CDLL, prefix: str, device: int = 0) -> dict:
             "blocks_per_sm": blocks.value}
 
 
+# this thread's nvcc seconds, which loading() leaves out of a load's time
+_THREAD = threading.local()
+# libraries loaded whose first launch has not run yet
+_UNLAUNCHED = set()
+
+
 def build(source: str, header_name: str, header_text: str,
           flags: tuple = ()) -> Path:
     """Compile ``csrc/<source>`` (with the generated header and the extra
@@ -187,7 +205,13 @@ def build(source: str, header_name: str, header_text: str,
     tmp = out_dir / f"lib{src.stem}.so.{os.getpid()}.tmp"
     cmd = [nvcc_path(), *nvcc_flags, "-I", str(out_dir), "-o", str(tmp),
            str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    t0 = time.perf_counter()
+    with trace.span("kernels.build"):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    trace.count("kernels.builds")
+    trace.add_seconds("kernels.build_s", seconds)
+    _THREAD.build_s = getattr(_THREAD, "build_s", 0.0) + seconds
     (out_dir / "build.log").write_text(
         " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -202,14 +226,40 @@ def build(source: str, header_name: str, header_text: str,
 def load(source: str, header_name: str, header_text: str,
          flags: tuple = ()) -> ctypes.CDLL:
     """Build if needed, then load the library (once per process)."""
-    return ctypes.CDLL(str(build(source, header_name, header_text, flags)))
+    lib = ctypes.CDLL(str(build(source, header_name, header_text, flags)))
+    trace.count("kernels.loads")
+    _UNLAUNCHED.add(lib)
+    return lib
 
 
 def loads() -> int:
     """Libraries this process has loaded (each built first if needed): the
-    misses of :func:`load`'s cache. A call that raises this count built or
-    loaded a kernel library."""
-    return load.cache_info().misses
+    counter ``kernels.loads``. A call that raises it built or loaded a
+    kernel library."""
+    return trace.counter("kernels.loads")
+
+
+@contextlib.contextmanager
+def loading():
+    """A kernel module's whole look-up of a library it has not held yet:
+    the span ``kernels.load``, whose seconds, less those of an ``nvcc``
+    build inside it, are added to ``kernels.load_s``."""
+    built = getattr(_THREAD, "build_s", 0.0)
+    t0 = time.perf_counter()
+    with trace.span("kernels.load"):
+        yield
+    trace.add_seconds("kernels.load_s", time.perf_counter() - t0
+                      - (getattr(_THREAD, "build_s", 0.0) - built))
+
+
+def launching(lib: ctypes.CDLL):
+    """A context for the launches of one step through ``lib``: the first
+    time, where CUDA loads the library's module, its seconds are added to
+    ``kernels.load_s``; a null context after that."""
+    if lib not in _UNLAUNCHED:
+        return contextlib.nullcontext()
+    _UNLAUNCHED.discard(lib)
+    return trace.timed("kernels.load_s")
 
 
 def ptxas_report(log: str) -> dict:

@@ -37,6 +37,11 @@ option are decided when it is compiled, and every constant is an immediate
 operand. The wrappers read the block on the host, never from the device,
 which would add a synchronising copy to every step. :data:`PARAM_NAMES`
 is the only definition of the block's order, one list for every variant.
+
+On a CUDA tensor a wrapper's preparation (the checks, the parameter
+block, the library, the outputs) is the span ``column.prepare`` and its
+launch the span ``launch.k1``; each launch adds one to the counter
+``launches.<wrapper>`` (:mod:`..trace`).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import math
 
 import torch
 
+from .. import trace
 from ..models.column import ColumnState, step_column_1m
 from ..parallel.comms import is_dtensor
 from ..parameters import m1 as P1
@@ -338,6 +344,7 @@ def _param_values(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
     return v
 
 
+@trace.timed("setup.params_s")
 def kernel_params(mp: Microphysics1MParams, tps: ThermodynamicsParameters,
                   tv: TerminalVelocityParams,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -462,10 +469,12 @@ def _library(params: torch.Tensor, build: str = "kernel",
     key = library_key(params, variant, build)
     lib = _LIBRARIES.get(key)
     if lib is None:
-        lib = _LIBRARIES[key] = bind(
-            _build.load(SOURCE, "column1m_params.h", header(params, variant),
-                        BUILDS[build] + _build.dtype_flags(params.dtype)),
-            build == "probe", params.dtype, variant)
+        with _build.loading():
+            lib = _LIBRARIES[key] = bind(
+                _build.load(SOURCE, "column1m_params.h",
+                            header(params, variant),
+                            BUILDS[build] + _build.dtype_flags(params.dtype)),
+                build == "probe", params.dtype, variant)
     return lib
 
 
@@ -617,26 +626,25 @@ def step_column_1m_fused(state: ColumnState, mp, tps, tv, dt, dz,
         return step_column_1m_plain(state, mp, tps, tv, dt, dz, mode=mode,
                                     nsub=nsub, sediment_cloud=sediment_cloud,
                                     q_tot_affine=q_tot_affine)
-    dtype = state.rho.dtype
-    _check_supported(mp, mode, nlev, dtype, nsub)
-    lib = _library(host_params(params, mp, tps, tv, dtype),
-                   variant=variant(mp, mode))
-    out = ColumnState(*(torch.empty_like(t) for t in state))
-    has_affine, scale, bias = _affine(q_tot_affine)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.column1m_step_unpacked(
-        *(t.data_ptr() for t in state), *(t.data_ptr() for t in out),
-        ncol, nlev, block_cols, float(dt), float(dz),
-        int(bool(sediment_cloud)), has_affine, scale, bias,
-        *_substeps(dt, _kernel_nsub(mode, nsub)), device.index, stream)
+    with trace.span("column.prepare"):
+        dtype = state.rho.dtype
+        _check_supported(mp, mode, nlev, dtype, nsub)
+        lib = _library(host_params(params, mp, tps, tv, dtype),
+                       variant=variant(mp, mode))
+        out = ColumnState(*(torch.empty_like(t) for t in state))
+        has_affine, scale, bias = _affine(q_tot_affine)
+        stream = torch.cuda.current_stream(device).cuda_stream
+    with _build.launching(lib), trace.span("launch.k1"):
+        err = lib.column1m_step_unpacked(
+            *(t.data_ptr() for t in state), *(t.data_ptr() for t in out),
+            ncol, nlev, block_cols, float(dt), float(dz),
+            int(bool(sediment_cloud)), has_affine, scale, bias,
+            *_substeps(dt, _kernel_nsub(mode, nsub)), device.index, stream)
     if err:
         raise RuntimeError(f"column1m_step_unpacked launch failed: CUDA "
                            f"error {err}")
-    step_column_1m_fused.launches += 1
+    trace.count("launches.step_column_1m_fused")
     return out
-
-
-step_column_1m_fused.launches = 0
 
 
 def step_column_1m_fused_packed(packed: torch.Tensor, mp, tps, tv, dt, dz,
@@ -658,36 +666,38 @@ def step_column_1m_fused_packed(packed: torch.Tensor, mp, tps, tv, dt, dz,
         return step_column_1m_packed_plain(
             packed, mp, tps, tv, dt, dz, mode=mode, nsub=nsub,
             sediment_cloud=sediment_cloud, q_tot_affine=q_tot_affine)
-    _check_supported(mp, mode, nlev, packed.dtype, nsub)
-    out = launch_packed(
-        _library(host_params(params, mp, tps, tv, packed.dtype),
-                 variant=variant(mp, mode)),
-        packed, dt, dz, block_cols, sediment_cloud, q_tot_affine,
-        _kernel_nsub(mode, nsub))
-    step_column_1m_fused_packed.launches += 1
+    with trace.span("column.prepare"):
+        _check_supported(mp, mode, nlev, packed.dtype, nsub)
+        lib = _library(host_params(params, mp, tps, tv, packed.dtype),
+                       variant=variant(mp, mode))
+        out = torch.empty_like(packed)
+    with _build.launching(lib):
+        launch_packed(lib, packed, dt, dz, block_cols, sediment_cloud,
+                      q_tot_affine, _kernel_nsub(mode, nsub), out=out)
+    trace.count("launches.step_column_1m_fused_packed")
     return out
-
-
-step_column_1m_fused_packed.launches = 0
 
 
 def launch_packed(lib, packed, dt, dz, block_cols: int,
                   sediment_cloud: bool = True, q_tot_affine=None,
-                  nsub: int = 1):
+                  nsub: int = 1, out=None):
     """Launch ``lib``'s packed entry point (K1, built for its parameter
     block, dtype and variant) on a checked CUDA ``packed`` state and return
-    the output; uncounted (the wrapper counts its own launches). ``nsub``:
-    the substeps of a linearized_average build."""
+    the output (``out``, or a new tensor when None), in the span
+    ``launch.k1``; uncounted (the wrapper counts its own launches).
+    ``nsub``: the substeps of a linearized_average build."""
     _, ncol, nlev = packed.shape
     device = packed.device
-    out = torch.empty_like(packed)
+    if out is None:
+        out = torch.empty_like(packed)
     has_affine, scale, bias = _affine(q_tot_affine)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.column1m_step_packed(
-        packed.data_ptr(), out.data_ptr(), ncol * nlev,
-        ncol, nlev, block_cols, float(dt), float(dz),
-        int(bool(sediment_cloud)), has_affine, scale, bias,
-        *_substeps(dt, nsub), device.index, stream)
+    with trace.span("launch.k1"):
+        err = lib.column1m_step_packed(
+            packed.data_ptr(), out.data_ptr(), ncol * nlev,
+            ncol, nlev, block_cols, float(dt), float(dz),
+            int(bool(sediment_cloud)), has_affine, scale, bias,
+            *_substeps(dt, nsub), device.index, stream)
     if err:
         raise RuntimeError(f"column1m_step_packed launch failed: CUDA "
                            f"error {err}")

@@ -37,6 +37,9 @@ an immediate operand. The wrappers
 read the block on the host, never from the device. :data:`PARAM_NAMES` is
 the only definition of the block's order; the 2M + P3 kernel's list starts
 with it.
+
+Each launch adds one to the counter ``launches.<wrapper>``
+(:mod:`..trace`).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import math
 
 import torch
 
+from .. import trace
 from ..models.column import ColumnState2M, _chen_or_sb, step_column_2m
 from ..parameters.terminal_velocity import Chen2022VelTypeRain, SB2006VelType
 from ..parameters.thermodynamics import ThermodynamicsParameters
@@ -302,10 +306,12 @@ def _library(params: torch.Tensor, variant,
     key = library_key(params, variant, build)
     lib = _LIBRARIES.get(key)
     if lib is None:
-        lib = _LIBRARIES[key] = bind(
-            _build.load(SOURCE, "column2m_params.h", header(params, variant),
-                        BUILDS[build] + _build.dtype_flags(params.dtype)),
-            variant, build == "probe", params.dtype)
+        with _build.loading():
+            lib = _LIBRARIES[key] = bind(
+                _build.load(SOURCE, "column2m_params.h",
+                            header(params, variant),
+                            BUILDS[build] + _build.dtype_flags(params.dtype)),
+                variant, build == "probe", params.dtype)
     return lib
 
 
@@ -415,18 +421,16 @@ def step_column_2m_fused(state: ColumnState2M, mp, tps, dt, dz,
     lib = _library(host_params(params, mp, tps, dtype), _variant(mp))
     out = ColumnState2M(*(torch.empty_like(t) for t in state))
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.column2m_step_unpacked(
-        *(t.data_ptr() for t in state), *(t.data_ptr() for t in out),
-        ncol, nlev, block_cols, float(dt), float(dz), 0, 0.0, 0.0,
-        device.index, stream)
+    with _build.launching(lib):
+        err = lib.column2m_step_unpacked(
+            *(t.data_ptr() for t in state), *(t.data_ptr() for t in out),
+            ncol, nlev, block_cols, float(dt), float(dz), 0, 0.0, 0.0,
+            device.index, stream)
     if err:
         raise RuntimeError(f"column2m_step_unpacked launch failed: CUDA "
                            f"error {err}")
-    step_column_2m_fused.launches += 1
+    trace.count("launches.step_column_2m_fused")
     return out
-
-
-step_column_2m_fused.launches = 0
 
 
 def step_column_2m_fused_packed(packed: torch.Tensor, mp, tps, dt, dz,
@@ -447,14 +451,11 @@ def step_column_2m_fused_packed(packed: torch.Tensor, mp, tps, dt, dz,
         return step_column_2m_packed_plain(packed, mp, tps, dt, dz,
                                            q_tot_affine=q_tot_affine)
     _check_supported(mp, nlev, packed.dtype)
-    out = launch_packed(_library(host_params(params, mp, tps, packed.dtype),
-                                 _variant(mp)),
-                        packed, dt, dz, block_cols, q_tot_affine)
-    step_column_2m_fused_packed.launches += 1
+    lib = _library(host_params(params, mp, tps, packed.dtype), _variant(mp))
+    with _build.launching(lib):
+        out = launch_packed(lib, packed, dt, dz, block_cols, q_tot_affine)
+    trace.count("launches.step_column_2m_fused_packed")
     return out
-
-
-step_column_2m_fused_packed.launches = 0
 
 
 def launch_packed(lib, packed, dt, dz, block_cols: int, q_tot_affine=None):

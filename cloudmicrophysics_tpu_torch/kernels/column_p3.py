@@ -51,6 +51,13 @@ kernel's list, so the shared warm-rain code reads the same indices), then
 the node/weight tables of the order's rules. The build writes the matching
 ``#define P_<name>`` header from :data:`PARAM_NAMES`, with the variant's
 macros.
+
+On CUDA tensors a step's preparation (the checks, the launch plan, the
+parameter buffer, the library, the outputs and the scratch record) is the
+span ``column.prepare`` and its three launches the spans ``launch.k5a``,
+``launch.k5b`` and ``launch.k5c``; each launch adds one to the counter
+``launches.<launcher>`` and each step to ``launches.step_column_p3_fused``
+(:mod:`..trace`).
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..models.column import ColumnStateP3, step_column_p3
 from ..ops import common as CO
 from ..ops import p3 as P3
@@ -276,6 +284,7 @@ def _tables(mp) -> np.ndarray:
     return np.concatenate(parts)
 
 
+@trace.timed("setup.params_s")
 def kernel_params_p3(mp, tps: ThermodynamicsParameters,
                      device: torch.device | str | None = None,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -499,9 +508,17 @@ def _library(build: str = "kernel", v: Variant = DEFAULT_VARIANT
     (built at its first launch) and checked against this module."""
     key = (build, v)
     lib = _LIBRARIES.get(key)
-    if lib is not None:
-        return lib
-    lib = _build.load(SOURCE, "column_p3_params.h", header(v), _flags(v, build))
+    if lib is None:
+        with _build.loading():
+            lib = _LIBRARIES[key] = _bind(
+                _build.load(SOURCE, "column_p3_params.h", header(v),
+                            _flags(v, build)), build, v)
+    return lib
+
+
+def _bind(lib: ctypes.CDLL, build: str, v: Variant) -> ctypes.CDLL:
+    """Set the C signatures of a loaded build of the source for variant
+    ``v`` and check it against this module; returns it."""
     _F = _build.c_scalar(v.torch_dtype)
     lib.column_p3_solve.argtypes = [_P, _P, _P, _P, _P, _L, _I, _I, _P]
     lib.column_p3_nodes.argtypes = [_P, _P, _P, _L, _I, _I, _P]
@@ -544,7 +561,6 @@ def _library(build: str = "kernel", v: Variant = DEFAULT_VARIANT
             != node_chunks(v.order, v.torch_dtype)):
         raise RuntimeError("column_p3 library built with other quadrature "
                            "tables or node chunks")
-    _LIBRARIES[key] = lib
     return lib
 
 
@@ -616,21 +632,25 @@ def _raise_on(err: int, what: str) -> None:
 def launch_solve(lib, state, guess, loglam, scratch, params, plan, device):
     """K5a on the current stream: ``loglam`` and the first rows of
     ``scratch`` from ``state`` (and the warm-start ``guess`` or None)."""
-    _raise_on(lib.column_p3_solve(
-        _ptrs(state), None if guess is None else guess.data_ptr(),
-        loglam.data_ptr(), scratch.data_ptr(), params.data_ptr(),
-        state.rho.numel(), plan.solve_grid, device.index,
-        torch.cuda.current_stream(device).cuda_stream), "column_p3_solve")
-    launch_solve.launches += 1
+    args = (_ptrs(state), None if guess is None else guess.data_ptr(),
+            loglam.data_ptr(), scratch.data_ptr(), params.data_ptr(),
+            state.rho.numel(), plan.solve_grid, device.index,
+            torch.cuda.current_stream(device).cuda_stream)
+    with trace.span("launch.k5a"):
+        err = lib.column_p3_solve(*args)
+    _raise_on(err, "column_p3_solve")
+    trace.count("launches.launch_solve")
 
 
 def launch_nodes(lib, state, scratch, params, plan, device):
     """K5b on the current stream: the node-pass sums of ``scratch``."""
-    _raise_on(lib.column_p3_nodes(
-        _ptrs(state), scratch.data_ptr(), params.data_ptr(),
-        state.rho.numel(), plan.nodes_grid, device.index,
-        torch.cuda.current_stream(device).cuda_stream), "column_p3_nodes")
-    launch_nodes.launches += 1
+    args = (_ptrs(state), scratch.data_ptr(), params.data_ptr(),
+            state.rho.numel(), plan.nodes_grid, device.index,
+            torch.cuda.current_stream(device).cuda_stream)
+    with trace.span("launch.k5b"):
+        err = lib.column_p3_nodes(*args)
+    _raise_on(err, "column_p3_nodes")
+    trace.count("launches.launch_nodes")
 
 
 def launch_epilogue(lib, state, out, scratch, params, plan, dt, dz, warm,
@@ -639,16 +659,14 @@ def launch_epilogue(lib, state, out, scratch, params, plan, dt, dz, warm,
     the warm rain's ``(is_limited, chen)`` variant."""
     ncol, nlev = state.rho.shape
     limited, chen = warm
-    _raise_on(lib.column_p3_epilogue(
-        _ptrs(state), _ptrs(out), scratch.data_ptr(), params.data_ptr(),
-        ncol, nlev, plan.epilogue_cols, plan.epilogue_levels,
-        plan.epilogue_grid, float(dt), float(dz), limited, chen,
-        device.index, torch.cuda.current_stream(device).cuda_stream),
-        "column_p3_epilogue")
-    launch_epilogue.launches += 1
-
-
-launch_solve.launches = launch_nodes.launches = launch_epilogue.launches = 0
+    args = (_ptrs(state), _ptrs(out), scratch.data_ptr(), params.data_ptr(),
+            ncol, nlev, plan.epilogue_cols, plan.epilogue_levels,
+            plan.epilogue_grid, float(dt), float(dz), limited, chen,
+            device.index, torch.cuda.current_stream(device).cuda_stream)
+    with trace.span("launch.k5c"):
+        err = lib.column_p3_epilogue(*args)
+    _raise_on(err, "column_p3_epilogue")
+    trace.count("launches.launch_epilogue")
 
 
 def warm_variant(mp) -> tuple:
@@ -676,15 +694,18 @@ def loglambda_p3_fused(state: ColumnStateP3, mp, tps, loglambda_guess=None,
     device = _check_fields(state, loglambda_guess, 1, "loglambda_p3_fused")
     if device is None:
         return loglambda_p3_plain(state, mp, loglambda_guess)
-    ncol, nlev = state.rho.shape
-    dtype = state.rho.dtype
-    _check_supported(mp, nlev, dtype)
-    plan = launch_plan(ncol, nlev, mp.ice.quad.n, 1)
-    params = _device_params(params, mp, tps, device, dtype)
-    loglam = torch.empty_like(state.rho)
-    scratch = torch.empty(plan.scratch_shape, dtype=dtype, device=device)
-    launch_solve(_library("kernel", variant(mp, dtype)), state,
-                 loglambda_guess, loglam, scratch, params, plan, device)
+    with trace.span("column.prepare"):
+        ncol, nlev = state.rho.shape
+        dtype = state.rho.dtype
+        _check_supported(mp, nlev, dtype)
+        plan = launch_plan(ncol, nlev, mp.ice.quad.n, 1)
+        params = _device_params(params, mp, tps, device, dtype)
+        lib = _library("kernel", variant(mp, dtype))
+        loglam = torch.empty_like(state.rho)
+        scratch = torch.empty(plan.scratch_shape, dtype=dtype, device=device)
+    with _build.launching(lib):
+        launch_solve(lib, state, loglambda_guess, loglam, scratch, params,
+                     plan, device)
     return loglam
 
 
@@ -709,22 +730,22 @@ def step_column_p3_fused(state: ColumnStateP3, mp, tps, dt, dz,
                            "step_column_p3_fused")
     if device is None:
         return step_column_p3_plain(state, mp, tps, dt, dz, loglambda_guess)
-    ncol, nlev = state.rho.shape
-    dtype = state.rho.dtype
-    _check_supported(mp, nlev, dtype)
-    plan = launch_plan(ncol, nlev, mp.ice.quad.n, block_cols)
-    params = _device_params(params, mp, tps, device, dtype)
-    lib = _library("kernel", variant(mp, dtype))
-    out = ColumnStateP3(*(torch.empty_like(t) for t in state))
-    loglam = torch.empty_like(state.rho)
-    scratch = torch.empty(plan.scratch_shape, dtype=dtype, device=device)
-    launch_solve(lib, state, loglambda_guess, loglam, scratch, params, plan,
-                 device)
-    launch_nodes(lib, state, scratch, params, plan, device)
-    launch_epilogue(lib, state, out, scratch, params, plan, dt, dz,
-                    warm_variant(mp), device)
-    step_column_p3_fused.launches += 1
+    with trace.span("column.prepare"):
+        ncol, nlev = state.rho.shape
+        dtype = state.rho.dtype
+        _check_supported(mp, nlev, dtype)
+        plan = launch_plan(ncol, nlev, mp.ice.quad.n, block_cols)
+        params = _device_params(params, mp, tps, device, dtype)
+        lib = _library("kernel", variant(mp, dtype))
+        warm = warm_variant(mp)
+        out = ColumnStateP3(*(torch.empty_like(t) for t in state))
+        loglam = torch.empty_like(state.rho)
+        scratch = torch.empty(plan.scratch_shape, dtype=dtype, device=device)
+    with _build.launching(lib):
+        launch_solve(lib, state, loglambda_guess, loglam, scratch, params,
+                     plan, device)
+        launch_nodes(lib, state, scratch, params, plan, device)
+        launch_epilogue(lib, state, out, scratch, params, plan, dt, dz,
+                        warm, device)
+    trace.count("launches.step_column_p3_fused")
     return out, loglam
-
-
-step_column_p3_fused.launches = 0

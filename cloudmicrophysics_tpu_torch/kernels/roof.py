@@ -20,6 +20,9 @@ float32 or a tensor that is not contiguous: there is no fallback. Both
 kernels are bit-identical to their plain versions on the card (the multiply
 and the add round separately, and ``expf`` is the one PyTorch's CUDA
 ``exp`` calls).
+
+Each launch adds one to the counter ``launches.<wrapper>``
+(:mod:`..trace`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import ctypes
 
 import torch
 
+from .. import trace
 from . import _build
 
 __all__ = [
@@ -98,22 +102,33 @@ def library_path(build: str = "kernel"):
     return _build.build(SOURCE, *_HEADER, BUILDS[build])
 
 
+_LIBRARIES = {}
+
+
 def _library(build: str = "kernel") -> ctypes.CDLL:
     """One of the kernel library's :data:`BUILDS`, loaded (built at the
     first launch)."""
-    lib = _build.load(SOURCE, *_HEADER, BUILDS[build])
-    if not getattr(lib, "_signatures_set", False):
-        lib.copy_scale.argtypes = [_P, _P, _L, _F, _I, _P]
-        lib.exp_chain.argtypes = [_P, _P, _L, _F, _I, _I, _P]
-        for prefix in PREFIXES:
-            getattr(lib, f"{prefix}_blocks_per_sm").argtypes = [_I, _P]
-            getattr(lib, f"{prefix}_kernel_attrs").argtypes = [_P, _P]
-        for fn in (lib.copy_scale, lib.exp_chain,
-                   *(getattr(lib, f"{p}_{name}") for p in PREFIXES
-                     for name in ("blocks_per_sm", "kernel_attrs",
-                                  "threads_per_block"))):
-            fn.restype = _I
-        lib._signatures_set = True
+    lib = _LIBRARIES.get(build)
+    if lib is not None:
+        return lib
+    with _build.loading():
+        lib = _LIBRARIES[build] = _bind(
+            _build.load(SOURCE, *_HEADER, BUILDS[build]))
+    return lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a loaded build; returns it."""
+    lib.copy_scale.argtypes = [_P, _P, _L, _F, _I, _P]
+    lib.exp_chain.argtypes = [_P, _P, _L, _F, _I, _I, _P]
+    for prefix in PREFIXES:
+        getattr(lib, f"{prefix}_blocks_per_sm").argtypes = [_I, _P]
+        getattr(lib, f"{prefix}_kernel_attrs").argtypes = [_P, _P]
+    for fn in (lib.copy_scale, lib.exp_chain,
+               *(getattr(lib, f"{p}_{name}") for p in PREFIXES
+                 for name in ("blocks_per_sm", "kernel_attrs",
+                              "threads_per_block"))):
+        fn.restype = _I
     return lib
 
 
@@ -156,15 +171,14 @@ def copy_step(x: torch.Tensor, s, out: torch.Tensor | None = None
     if out is None:
         out = torch.empty_like(x)
     _check(out, "copy_step (out)")
-    err = _library().copy_scale(
-        x.data_ptr(), out.data_ptr(), x.numel(), float(s), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _library()
+    with _build.launching(lib):
+        err = lib.copy_scale(
+            x.data_ptr(), out.data_ptr(), x.numel(), float(s),
+            x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _launched(err, "copy_scale")
-    copy_step.launches += 1
+    trace.count("launches.copy_step")
     return out
-
-
-copy_step.launches = 0
 
 
 def exp_chain_step(x: torch.Tensor, s, chain: int = CHAIN) -> torch.Tensor:
@@ -177,13 +191,12 @@ def exp_chain_step(x: torch.Tensor, s, chain: int = CHAIN) -> torch.Tensor:
         return exp_chain_plain(x, s, chain)
     _check(x, "exp_chain_step")
     out = torch.empty_like(x)
-    err = _library().exp_chain(
-        x.data_ptr(), out.data_ptr(), x.numel(), float(scale_of(s)),
-        int(chain), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _library()
+    with _build.launching(lib):
+        err = lib.exp_chain(
+            x.data_ptr(), out.data_ptr(), x.numel(), float(scale_of(s)),
+            int(chain), x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _launched(err, "exp_chain")
-    exp_chain_step.launches += 1
+    trace.count("launches.exp_chain_step")
     return out
-
-
-exp_chain_step.launches = 0

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from .. import trace
 from ..ops import m1 as CM1
 from ..ops import noneq as CMNonEq
 from ..ops import thermo as TDI
@@ -214,7 +215,8 @@ class Column1MStep(nn.Module):
     plain version. A thread block steps the largest power of two of
     columns, up to :data:`..kernels.column1m.BLOCK_COLS`, that divides
     ``ncol`` (a rank's ``ncol`` for a column-sharded :class:`ColumnState`,
-    which steps shard by shard; a packed state is never sharded).
+    which steps shard by shard; a packed state is never sharded). A call is
+    the span ``step.column1m`` (:mod:`..trace`).
     """
 
     def __init__(self, mp: Microphysics1MParams, tps: ThermodynamicsParameters,
@@ -249,20 +251,21 @@ class Column1MStep(nn.Module):
     def forward(self, state, q_tot_affine=None):
         from ..kernels import column1m as K
 
-        if isinstance(state, ColumnState):
-            if _sharded(state):
-                return _per_shard(lambda s: self.forward(s, q_tot_affine),
-                                  state)
-            step, ncol = K.step_column_1m_fused, state.rho.shape[0]
-            dtype = state.rho.dtype
-        else:
-            step, ncol = K.step_column_1m_fused_packed, state.shape[1]
-            dtype = state.dtype
-        return step(state, self.mp, self.tps, self.tv, self.dt, self.dz,
-                    mode=self.mode, nsub=self.nsub,
-                    sediment_cloud=self.sediment_cloud,
-                    block_cols=_block_cols(ncol, K.BLOCK_COLS),
-                    q_tot_affine=q_tot_affine, params=self.block(dtype))
+        with trace.span("step.column1m"):
+            if isinstance(state, ColumnState):
+                if _sharded(state):
+                    return _per_shard(
+                        lambda s: self.forward(s, q_tot_affine), state)
+                step, ncol = K.step_column_1m_fused, state.rho.shape[0]
+                dtype = state.rho.dtype
+            else:
+                step, ncol = K.step_column_1m_fused_packed, state.shape[1]
+                dtype = state.dtype
+            return step(state, self.mp, self.tps, self.tv, self.dt, self.dz,
+                        mode=self.mode, nsub=self.nsub,
+                        sediment_cloud=self.sediment_cloud,
+                        block_cols=_block_cols(ncol, K.BLOCK_COLS),
+                        q_tot_affine=q_tot_affine, params=self.block(dtype))
 
 
 def _block_cols(ncol: int, most: int = 128) -> int:
@@ -592,7 +595,8 @@ class ColumnP3Step(nn.Module):
     (:func:`..kernels.column_p3.step_column_p3_fused`); on CPU tensors it
     runs the plain version. ``block_cols`` is the largest power of two of
     columns, up to 128, that divides ``ncol``. A column-sharded state (and
-    guess) steps shard by shard, with a rank's ``ncol``.
+    guess) steps shard by shard, with a rank's ``ncol``. A call is the span
+    ``step.column_p3`` (:mod:`..trace`).
     """
 
     def __init__(self, mp, tps: ThermodynamicsParameters, dt: float,
@@ -624,11 +628,12 @@ class ColumnP3Step(nn.Module):
     def forward(self, state: ColumnStateP3, loglambda_guess=None):
         from ..kernels.column_p3 import step_column_p3_fused
 
-        if _sharded(state):
-            return _per_shard(self.forward, state, loglambda_guess)
-        dtype = state.rho.dtype
-        params = (self.block(dtype)
-                  if dtype in (torch.float32, torch.float64) else None)
-        return step_column_p3_fused(
-            state, self.mp, self.tps, self.dt, self.dz, loglambda_guess,
-            block_cols=_block_cols(state.rho.shape[0]), params=params)
+        with trace.span("step.column_p3"):
+            if _sharded(state):
+                return _per_shard(self.forward, state, loglambda_guess)
+            dtype = state.rho.dtype
+            params = (self.block(dtype)
+                      if dtype in (torch.float32, torch.float64) else None)
+            return step_column_p3_fused(
+                state, self.mp, self.tps, self.dt, self.dz, loglambda_guess,
+                block_cols=_block_cols(state.rho.shape[0]), params=params)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+from .. import trace
 from ..utils.param import paramclass, static_field
 from .common import AirProperties
 from .terminal_velocity import Blk1MVelType, blk1m_vel_type
@@ -384,6 +385,7 @@ class Microphysics1MParams:
     terminal_velocity: Blk1MVelType
 
 
+@trace.timed("setup.params_s")
 def microphysics_1m_params(
     process_overrides: dict | None = None, **options_kwargs
 ) -> Microphysics1MParams:

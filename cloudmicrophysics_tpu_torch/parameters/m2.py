@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+from .. import trace
 from ..utils.param import paramclass, static_field
 
 
@@ -303,6 +304,7 @@ class Microphysics2MParams:
     ice: object = None
 
 
+@trace.timed("setup.params_s")
 def microphysics_2m_params(is_limited: bool = True,
                            with_ice: bool = False,
                            rain_velocity: str = "sb2006",

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import math
 
+from .. import trace
 from ..utils.param import paramclass, static_field
 
 
@@ -190,6 +191,7 @@ def blk1m_vel_type() -> Blk1MVelType:
     return Blk1MVelType(rain=blk1m_vel_rain(), snow=blk1m_vel_snow())
 
 
+@trace.timed("setup.params_s")
 def terminal_velocity_params() -> TerminalVelocityParams:
     return TerminalVelocityParams(
         stokes=StokesRegimeVelType(),

@@ -26,6 +26,7 @@ import cloudmicrophysics_tpu.parameters as JP
 import cloudmicrophysics_tpu_torch.parameters as TP
 from cloudmicrophysics_tpu.kernels import column2m as JK
 from cloudmicrophysics_tpu.models import column as JC
+from cloudmicrophysics_tpu_torch import trace
 from cloudmicrophysics_tpu_torch.kernels import _build
 from cloudmicrophysics_tpu_torch.kernels import column2m as TK
 from cloudmicrophysics_tpu_torch.models import column as TC
@@ -186,14 +187,14 @@ def test_pack_unpack_round_trip():
 
 def test_cpu_path_does_not_count_launches():
     st = _torch_state(_arrays(16, 8), torch.float32)
-    before = (TK.step_column_2m_fused.launches,
-              TK.step_column_2m_fused_packed.launches)
+    names = ("launches.step_column_2m_fused",
+             "launches.step_column_2m_fused_packed")
+    before = [trace.counter(n) for n in names]
     TK.step_column_2m_fused(st, MP_T, TPS_T, DT, DZ, block_cols=8)
     TK.step_column_2m_fused_packed(TK.pack_state_2m(st), MP_T, TPS_T, DT, DZ,
                                    block_cols=8)
     TC.Column2MStep(MP_T, TPS_T, DT, DZ, device="cpu")(st)
-    assert (TK.step_column_2m_fused.launches,
-            TK.step_column_2m_fused_packed.launches) == before
+    assert [trace.counter(n) for n in names] == before
 
 
 # ---------------------------------------------------------------------------

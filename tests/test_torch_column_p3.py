@@ -24,6 +24,7 @@ import torch
 import cloudmicrophysics_tpu.parameters as JP
 import cloudmicrophysics_tpu_torch.parameters as TP
 from cloudmicrophysics_tpu.models import column as JC
+from cloudmicrophysics_tpu_torch import trace
 from cloudmicrophysics_tpu_torch.kernels import _build
 from cloudmicrophysics_tpu_torch.kernels import column_p3 as TK
 from cloudmicrophysics_tpu_torch.models import column as TC
@@ -159,7 +160,7 @@ def test_column_p3_step_module_equals_step(dtype):
     assert block.dtype == dtype and model.block(dtype) is block
     torch.testing.assert_close(
         block, TK.kernel_params_p3(MP_T, TPS_T, dtype=dtype), rtol=0, atol=0)
-    before = TK.step_column_p3_fused.launches
+    before = trace.counter("launches.step_column_p3_fused")
     out, ll = model(st)
     ref, ll_ref = TC.step_column_p3(st, MP_T, TPS_T, DT, DZ)
     for x, y in zip(out + (ll,), ref + (ll_ref,)):
@@ -169,7 +170,7 @@ def test_column_p3_step_module_equals_step(dtype):
     for x, y in zip(out2 + (ll2,), ref2 + (ll_ref2,)):
         assert torch.equal(x, y)
     # the CPU path launches nothing
-    assert TK.step_column_p3_fused.launches == before
+    assert trace.counter("launches.step_column_p3_fused") == before
 
 
 def test_fused_wrapper_checks_shapes_and_tiling():
@@ -460,7 +461,7 @@ def test_scratch_record_matches_the_source():
 def test_loglambda_wrapper_takes_the_plain_solve_on_cpu(order):
     mp = _p3(quadrature_order=order)
     st = _torch_state(_arrays(), torch.float32)
-    before = TK.launch_solve.launches
+    before = trace.counter("launches.launch_solve")
     ll = TK.loglambda_p3_fused(st, mp, TPS_T)
     assert torch.equal(ll, TK.loglambda_p3_plain(st, mp))
     _, ll_step = TC.step_column_p3(st, mp, TPS_T, DT, DZ)
@@ -468,4 +469,4 @@ def test_loglambda_wrapper_takes_the_plain_solve_on_cpu(order):
     guess = torch.where(torch.isfinite(ll), ll + 0.3, ll)
     assert torch.equal(TK.loglambda_p3_fused(st, mp, TPS_T, guess),
                        TK.loglambda_p3_plain(st, mp, guess))
-    assert TK.launch_solve.launches == before
+    assert trace.counter("launches.launch_solve") == before

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from cloudmicrophysics_tpu_torch import trace
 from cloudmicrophysics_tpu_torch.kernels import column1m as K
 from cloudmicrophysics_tpu_torch.kernels import column2m as K2
 from cloudmicrophysics_tpu_torch.kernels import column_p3 as K5
@@ -65,6 +66,11 @@ def device():
     return torch.device("cuda", 0)
 
 
+def _launches(*wrappers):
+    """The launch counter of each kernel wrapper, ``launches.<name>``."""
+    return [trace.counter(f"launches.{fn.__name__}") for fn in wrappers]
+
+
 def _state(ncol, nlev, device, dtype=torch.float32, seed=7):
     rng = np.random.default_rng(seed)
     shape = (ncol, nlev)
@@ -94,10 +100,10 @@ def test_kernel_matches_plain(device, ncol, nlev, block_cols):
         ncol += block_cols - ncol % block_cols
     st = _state(ncol, nlev, device)
     ref = K.step_column_1m_plain(st, MP, TPS, TV, DT, DZ)
-    before = K.step_column_1m_fused.launches
+    before = _launches(K.step_column_1m_fused)
     out = K.step_column_1m_fused(st, MP, TPS, TV, DT, DZ,
                                  block_cols=block_cols)
-    assert K.step_column_1m_fused.launches == before + 1
+    assert _launches(K.step_column_1m_fused) == [n + 1 for n in before]
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     packed = K.step_column_1m_fused_packed(K.pack_state(st), MP, TPS, TV, DT,
@@ -237,9 +243,9 @@ def test_2m_kernel_matches_plain(device, ncol, nlev, block_cols, is_limited,
                                 rain_velocity=rain_velocity)
     st = _state_2m(ncol, nlev, device)
     ref = K2.step_column_2m_plain(st, mp, TPS, DT, DZ)
-    before = K2.step_column_2m_fused.launches
+    before = _launches(K2.step_column_2m_fused)
     out = K2.step_column_2m_fused(st, mp, TPS, DT, DZ, block_cols=block_cols)
-    assert K2.step_column_2m_fused.launches == before + 1
+    assert _launches(K2.step_column_2m_fused) == [n + 1 for n in before]
     _assert_close(out, ref)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
@@ -351,11 +357,10 @@ def test_p3_kernel_matches_plain(device, order, ncol, nlev, tilings):
     ref = K5.step_column_p3_plain(st, mp, TPS, DT, DZ)
     counted = (K5.step_column_p3_fused, K5.launch_solve, K5.launch_nodes,
                K5.launch_epilogue)
-    before = [fn.launches for fn in counted]
+    before = _launches(*counted)
     outs = [K5.step_column_p3_fused(st, mp, TPS, DT, DZ, block_cols=bc)
             for bc in tilings]
-    assert [fn.launches for fn in counted] == [n + len(tilings)
-                                               for n in before]
+    assert _launches(*counted) == [n + len(tilings) for n in before]
     _assert_close_p3(outs[0], ref)
     for x, y in zip(outs[0][0] + (outs[0][1],), outs[1][0] + (outs[1][1],)):
         assert torch.equal(x, y)
@@ -425,11 +430,11 @@ def test_p3_kernel_scope_is_bit_identical(device, name):
     ref = K5.step_column_p3_plain(st, mp, TPS, DT, DZ)
     counted = (K5.step_column_p3_fused, K5.launch_solve, K5.launch_nodes,
                K5.launch_epilogue)
-    before = [fn.launches for fn in counted]
+    before = _launches(*counted)
     tilings = (ncol, ncol // 2 if ncol % 2 == 0 else 1)
     outs = [K5.step_column_p3_fused(st, mp, TPS, DT, DZ, block_cols=bc)
             for bc in tilings]
-    assert [fn.launches for fn in counted] == [n + 2 for n in before]
+    assert _launches(*counted) == [n + 2 for n in before]
     for out in outs:
         _assert_same_p3(out, ref)
     warm = K5.step_column_p3_fused(ref[0], mp, TPS, DT, DZ, ref[1],
@@ -501,10 +506,10 @@ def test_p3_solve_kernel_loglambda_is_bit_identical(device, states):
     mp = microphysics_2m_params(with_ice=True, quadrature_order=16)
     st = _ladder_state(device) if states == "ladder" else _state_p3(
         256, 64, device)
-    before = K5.launch_solve.launches
+    before = _launches(K5.launch_solve)
     ref = K5.loglambda_p3_plain(st, mp)
     assert torch.equal(K5.loglambda_p3_fused(st, mp, TPS), ref)
-    assert K5.launch_solve.launches == before + 1
+    assert _launches(K5.launch_solve) == [n + 1 for n in before]
     # warm-started off the root, and at the root itself
     away = torch.where(torch.isfinite(ref), ref + 0.25, ref)
     for guess in (away, ref):
@@ -844,9 +849,9 @@ def test_world1_sharded_kernels_are_bit_identical(device, one_rank_mesh,
     counter, step, st = _sharded_paths(device)[kernel]
     ref = list(_leaves(step(st)))
     sharded = shard_columns(st, one_rank_mesh)
-    counter.launches = 0
+    before = _launches(counter)
     out = list(_leaves(step(sharded)))
-    assert counter.launches >= 1
+    assert _launches(counter)[0] >= before[0] + 1
     assert len(out) == len(ref)
     for a, b in zip(out, ref):
         assert is_dtensor(a) and a.to_local().device == device
@@ -876,12 +881,73 @@ def test_examples_run_on_the_card_by_default(device):
     assert isinstance(step, ColumnP3Step)
     with pytest.raises(ValueError, match="col_chunks"):
         SQ.stepper(mp, 2.0, 250.0, device, col_chunks=2)
-    K5.step_column_p3_fused.launches = 0
+    before = _launches(K5.step_column_p3_fused)
     state = SQ.column_state(8, 64, 250.0, device)
     got, ll_got, _ = SQ.rollout(state, step, 6, 250.0)
-    assert K5.step_column_p3_fused.launches == 6
+    assert _launches(K5.step_column_p3_fused) == [n + 6 for n in before]
     want, ll_want = state, None
     for _ in range(6):
         want, ll_want = step_column_p3(want, mp, TPS, 2.0, 250.0, ll_want)
     assert torch.equal(ll_got, ll_want)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _profiled(fn, steps):
+    """``fn`` called ``steps`` times under a CPU and CUDA profiler, after
+    one call outside it; returns the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def test_launch_spans_hold_their_launches_on_the_profiler_clock(device):
+    """Under the profiler, each of K1's and K5's launches lies in its span
+    (``launch.k1``, ``launch.k5a/b/c``) inside ``column.prepare``'s step
+    span, on one clock: the runtime's launch call inside the span; and the
+    kernels the device ran a step (the benchmark's ``host.launches``) are
+    those the launch counters counted."""
+    m1 = Column1MStep(MP, TPS, TV, DT, DZ, device=device)
+    packed = K.pack_state(_state(256, 64, device))
+    m5 = ColumnP3Step(microphysics_2m_params(with_ice=True,
+                                             quadrature_order=8),
+                      TPS, DT, DZ, device=device)
+    st = _state_p3(256, 64, device)
+    cases = [(lambda: m1(packed), "step.column1m", ("launch.k1",),
+              (K.step_column_1m_fused_packed,)),
+             (lambda: m5(st), "step.column_p3",
+              ("launch.k5a", "launch.k5b", "launch.k5c"),
+              (K5.launch_solve, K5.launch_nodes, K5.launch_epilogue))]
+    steps = 3
+    for fn, step_name, spans, wrappers in cases:
+        before = _launches(*wrappers)
+        trace.reset()
+        prof = _profiled(fn, steps)
+        counted = [a - b - 1 for a, b in zip(_launches(*wrappers), before)]
+        assert counted == [steps] * len(wrappers)
+        totals = trace.totals()
+        assert totals[step_name]["count"] == steps
+        assert totals["column.prepare"]["count"] == steps
+        events = prof.events()
+        cuda = torch.autograd.DeviceType.CUDA
+        kernels = [e for e in events if e.device_type == cuda
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+        assert len(kernels) == steps * len(spans)
+        runtime = [e.time_range for e in events
+                   if e.name.startswith(("cudaLaunchKernel",
+                                         "cuLaunchKernel"))]
+        for name in spans:
+            assert totals[name]["count"] == steps
+            ranges = [e.time_range for e in events if e.name == name]
+            assert len(ranges) == steps
+            for r in ranges:
+                inside = [x for x in runtime
+                          if r.start <= x.start and x.end <= r.end]
+                assert len(inside) == 1, (name, len(inside))
+    trace.reset()

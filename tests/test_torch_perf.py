@@ -85,13 +85,37 @@ def test_raises_when_a_repeat_call_loads_a_library(monkeypatch, tmp_path):
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    from cloudmicrophysics_tpu_torch.models import parcel as PM
+    from cloudmicrophysics_tpu_torch.parameters.aerosol_species import (
+        DesertDust,
+    )
+
     log_dir = tmp_path / "trace"
+    # Tully et al. 2023's cirrus parcel, moist enough to nucleate at once
+    values = (0.91, 2e4, 230.0, 3.5e-4, 0.0, 0.0, 2e6, 0.0, 0.0, 0.0)
+    y = PM.ParcelState(*(torch.full((4,), v) for v in values))
+    params = PM.parcel_params(aerosol=DesertDust(), deposition="MohlerAF",
+                              deposition_growth="Deposition", r_nuc=5e-11,
+                              const_dt=0.1, w=0.035)
     with perf.profile_trace(str(log_dir)):
         torch.exp(_f32(1024)).sum()
+        PM.parcel_step(params, y, 0.0, torch.zeros(4))
     files = list(log_dir.glob("trace_*.json"))
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any("exp" in e.get("name", "") for e in events)
+    # the program's step span and its children, each inside the step
+    spans = {e["name"]: e for e in events
+             if e.get("ph") == "X" and e.get("name", "").startswith(
+                 ("step.", "parcel."))}
+    children = ("parcel.thermo", "parcel.deposition",
+                "parcel.deposition_growth", "parcel.update")
+    assert set(spans) == {"step.parcel", *children}
+    step = spans["step.parcel"]
+    for name in children:
+        assert step["ts"] <= spans[name]["ts"]
+        assert (spans[name]["ts"] + spans[name]["dur"]
+                <= step["ts"] + step["dur"]), name
 
 
 def _column_arrays(ncol, nlev, seed=3):
