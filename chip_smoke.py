@@ -109,7 +109,9 @@ then, failing at the first phase that does not hold:
     larger, both at the card's maximum SM clock (``perf.hbm_bytes_per_s``
     by the card's name, and its SM count and clock: 3.35 TB/s, 132 SMs at
     1.98 GHz for the H100 SXM).
-    Fails if a bound exceeds the kernel's time. The SASS and the probe's
+    Fails if a bound exceeds the kernel's time, or if K5b's node passes a
+    cell in the probe (``R_NODE``) are not the launch plan's
+    ``node_passes`` times its lanes per cell. The SASS and the probe's
     counts go to ``kernels/build/``;
 13. runs the port's roofline (``cloudmicrophysics_tpu_torch.roofline``) at
     full width, with every launch counter read just before and again
@@ -1619,7 +1621,7 @@ def _k5_launches(K, model, state, guess, device, lib):
 
     mp, dtype = model.mp, state.rho.dtype
     ncol, nlev = state.rho.shape
-    plan = K.launch_plan(ncol, nlev, mp.ice.quad.n, _block_cols(ncol))
+    plan = K.launch_plan(ncol, nlev, mp.ice.quad.n, _block_cols(ncol), dtype)
     params = model.block(dtype)
     scratch = torch.empty(plan.scratch_shape, dtype=dtype, device=device)
     loglam = torch.empty_like(state.rho)
@@ -1697,6 +1699,17 @@ def _k5_ops(K, model, state, guess, device, quiet=False):
         warps[key] = dict(zip(names, sums[len(names):]))
         del buf
     same = torch.equal(loglam, model(state, guess)[1])
+    # K5b's lane passes: each cell's lanes run the launch plan's passes
+    node_cells = plan.nodes_grid * plan.cells_per_block
+    per_cell = counts["K5b"]["R_NODE"] / node_cells
+    want = plan.node_passes * plan.lanes_per_cell
+    print(f"  K5b R_NODE, {v.tag()}: {counts['K5b']['R_NODE']} thread "
+          f"executions, {per_cell:g} a cell; node_passes x lanes "
+          f"{plan.node_passes} x {plan.lanes_per_cell} = {want}, for "
+          f"{plan.ice_nodes} ice nodes")
+    if per_cell != want:
+        raise AssertionError(f"K5b {v.tag()}: R_NODE {per_cell:g} a cell, "
+                             f"not node_passes x lanes {want}")
     sass = opcount.disassemble(K.library_path("kernel", v))
     stem = "column_p3" + ("" if v == K.DEFAULT_VARIANT else
                           "-" + v.tag().replace(" ", "_"))

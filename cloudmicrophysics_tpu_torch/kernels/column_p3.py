@@ -16,8 +16,9 @@ of :data:`SCRATCH_FIELDS` rows of ``ncol * nlev`` in the state's dtype
   alone;
 * K5b (:func:`launch_nodes`), a warp per cell (4N lanes when they divide a
   warp), walking the cell's 4N ice quadrature nodes in chunks of two nodes
-  a lane at float32 and one at float64: every contraction over the ice
-  nodes (liquid-ice collisions,
+  a lane at float32 and one at float64, the last chunk in only the lane
+  passes that hold a node (:func:`node_passes`): every contraction over the
+  ice nodes (liquid-ice collisions,
   blocked self-collection, melt, the weighted fall speeds), each node-axis
   sum added one node at a time in node order;
 * K5c (:func:`launch_epilogue`), a thread per cell in blocks of whole
@@ -56,8 +57,9 @@ On CUDA tensors a step's preparation (the checks, the launch plan, the
 parameter buffer, the library, the outputs and the scratch record) is the
 span ``column.prepare`` and its three launches the spans ``launch.k5a``,
 ``launch.k5b`` and ``launch.k5c``; each launch adds one to the counter
-``launches.<launcher>`` and each step to ``launches.step_column_p3_fused``
-(:mod:`..trace`).
+``launches.<launcher>`` and each step to ``launches.step_column_p3_fused``;
+K5b's launch adds the lane-node evaluations it runs to ``k5b.node_evals``
+and the ice nodes it sums to ``k5b.nodes`` (:mod:`..trace`).
 """
 
 from __future__ import annotations
@@ -92,6 +94,7 @@ __all__ = [
     "launch_plan",
     "loglambda_p3_fused",
     "loglambda_p3_plain",
+    "node_passes",
     "step_column_p3_fused",
     "step_column_p3_plain",
     "variant",
@@ -442,6 +445,8 @@ class LaunchPlan(NamedTuple):
     nodes_grid: int           # K5b: lanes_per_cell lanes per cell
     lanes_per_cell: int
     cells_per_block: int      # K5b cells per NODE_THREADS block
+    ice_nodes: int            # K5b: 4 x order ice nodes a cell
+    node_passes: int          # K5b: lane passes a cell (node_passes)
     epilogue_cols: int        # K5c: whole columns per block
     epilogue_levels: int      # K5c: levels of a column per chunk
     epilogue_block: int       # K5c threads per block (cols * levels)
@@ -460,20 +465,32 @@ def node_chunks(order: int, dtype: torch.dtype = torch.float32
                 ) -> tuple[int, int]:
     """K5b's walk over a cell's 4 x ``order`` ice nodes: (nodes per chunk,
     chunks). Each of the cell's :func:`lanes_per_cell` lanes takes up to
-    two nodes a chunk at float32 and one at float64; lanes past the last
-    node of the last chunk are masked."""
+    two nodes a chunk at float32 and one at float64; the last chunk runs
+    only the passes that hold a node (:func:`node_passes`), its lanes past
+    the last node masked."""
     nodes, lanes = 4 * order, lanes_per_cell(order)
     per = min(-(-nodes // lanes), 2 if dtype == torch.float32 else 1)
     return per * lanes, -(-nodes // (per * lanes))
 
 
-def launch_plan(ncol: int, nlev: int, order: int,
-                block_cols: int) -> LaunchPlan:
-    """The launch plan of one K5 step on ``(ncol, nlev)`` fields at
-    quadrature ``order``. ``block_cols`` must divide ``ncol``; K5c's block
-    steps the largest divisor of ``block_cols`` whose columns fit in
-    EPILOGUE_THREADS threads (so that the blocks fill the card however
-    large ``block_cols`` is), each walked in chunks of at most
+def node_passes(order: int, dtype: torch.dtype = torch.float32) -> int:
+    """K5b's lane passes a cell: a pass for each node a lane takes in a
+    chunk of :func:`node_chunks`, but in the last chunk only the passes
+    that hold a node, so that no pass evaluates only nodes that are not
+    summed. A pass is :func:`lanes_per_cell` lane-node evaluations."""
+    chunk, chunks = node_chunks(order, dtype)
+    lanes = lanes_per_cell(order)
+    last = 4 * order - (chunks - 1) * chunk
+    return (chunks - 1) * (chunk // lanes) + -(-last // lanes)
+
+
+def launch_plan(ncol: int, nlev: int, order: int, block_cols: int,
+                dtype: torch.dtype = torch.float32) -> LaunchPlan:
+    """The launch plan of one K5 step on ``(ncol, nlev)`` fields of
+    ``dtype`` at quadrature ``order``. ``block_cols`` must divide ``ncol``;
+    K5c's block steps the largest divisor of ``block_cols`` whose columns
+    fit in EPILOGUE_THREADS threads (so that the blocks fill the card
+    however large ``block_cols`` is), each walked in chunks of at most
     EPILOGUE_THREADS levels."""
     _check_tiling(ncol, block_cols)
     if nlev < 1 or order < 1:
@@ -491,6 +508,7 @@ def launch_plan(ncol: int, nlev: int, order: int,
         solve_grid=-(-ncells // SOLVE_THREADS),
         nodes_grid=-(-ncells // per_block),
         lanes_per_cell=lanes, cells_per_block=per_block,
+        ice_nodes=4 * order, node_passes=node_passes(order, dtype),
         epilogue_cols=cols, epilogue_levels=levels,
         epilogue_block=cols * levels, epilogue_grid=ncol // cols)
 
@@ -528,7 +546,7 @@ def _bind(lib: ctypes.CDLL, build: str, v: Variant) -> ctypes.CDLL:
                lib.column_p3_epilogue, lib.column_p3_num_params,
                lib.column_p3_scratch_fields, lib.column_p3_lanes_per_cell,
                lib.column_p3_node_chunk, lib.column_p3_node_chunks,
-               lib.column_p3_table_len):
+               lib.column_p3_node_passes, lib.column_p3_table_len):
         fn.restype = _I
     lib.column_p3_threads.argtypes, lib.column_p3_threads.restype = [_I], _I
     lib.column_p3_kernel_attrs.argtypes = [_I, _P]
@@ -558,7 +576,9 @@ def _bind(lib: ctypes.CDLL, build: str, v: Variant) -> ctypes.CDLL:
     if (lib.column_p3_table_len() != _table_len(v.order)
             or lib.column_p3_lanes_per_cell() != lanes_per_cell(v.order)
             or (lib.column_p3_node_chunk(), lib.column_p3_node_chunks())
-            != node_chunks(v.order, v.torch_dtype)):
+            != node_chunks(v.order, v.torch_dtype)
+            or lib.column_p3_node_passes() != node_passes(v.order,
+                                                          v.torch_dtype)):
         raise RuntimeError("column_p3 library built with other quadrature "
                            "tables or node chunks")
     return lib
@@ -644,13 +664,17 @@ def launch_solve(lib, state, guess, loglam, scratch, params, plan, device):
 
 def launch_nodes(lib, state, scratch, params, plan, device):
     """K5b on the current stream: the node-pass sums of ``scratch``."""
-    args = (_ptrs(state), scratch.data_ptr(), params.data_ptr(),
-            state.rho.numel(), plan.nodes_grid, device.index,
+    cells = state.rho.numel()
+    args = (_ptrs(state), scratch.data_ptr(), params.data_ptr(), cells,
+            plan.nodes_grid, device.index,
             torch.cuda.current_stream(device).cuda_stream)
     with trace.span("launch.k5b"):
         err = lib.column_p3_nodes(*args)
     _raise_on(err, "column_p3_nodes")
     trace.count("launches.launch_nodes")
+    trace.count("k5b.node_evals",
+                cells * plan.lanes_per_cell * plan.node_passes)
+    trace.count("k5b.nodes", cells * plan.ice_nodes)
 
 
 def launch_epilogue(lib, state, out, scratch, params, plan, dt, dz, warm,
@@ -698,7 +722,7 @@ def loglambda_p3_fused(state: ColumnStateP3, mp, tps, loglambda_guess=None,
         ncol, nlev = state.rho.shape
         dtype = state.rho.dtype
         _check_supported(mp, nlev, dtype)
-        plan = launch_plan(ncol, nlev, mp.ice.quad.n, 1)
+        plan = launch_plan(ncol, nlev, mp.ice.quad.n, 1, dtype)
         params = _device_params(params, mp, tps, device, dtype)
         lib = _library("kernel", variant(mp, dtype))
         loglam = torch.empty_like(state.rho)
@@ -734,7 +758,7 @@ def step_column_p3_fused(state: ColumnStateP3, mp, tps, dt, dz,
         ncol, nlev = state.rho.shape
         dtype = state.rho.dtype
         _check_supported(mp, nlev, dtype)
-        plan = launch_plan(ncol, nlev, mp.ice.quad.n, block_cols)
+        plan = launch_plan(ncol, nlev, mp.ice.quad.n, block_cols, dtype)
         params = _device_params(params, mp, tps, device, dtype)
         lib = _library("kernel", variant(mp, dtype))
         warm = warm_variant(mp)

@@ -48,8 +48,10 @@
 //   K5b (column_p3_nodes_kernel<N>): G lanes per cell (4N when that divides
 //     a warp, else a warp), which walk the cell's 4N ice nodes in node order
 //     in chunks of PER x G, PER nodes per lane (two at float32, one at
-//     float64); lanes past the last node of the last chunk evaluate the
-//     last node and store nothing that is summed. Every order up to 16 at
+//     float64). The last chunk runs only the lane passes that hold a node
+//     (min(PER, ceil(its nodes / G)), the same for every lane of the
+//     warp); in such a pass the lanes past the last node evaluate the last
+//     node and store nothing that is summed. Every order up to 16 at
 //     float32 is one chunk (GL-16's 64 nodes, two per lane). The cell's
 //     liquid node factors are computed into shared memory and read by
 //     broadcast (once per cell up to kMaxLiq liquid nodes, else once per
@@ -1117,6 +1119,9 @@ struct NodePass {
   static constexpr int PER = (NN + G - 1) / G < PER_MAX ? (NN + G - 1) / G : PER_MAX;
   static constexpr int CH = PER * G;                           // nodes per chunk
   static constexpr int CHUNKS = (NN + CH - 1) / CH;
+  // lane passes of the last chunk: those that hold a node
+  static constexpr int LAST_PER = (NN - (CHUNKS - 1) * CH + G - 1) / G;
+  static constexpr int PASSES = (CHUNKS - 1) * PER + LAST_PER;  // lane passes a cell
   static constexpr int CELLS = kNodeThreads / G;               // cells per block
   // blocks per SM the registers are held to: float32 at 128 registers, 4
   // (a cap of 64, 8 blocks, made GL-16's K5b slower on an H100), float64
@@ -1126,6 +1131,18 @@ struct NodePass {
   static constexpr int LC = NL < kMaxLiq ? NL : kMaxLiq;       // liquid nodes held at once
   static constexpr int LCHUNKS = (NL + LC - 1) / LC;
 };
+
+// Lane passes of the chunk from node g0: PER, but LAST_PER in the last
+// chunk; the constant PER where the last chunk's nodes need every pass
+template <int N>
+__device__ __forceinline__ int chunk_passes(int g0) {
+  using L = NodePass<N>;
+  if constexpr (L::LAST_PER == L::PER) {
+    return L::PER;
+  } else {
+    return g0 + L::CH < L::NN ? L::PER : L::LAST_PER;
+  }
+}
 
 // The running serial sums of tasks 0 .. kTasks - 1 and the cross sums,
 // carried from chunk to chunk: none with one chunk
@@ -1306,10 +1323,11 @@ column_p3_nodes_kernel(Fields f, const scalar* __restrict__ P, real* __restrict_
   // with g0 = 0 known, so its sums' bounds are constants.
   auto chunk = [&](const int g0) {
     // ---- each lane's nodes: node g = g0 + p G + lane is node j of segment
-    // sg (a lane past the last node evaluates the last node; nothing reads
-    // it)
+    // sg, in each pass that holds a node (a lane past the last node
+    // evaluates the last node; nothing reads it)
+    const int passes = chunk_passes<N>(g0);
 #pragma unroll 1
-    for (int p = 0; p < L::PER; ++p) {
+    for (int p = 0; p < passes; ++p) {
       K5_COUNT(R_NODE);
       const int q = p * G + lane;            // the node's place in the chunk
       const int ge = NN % CH == 0 || g0 + q < NN ? g0 + q : NN - 1;
@@ -1474,7 +1492,7 @@ column_p3_nodes_kernel(Fields f, const scalar* __restrict__ P, real* __restrict_
     __syncwarp();
     // cross-segment blocks against the segments below
 #pragma unroll 1
-    for (int p = 0; p < L::PER; ++p) {
+    for (int p = 0; p < passes; ++p) {
       const int q = p * G + lane;
       const int ge = NN % CH == 0 || g0 + q < NN ? g0 + q : NN - 1;
       const int sg = ge / N;
@@ -1899,6 +1917,8 @@ int column_p3_lanes_per_cell() { return NodePass<kOrder>::G; }
 // K5b's ice nodes per chunk of a cell, and its chunks.
 int column_p3_node_chunk() { return NodePass<kOrder>::CH; }
 int column_p3_node_chunks() { return NodePass<kOrder>::CHUNKS; }
+// K5b's lane passes a cell: over its chunks, the passes that hold a node.
+int column_p3_node_passes() { return NodePass<kOrder>::PASSES; }
 
 // Length of the node/weight tables behind the scalar parameters.
 int column_p3_table_len() { return Orders<kOrder>::LEN; }

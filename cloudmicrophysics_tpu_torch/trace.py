@@ -14,8 +14,10 @@ costs a call and a flag test. Nothing else switches spans on.
 
 A **counter** (:func:`count`, :func:`add_seconds`, :func:`counter`) is
 always on: a plain add under a lock, for events that happen once or a few
-times a step (kernel launches, library builds and loads) and for set-up
-seconds (:func:`timed`). :func:`reset` clears the span totals; counters
+times a step (kernel launches, library builds and loads), for the work a
+launch plan sets (``k5b.node_evals``, the lane-node evaluations of K5b,
+beside ``k5b.nodes``, the ice nodes it sums) and for set-up seconds
+(:func:`timed`). :func:`reset` clears the span totals; counters
 run for the life of the process.
 
 Span totals are per process; the open spans are kept per thread.

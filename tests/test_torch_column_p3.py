@@ -388,6 +388,10 @@ def test_launch_plan_covers_every_cell(ncol, nlev, order, block_cols):
         per, chunks = TK.node_chunks(order, dtype)
         assert per % lanes == 0 and chunks * per >= 4 * order \
             > (chunks - 1) * per
+        # every pass holds a node: fewer lanes than one pass of dead slots
+        passes = TK.node_passes(order, dtype)
+        assert 0 <= passes * lanes - 4 * order < lanes
+    assert plan.node_passes == TK.node_passes(order)
     assert plan.cells_per_block * lanes == TK.NODE_THREADS
     assert (plan.nodes_grid - 1) * plan.cells_per_block < ncells \
         <= plan.nodes_grid * plan.cells_per_block
@@ -404,24 +408,32 @@ def test_launch_plan_covers_every_cell(ncol, nlev, order, block_cols):
                                              + 1))
 
 
-@pytest.mark.parametrize("dtype,order,lanes,per,chunks,masked", [
-    ("float32", 1, 4, 4, 1, 0), ("float32", 2, 8, 8, 1, 0),
-    ("float32", 4, 16, 16, 1, 0), ("float32", 8, 32, 32, 1, 0),
-    ("float32", 16, 32, 64, 1, 0), ("float32", 5, 32, 32, 1, 12),
-    ("float32", 25, 32, 64, 2, 28), ("float32", 40, 32, 64, 3, 32),
-    ("float32", 100, 32, 64, 7, 48), ("float32", 3, 32, 32, 1, 20),
-    ("float64", 4, 16, 16, 1, 0), ("float64", 16, 32, 32, 2, 0),
-    ("float64", 5, 32, 32, 1, 12), ("float64", 40, 32, 32, 5, 0),
-    ("float64", 100, 32, 32, 13, 16)])
+@pytest.mark.parametrize("dtype,order,lanes,per,chunks,passes,masked", [
+    ("float32", 1, 4, 4, 1, 1, 0), ("float32", 2, 8, 8, 1, 1, 0),
+    ("float32", 4, 16, 16, 1, 1, 0), ("float32", 8, 32, 32, 1, 1, 0),
+    ("float32", 16, 32, 64, 1, 2, 0), ("float32", 5, 32, 32, 1, 1, 12),
+    ("float32", 25, 32, 64, 2, 4, 28), ("float32", 40, 32, 64, 3, 5, 0),
+    ("float32", 100, 32, 64, 7, 13, 16), ("float32", 3, 32, 32, 1, 1, 20),
+    ("float32", 24, 32, 64, 2, 3, 0), ("float32", 12, 32, 64, 1, 2, 16),
+    ("float32", 160, 32, 64, 10, 20, 0),
+    ("float64", 4, 16, 16, 1, 1, 0), ("float64", 16, 32, 32, 2, 2, 0),
+    ("float64", 5, 32, 32, 1, 1, 12), ("float64", 40, 32, 32, 5, 5, 0),
+    ("float64", 100, 32, 32, 13, 13, 16)])
 def test_launch_plan_ragged_node_chunks(dtype, order, lanes, per, chunks,
-                                        masked):
-    """K5b's lanes per cell and its chunks of ice nodes (two nodes a lane
-    at float32, one at float64): the lanes of the last chunk past the
-    cell's 4N nodes are masked, not dropped. The library's own numbers
-    are checked against these at load."""
+                                        passes, masked):
+    """K5b's lanes per cell, its chunks of ice nodes (two nodes a lane at
+    float32, one at float64) and its lane passes a cell: the last chunk
+    runs only the passes that hold a node, and in those its lanes past the
+    cell's 4N nodes are masked (``masked``: the lane-node evaluations a
+    cell that nothing sums). The library's own numbers are checked against
+    these at load."""
+    dt = getattr(torch, dtype)
     assert TK.lanes_per_cell(order) == lanes
-    assert TK.node_chunks(order, getattr(torch, dtype)) == (per, chunks)
-    assert chunks * per - 4 * order == masked
+    assert TK.node_chunks(order, dt) == (per, chunks)
+    assert TK.node_passes(order, dt) == passes
+    assert passes * lanes - 4 * order == masked
+    plan = TK.launch_plan(8, 4, order, 8, dt)
+    assert (plan.ice_nodes, plan.node_passes) == (4 * order, passes)
 
 
 def test_launch_plan_fills_the_card_at_the_p3_size():

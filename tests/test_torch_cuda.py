@@ -419,6 +419,10 @@ P3_SCOPE = {
     "CG-160": (dict(order=160), torch.float32, 16, 16),
     # 4 lanes a cell, 32 cells a block
     "CG-1": (dict(order=1), torch.float32, 64, 16),
+    # the last node chunk in fewer lane passes than the others: GL-40's
+    # 160 nodes in 2 + 2 + 1, CG-24's 96 in 2 + 1
+    "GL-40": (dict(order=40), torch.float32, 64, 16),
+    "CG-24": (dict(order=24), torch.float32, 64, 16),
 }
 
 
@@ -442,6 +446,27 @@ def test_p3_kernel_scope_is_bit_identical(device, name):
     _assert_same_p3(warm, K5.step_column_p3_plain(ref[0], mp, TPS, DT, DZ,
                                                   ref[1]))
     assert warm[0].rho.dtype == dtype
+
+
+@pytest.mark.parametrize("order,ratio", [(16, 1.0), (40, 1.0),
+                                         (100, 416 / 400)])
+def test_k5b_node_counters_follow_the_launch_plan(device, order, ratio):
+    """One fused step adds to ``k5b.node_evals`` the lane-node evaluations
+    of its launch plan (cells x lanes x passes) and to ``k5b.nodes`` the
+    ice nodes it sums (cells x 4N): every evaluation is summed but the
+    masked lanes of a last pass that is partly live (CG-100's 16)."""
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=order)
+    ncol, nlev = 32, 8
+    st = _state_p3(ncol, nlev, device)
+    plan = K5.launch_plan(ncol, nlev, order, ncol)
+    before = [trace.counter(n) for n in ("k5b.node_evals", "k5b.nodes")]
+    K5.step_column_p3_fused(st, mp, TPS, DT, DZ, block_cols=ncol)
+    evals, nodes = (trace.counter(n) - b for n, b in
+                    zip(("k5b.node_evals", "k5b.nodes"), before))
+    cells = ncol * nlev
+    assert evals == cells * plan.lanes_per_cell * plan.node_passes
+    assert nodes == cells * 4 * order
+    assert evals / nodes == ratio
 
 
 def test_column_p3_step_module(device):
