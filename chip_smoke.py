@@ -166,7 +166,7 @@ then, failing at the first phase that does not hold:
     (``cloudmicrophysics_tpu_torch.parallel``), with each path's launch
     counter read just before each sharded run and again just after:
     (a) in this process, a one-rank NCCL group: ``Column1MStep`` on the 1M
-    state (K2) and ``step_column_2m(impl="fused")`` on the 2M state (K3),
+    state (K2) and ``step_column_2m(impl="fused")`` on the 2M state (K4),
     both at 524288 x 128, and ``ColumnP3Step`` at GL-16 on the P3 state
     at 16384 x 128 (K5, cold then warm-started), each sharded with
     ``shard_columns`` and held two steps bit for bit against the unsharded
@@ -2822,8 +2822,8 @@ def _shard_paths(device):
     """The paths phase 17 shards, at full width: (tag, kernel, step, first
     input, launch counter). A step maps its input to the next one: a
     ``ColumnState`` through ``Column1MStep`` (K2), a ``ColumnState2M``
-    through ``step_column_2m(impl="fused")`` (K3, each rank packing its
-    shard), and a ``(ColumnStateP3, log lambda)`` pair through
+    through ``step_column_2m(impl="fused")`` (K4 on each rank's shard),
+    and a ``(ColumnStateP3, log lambda)`` pair through
     ``ColumnP3Step`` at GL-16 (K5; the first input's guess is None, so the
     first step is cold and the next ones warm-started)."""
     from cloudmicrophysics_tpu_torch.kernels import column1m as K
@@ -2856,10 +2856,10 @@ def _shard_paths(device):
     return [
         ("1M", "K2", m1, lambda: device_state(NCOL, NLEV, device),
          K.step_column_1m_fused),
-        ("2M", "K3",
+        ("2M", "K4",
          lambda s: step_column_2m(s, mp2, tps, DT, DZ, impl="fused"),
          lambda: device_state_2m(NCOL, NLEV, device),
-         K2M.step_column_2m_fused_packed),
+         K2M.step_column_2m_fused),
         ("P3", "K5", lambda x: m3(*x),
          lambda: (p3_bench_state(P3_NCOL, P3_NLEV, device), None),
          K5.step_column_p3_fused),
@@ -2964,7 +2964,7 @@ def _shard_rank(out_dir):
 
 def _run_sharded(device, gpu_line):
     """Phase 17: the column steps sharded over ``torch.distributed``.
-    (a) one rank, NCCL, world 1, full width: K2, K3 and K5 through the
+    (a) one rank, NCCL, world 1, full width: K2, K4 and K5 through the
     sharded entry points, each two steps bit for bit against the unsharded
     module, timed against it by CUDA events (rollouts of ``SHARD_STEPS``
     steps in the order ``SHARD_ORDER``; the best of each), with the host

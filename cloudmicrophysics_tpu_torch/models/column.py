@@ -31,6 +31,7 @@ kernel wrappers, the tiling, the chunking) sees a ``DTensor`` or the global
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -298,16 +299,16 @@ def step_column_2m(state: ColumnState2M, mp, tps: ThermodynamicsParameters,
 
     * ``"eager"`` (default) — eager PyTorch on any device, the JAX
       package's ``"xla"``;
-    * ``"fused"`` — the packed-state fused kernel
-      (:func:`..kernels.column2m.step_column_2m_fused_packed`), the JAX
-      package's ``"pallas"``: one CUDA launch per step on CUDA tensors, the
-      plain version on CPU tensors. ``block_cols`` is halved until it
-      divides ``ncol``. A call is the span ``step.column2m``, its packing
-      and unpacking the spans ``column2m.pack``, and the counter
-      ``column2m.packed_bytes`` adds the bytes it stacks (:mod:`..trace`).
+    * ``"fused"`` — the fused kernel on the seven fields where they lie
+      (:func:`..kernels.column2m.step_column_2m_fused`), the JAX package's
+      ``"pallas"``: one CUDA launch per step on CUDA tensors, the plain
+      version on CPU tensors. ``block_cols`` is halved until it divides
+      ``ncol``. Fields of mixed float dtypes are promoted to their common
+      dtype, and non-contiguous fields are made contiguous. A call is the
+      span ``step.column2m`` (:mod:`..trace`).
 
-    A column-sharded state steps shard by shard: each rank packs its own
-    shard, and ``ncol`` is the rank's.
+    A column-sharded state steps shard by shard, and ``ncol`` is the
+    rank's.
     """
     from ..ops import m2 as CM2
 
@@ -315,25 +316,20 @@ def step_column_2m(state: ColumnState2M, mp, tps: ThermodynamicsParameters,
         return _per_shard(lambda s: step_column_2m(
             s, mp, tps, dt, dz, impl, block_cols), state)
     if impl == "fused":
-        from ..kernels.column2m import (
-            pack_state_2m,
-            step_column_2m_fused_packed,
-            unpack_state_2m,
-        )
+        from ..kernels.column2m import step_column_2m_fused
 
         with trace.span("step.column2m"):
             ncol = state.rho.shape[0]
             bc = max(block_cols, 1)
             while ncol % bc:
                 bc //= 2
-            with trace.span("column2m.pack"):
-                packed = pack_state_2m(state)
-            trace.count("column2m.packed_bytes",
-                        packed.numel() * packed.element_size())
-            out = step_column_2m_fused_packed(packed, mp, tps, dt, dz,
-                                              block_cols=bc)
-            with trace.span("column2m.pack"):
-                return unpack_state_2m(out)
+            # the kernel's launch check takes one dtype and contiguous
+            # fields; both calls return the field itself when it is so
+            dtype = functools.reduce(torch.promote_types,
+                                     (t.dtype for t in state))
+            state = ColumnState2M(*(t.to(dtype).contiguous() for t in state))
+            return step_column_2m_fused(state, mp, tps, dt, dz,
+                                        block_cols=bc)
     if impl != "eager":
         raise ValueError(f"unknown impl {impl!r} (expected 'eager'|'fused')")
 

@@ -3,9 +3,8 @@
 A **span** (:func:`span`) marks a layer boundary of the step path or of
 set-up: a step module's call (``step.*``), a kernel wrapper's preparation
 (``column.prepare``), a launch (``launch.*``), a library's build or load
-(``kernels.*``), a part of the parcel step (``parcel.*``), the 2M fields
-path's packing (``column2m.pack``). It records only
-while a ``torch.profiler`` is recording. Then it is a record function of
+(``kernels.*``), a part of the parcel step (``parcel.*``). It records
+only while a ``torch.profiler`` is recording. Then it is a record function of
 the profiler (:data:`RECORD`), so that it lies in the profiler's trace, on
 the profiler's clock, beside the device's kernels and the CUDA runtime's
 calls, and it adds its count, its total nanoseconds and its self
@@ -17,8 +16,7 @@ A **counter** (:func:`count`, :func:`add_seconds`, :func:`counter`) is
 always on: a plain add under a lock, for events that happen once or a few
 times a step (kernel launches, library builds and loads), for the work a
 launch plan sets (``k5b.node_evals``, the lane-node evaluations of K5b,
-beside ``k5b.nodes``, the ice nodes it sums; ``column2m.packed_bytes``,
-the bytes the 2M fields path stacks) and for set-up seconds
+beside ``k5b.nodes``, the ice nodes it sums) and for set-up seconds
 (:func:`timed`). :func:`reset` clears the span totals; counters
 run for the life of the process.
 

@@ -112,6 +112,33 @@ def test_step_column_2m_impls():
         TC.step_column_2m(st, MP_T, TPS_T, DT, DZ, impl="xla")
 
 
+@pytest.mark.parametrize("case", ["float32", "float64", "halving",
+                                  "transposed", "mixed"])
+def test_fused_fields_path_is_the_packed_path(case):
+    """``step_column_2m(impl="fused")`` steps the seven fields where they
+    lie, and gives what stacking them and stepping the packed state gives,
+    bit for bit: at float32 and float64, at an ``ncol`` (24) that halves
+    ``block_cols`` from 128 to 8, on non-contiguous fields (a transposed
+    view's) and on float32 fields mixed with float64 ones (promoted as
+    ``torch.stack`` promotes them)."""
+    ncol = 24 if case == "halving" else 32
+    dtype = torch.float64 if case == "float64" else torch.float32
+    st = _torch_state(_arrays(ncol, 8), dtype)
+    if case == "transposed":
+        st = TC.ColumnState2M(*(t.T.contiguous().T for t in st))
+        assert not any(t.is_contiguous() for t in st)
+    if case == "mixed":
+        st = st._replace(q_tot=st.q_tot.double(), n_rai=st.n_rai.double())
+        dtype = torch.float64
+    ref = TK.unpack_state_2m(TK.step_column_2m_fused_packed(
+        TK.pack_state_2m(st), MP_T, TPS_T, DT, DZ, block_cols=ncol & -ncol))
+    out = TC.step_column_2m(st, MP_T, TPS_T, DT, DZ, impl="fused")
+    assert isinstance(out, TC.ColumnState2M)
+    for name, a, b in zip(TC.ColumnState2M._fields, out, ref):
+        assert a.dtype == b.dtype == dtype, name
+        assert a.is_contiguous() and torch.equal(a, b), name
+
+
 # ---------------------------------------------------------------------------
 # the kernel wrappers (plain path on CPU tensors) vs the Pallas kernels
 # ---------------------------------------------------------------------------

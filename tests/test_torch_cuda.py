@@ -846,7 +846,7 @@ def one_rank_mesh(device):
 
 
 def _sharded_paths(device):
-    """(kernel counter, step, input) of K2, K3 and K5 (GL-8, cold then
+    """(kernel counter, step, input) of K2, K4 and K5 (GL-8, cold then
     warm-started) through the column entry points."""
     from cloudmicrophysics_tpu_torch.models.column import step_column_2m
 
@@ -857,7 +857,7 @@ def _sharded_paths(device):
                       TPS, DT, DZ, device=device)
     return {
         "K2": (K.step_column_1m_fused, m1, _state(1024, 128, device)),
-        "K3": (K2.step_column_2m_fused_packed,
+        "K4": (K2.step_column_2m_fused,
                lambda s: step_column_2m(s, mp2, TPS, DT, DZ, impl="fused"),
                _state_2m(1024, 128, device)),
         "K5": (K5.step_column_p3_fused, lambda s: m3(*m3(s)),
@@ -865,7 +865,7 @@ def _sharded_paths(device):
     }
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K3", "K5"])
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K5"])
 def test_world1_sharded_kernels_are_bit_identical(device, one_rank_mesh,
                                                   kernel):
     from cloudmicrophysics_tpu_torch.parallel import is_dtensor, shard_columns
@@ -981,10 +981,9 @@ def test_launch_spans_hold_their_launches_on_the_profiler_clock(device):
 def test_2m_spans_hold_their_launches_on_the_profiler_clock(device):
     """Under the profiler, K3's and K4's launches lie in their spans
     (``launch.k3``, ``launch.k4``) inside ``column.prepare``'s step span
-    ``step.column2m``, on one clock; on the fields path of
-    ``step_column_2m(impl="fused")`` the stacking of the fields lies in
-    ``column2m.pack``, is the one kernel a step beside K3, and
-    ``column2m.packed_bytes`` counts its bytes; the spans change no bit."""
+    ``step.column2m``, on one clock; the fields path of
+    ``step_column_2m(impl="fused")`` is K4 alone, one kernel a step, with
+    no packing; the spans change no bit."""
     from cloudmicrophysics_tpu_torch.models.column import step_column_2m
 
     mp = microphysics_2m_params()
@@ -992,19 +991,21 @@ def test_2m_spans_hold_their_launches_on_the_profiler_clock(device):
     st = _state_2m(256, 64, device)
     packed = K2.pack_state_2m(st)
     ref = K2.step_column_2m_plain(st, mp, TPS, DT, DZ)
-    cases = [(lambda: model(packed), "launch.k3", 1,
+    wrappers = (K2.step_column_2m_fused, K2.step_column_2m_fused_packed)
+    cases = [(lambda: model(packed), "launch.k3",
               K2.step_column_2m_fused_packed),
-             (lambda: model(st), "launch.k4", 1, K2.step_column_2m_fused),
+             (lambda: model(st), "launch.k4", K2.step_column_2m_fused),
              (lambda: step_column_2m(st, mp, TPS, DT, DZ, impl="fused"),
-              "launch.k3", 2, K2.step_column_2m_fused_packed)]
+              "launch.k4", K2.step_column_2m_fused)]
     steps = 3
-    for fn, span, per_step, wrapper in cases:
-        before = _launches(wrapper)[0]
-        packed_bytes = trace.counter("column2m.packed_bytes")
+    for fn, span, wrapper in cases:
+        before = _launches(*wrappers)
         trace.reset()
         prof = _profiled(fn, steps)
-        assert _launches(wrapper)[0] - before == steps + 1
+        assert [a - b for a, b in zip(_launches(*wrappers), before)] == [
+            (steps + 1) * (w is wrapper) for w in wrappers]
         totals = trace.totals()
+        assert set(totals) == {"step.column2m", "column.prepare", span}
         assert totals["step.column2m"]["count"] == steps
         assert totals["column.prepare"]["count"] == steps
         assert totals[span]["count"] == steps
@@ -1012,8 +1013,8 @@ def test_2m_spans_hold_their_launches_on_the_profiler_clock(device):
         cuda = torch.autograd.DeviceType.CUDA
         kernels = [e.name for e in events if e.device_type == cuda
                    and not e.name.startswith(("Memcpy", "Memset"))]
-        assert len(kernels) == steps * per_step
-        assert sum("column2m_step_kernel" in n for n in kernels) == steps
+        assert len(kernels) == steps
+        assert all("column2m_step_kernel" in n for n in kernels)
         runtime = [e.time_range for e in events
                    if e.name.startswith(("cudaLaunchKernel",
                                          "cuLaunchKernel"))]
@@ -1021,15 +1022,36 @@ def test_2m_spans_hold_their_launches_on_the_profiler_clock(device):
             inside = [x for x in runtime
                       if r.start <= x.start and x.end <= r.end]
             assert len(inside) == 1, (span, len(inside))
-        fields_path = per_step == 2
-        assert ("column2m.pack" in totals) == fields_path
-        if fields_path:
-            assert totals["column2m.pack"]["count"] == 2 * steps
-            assert (trace.counter("column2m.packed_bytes") - packed_bytes
-                    == (steps + 1) * 7 * 256 * 64 * 4)
         out = fn()
         out = out if isinstance(out, ColumnState2M) else (
             K2.unpack_state_2m(out))
         for a, b in zip(out, ref):
             assert torch.equal(a, b)
+    assert trace.counter("column2m.packed_bytes") == 0
     trace.reset()
+
+
+@pytest.mark.parametrize("case", ["transposed", "mixed"])
+def test_2m_fields_path_takes_what_the_stack_took(device, case):
+    """``step_column_2m(impl="fused")`` on fields the launch check alone
+    refuses: non-contiguous ones (a transposed view's), and float32 fields
+    mixed with float64 ones (promoted to float64, as ``torch.stack``
+    promoted them). One K4 launch a step, bit for bit the plain step of the
+    contiguous, promoted state."""
+    from cloudmicrophysics_tpu_torch.models.column import step_column_2m
+
+    mp = microphysics_2m_params()
+    st = _state_2m(256, 64, device)
+    if case == "transposed":
+        fields = ColumnState2M(*(t.T.contiguous().T for t in st))
+        assert not any(t.is_contiguous() for t in fields)
+    else:
+        fields = st._replace(q_tot=st.q_tot.double(),
+                             n_rai=st.n_rai.double())
+        st = ColumnState2M(*(t.double() for t in st))
+    ref = K2.step_column_2m_plain(st, mp, TPS, DT, DZ)
+    before = _launches(K2.step_column_2m_fused)[0]
+    out = step_column_2m(fields, mp, TPS, DT, DZ, impl="fused")
+    assert _launches(K2.step_column_2m_fused)[0] == before + 1
+    for name, a, b in zip(ColumnState2M._fields, out, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
