@@ -585,7 +585,7 @@ def _stages(key, K, lib, packed):
     after a warm-up."""
     import torch
 
-    from cloudmicrophysics_tpu_torch.models.column import _block_cols
+    from cloudmicrophysics_tpu_torch.kernels import _build
 
     probe_set = f"{Path(K.SOURCE).stem}_probe_set"
     sums = torch.zeros(len(K.PROBE_STAGES) + 1, dtype=torch.int64,
@@ -596,7 +596,8 @@ def _stages(key, K, lib, packed):
 
     def run():
         K.launch_packed(lib, packed, DT, DZ,
-                        _block_cols(packed.shape[1], K.BLOCK_COLS),
+                        _build.fit_block_cols(packed.shape[1],
+                                              K.BLOCK_COLS),
                         q_tot_affine=AFFINE)
 
     run()
@@ -1617,11 +1618,12 @@ def _k5_launches(K, model, state, guess, device, lib):
     record."""
     import torch
 
-    from cloudmicrophysics_tpu_torch.models.column import _block_cols
+    from cloudmicrophysics_tpu_torch.kernels import _build
 
     mp, dtype = model.mp, state.rho.dtype
     ncol, nlev = state.rho.shape
-    plan = K.launch_plan(ncol, nlev, mp.ice.quad.n, _block_cols(ncol), dtype)
+    plan = K.launch_plan(ncol, nlev, mp.ice.quad.n,
+                         _build.fit_block_cols(ncol, K.BLOCK_COLS), dtype)
     params = model.block(dtype)
     scratch = torch.empty(plan.scratch_shape, dtype=dtype, device=device)
     loglam = torch.empty_like(state.rho)

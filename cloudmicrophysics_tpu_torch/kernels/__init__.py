@@ -4,7 +4,9 @@ The physics lives in ``ops``/``models`` as eager PyTorch; each kernel here
 computes the same step in one pass and sits beside its plain version
 (``roof`` holds the roofline's copy and ``expf`` probe),
 which CPU tensors take. Nothing is compiled at import: a kernel is built
-with ``nvcc`` (see ``_build``) the first time it is launched.
+with ``nvcc`` the first time it is launched. ``_build`` is the host side
+the kernel modules share: the build, the one cache of loaded libraries,
+the launch checks, the launch tail and the columns a thread block steps.
 """
 
 from .column1m import (

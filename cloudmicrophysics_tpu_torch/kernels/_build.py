@@ -1,4 +1,5 @@
-"""Build and load the CUDA kernels of this package.
+"""The host side of this package's CUDA kernels: their build, their
+libraries, their launch checks and their launches.
 
 Each kernel source under ``csrc/`` is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
@@ -7,6 +8,19 @@ happens at the first launch, into ``build/`` beside this file (listed in
 ``.gitignore``), keyed by a hash of the source, the shared headers of
 ``csrc/`` (``*.cuh``), the generated header and the flags (a source may add
 its own), so an edited source is rebuilt and an unchanged one is reused.
+
+The kernel modules keep only what is their own (their parameters, their
+generated header, their C signatures and build checks, their launch
+arguments) and share the rest through this module:
+
+* :func:`library`, the one cache of loaded libraries, looked up by
+  :func:`library_key`: a library is built, loaded, bound and checked once;
+* :func:`launch`, the launch tail: the span ``launch.<kernel>``, the call,
+  a ``RuntimeError`` on a CUDA error and the counter ``launches.<wrapper>``;
+* the launch checks (:func:`check_cuda`, :func:`check_tiling`,
+  :func:`check_fields`, :func:`check_packed`, :func:`check_dtype`,
+  :func:`host_block`) and the columns a thread block steps
+  (:func:`fit_block_cols`).
 
 What building and loading cost is counted in :mod:`..trace`:
 ``kernels.builds`` and ``kernels.build_s`` (``nvcc`` runs, the span
@@ -20,7 +34,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import functools
 import hashlib
 import os
 import re
@@ -34,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import trace
+from ..parallel.comms import is_dtensor
 
 KERNELS_DIR = Path(__file__).resolve().parent
 CSRC_DIR = KERNELS_DIR / "csrc"
@@ -222,13 +236,46 @@ def build(source: str, header_name: str, header_text: str,
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def load(source: str, header_name: str, header_text: str,
-         flags: tuple = ()) -> ctypes.CDLL:
-    """Build if needed, then load the library (once per process)."""
-    lib = ctypes.CDLL(str(build(source, header_name, header_text, flags)))
+def load(path) -> ctypes.CDLL:
+    """Load the built library at ``path``: a new ``CDLL`` at each call,
+    counted in ``kernels.loads``, whose first launch :func:`launching`
+    times. The kernel modules hold theirs through :func:`library`."""
+    lib = ctypes.CDLL(str(path))
     trace.count("kernels.loads")
     _UNLAUNCHED.add(lib)
+    return lib
+
+
+# the loaded libraries, by library_key
+_LIBRARIES = {}
+
+
+def library_key(source: str, build: str, variant,
+                block: torch.Tensor | None = None) -> tuple:
+    """What tells two libraries apart: the source, its build (``"kernel"``,
+    ``"probe"`` ...), the variant (hashable; None for a source without
+    one) and, for a source built with a parameter block's values compiled
+    in, the block's dtype and bytes."""
+    return (source, build, variant,
+            None if block is None else (block.dtype,
+                                        block.numpy().tobytes()))
+
+
+def library(source: str, build: str, variant, path, bind,
+            block: torch.Tensor | None = None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``'s ``build`` for ``variant``
+    (and ``block``), looked up by :func:`library_key`. The first look-up,
+    in :func:`loading`, calls ``path()`` (the kernel module's
+    ``library_path``: the generated header is written and the source built
+    there, if needed), loads the file and returns ``bind(lib)`` (the C
+    signatures set and the library checked against the module); every later
+    one returns that same object and formats no header."""
+    key = library_key(source, build, variant, block)
+    lib = _LIBRARIES.get(key)
+    if lib is None:
+        with loading():
+            lib = bind(load(path()))
+        _LIBRARIES[key] = lib
     return lib
 
 
@@ -241,9 +288,9 @@ def loads() -> int:
 
 @contextlib.contextmanager
 def loading():
-    """A kernel module's whole look-up of a library it has not held yet:
-    the span ``kernels.load``, whose seconds, less those of an ``nvcc``
-    build inside it, are added to ``kernels.load_s``."""
+    """The whole first look-up of a library (:func:`library`): the span
+    ``kernels.load``, whose seconds, less those of an ``nvcc`` build inside
+    it, are added to ``kernels.load_s``."""
     built = getattr(_THREAD, "build_s", 0.0)
     t0 = time.perf_counter()
     with trace.span("kernels.load"):
@@ -260,6 +307,106 @@ def launching(lib: ctypes.CDLL):
         return contextlib.nullcontext()
     _UNLAUNCHED.discard(lib)
     return trace.timed("kernels.load_s")
+
+
+def launch(fn, *args, span: str | None = None,
+           counter: str | None = None) -> None:
+    """One launch: ``fn(*args)``, a C entry point of a loaded library that
+    queues a kernel and returns its CUDA error, in the span ``span`` (none
+    when None); a ``RuntimeError`` when the error is not 0; then one more on
+    the counter ``launches.<counter>`` (none when None)."""
+    if span is None:
+        err = fn(*args)
+    else:
+        with trace.span(span):
+            err = fn(*args)
+    if err:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+    if counter is not None:
+        trace.count(f"launches.{counter}")
+
+
+# ---------------------------------------------------------------------------
+# Launch checks
+# ---------------------------------------------------------------------------
+
+def check_cuda(tensors, where: str) -> torch.device | None:
+    """The CUDA device a launch's fields lie on, or None when they lie on
+    the CPU (the wrapper takes the plain version). Raises ``ValueError``
+    for a ``DTensor`` (its ``data_ptr`` is not its shard's storage: a
+    column-sharded state steps through the entry points of
+    ``models/column.py``, which hand each rank's shard to the wrapper), and
+    for CUDA fields that differ in device or dtype or are not contiguous;
+    ``NotImplementedError`` for another device type."""
+    if any(is_dtensor(t) for t in tensors):
+        raise ValueError(f"{where}: a DTensor cannot be launched on; pass "
+                         f"each rank's local shard (DTensor.to_local) or "
+                         f"step through models/column.py")
+    device = tensors[0].device
+    if device.type == "cpu":
+        return None
+    if device.type != "cuda":
+        raise NotImplementedError(
+            f"{where}: no kernel for device type {device.type!r}")
+    for t in tensors:
+        if t.device != device or t.dtype != tensors[0].dtype:
+            raise ValueError(f"{where}: fields differ in device or dtype")
+        if not t.is_contiguous():
+            raise ValueError(f"{where}: fields must be contiguous")
+    return device
+
+
+def check_tiling(ncol: int, block_cols: int) -> None:
+    """Raise ``ValueError`` unless ``block_cols`` (the columns a thread
+    block steps) is at least 1 and divides ``ncol``."""
+    if block_cols < 1 or ncol % block_cols:
+        raise ValueError(
+            f"ncol={ncol} not a multiple of block_cols={block_cols}")
+
+
+def check_fields(fields, block_cols: int, where: str) -> torch.device | None:
+    """:func:`check_cuda` of a launch on ``(ncol, nlev)`` fields, the first
+    giving the shape, after :func:`check_tiling` of ``ncol`` and a
+    ``ValueError`` for a field of another shape."""
+    ncol, nlev = fields[0].shape
+    check_tiling(ncol, block_cols)
+    for t in fields:
+        if t.shape != (ncol, nlev):
+            raise ValueError(f"every field must be {(ncol, nlev)}, "
+                             f"got {tuple(t.shape)}")
+    return check_cuda(fields, where)
+
+
+def check_packed(packed: torch.Tensor, n_fields: int, block_cols: int,
+                 where: str) -> torch.device | None:
+    """:func:`check_cuda` of a launch on a packed ``(n_fields, ncol, nlev)``
+    state, after a ``ValueError`` for another shape and
+    :func:`check_tiling` of ``ncol``."""
+    if packed.dim() != 3 or packed.shape[0] != n_fields:
+        raise ValueError(f"packed state must be ({n_fields}, ncol, nlev), "
+                         f"got {tuple(packed.shape)}")
+    check_tiling(packed.shape[1], block_cols)
+    return check_cuda([packed], where)
+
+
+def affine(q_tot_affine) -> tuple:
+    """The launch arguments of an optional ``(scale, bias)`` of ``q_tot``
+    on load: ``(1, scale, bias)``, or ``(0, 0.0, 0.0)`` for None."""
+    if q_tot_affine is None:
+        return 0, 0.0, 0.0
+    scale, bias = q_tot_affine
+    return 1, float(scale), float(bias)
+
+
+def fit_block_cols(ncol: int, block_cols: int) -> int:
+    """The columns a thread block steps on ``ncol`` columns:
+    ``max(block_cols, 1)``, halved until it divides ``ncol`` (for a power of
+    two, the largest power of two up to ``block_cols`` that divides
+    ``ncol``)."""
+    bc = max(block_cols, 1)
+    while ncol % bc:
+        bc //= 2
+    return bc
 
 
 def ptxas_report(log: str) -> dict:

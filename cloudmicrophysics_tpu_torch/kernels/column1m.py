@@ -53,7 +53,6 @@ import torch
 
 from .. import trace
 from ..models.column import ColumnState, step_column_1m
-from ..parallel.comms import is_dtensor
 from ..parameters import m1 as P1
 from ..parameters.m1 import Microphysics1MParams
 from ..parameters.terminal_velocity import TerminalVelocityParams
@@ -451,31 +450,14 @@ def library_path(params: torch.Tensor, build: str = "kernel",
                         BUILDS[build] + _build.dtype_flags(params.dtype))
 
 
-def library_key(params: torch.Tensor, variant=DEFAULT_VARIANT,
-                build: str = "kernel"):
-    """What tells two libraries apart: the block's dtype and bytes, the
-    variant (mode and options) and the build."""
-    return (str(params.dtype), params.numpy().tobytes(), tuple(variant), build)
-
-
-_LIBRARIES = {}
-
-
 def _library(params: torch.Tensor, build: str = "kernel",
              variant=DEFAULT_VARIANT) -> ctypes.CDLL:
     """One of the kernel library's :data:`BUILDS` for the parameter block
-    ``params`` and ``variant``, loaded (built at its first launch, then
-    looked up by :func:`library_key`)."""
-    key = library_key(params, variant, build)
-    lib = _LIBRARIES.get(key)
-    if lib is None:
-        with _build.loading():
-            lib = _LIBRARIES[key] = bind(
-                _build.load(SOURCE, "column1m_params.h",
-                            header(params, variant),
-                            BUILDS[build] + _build.dtype_flags(params.dtype)),
-                build == "probe", params.dtype, variant)
-    return lib
+    ``params`` and ``variant``, loaded and bound (:func:`_build.library`)."""
+    return _build.library(
+        SOURCE, build, variant, lambda: library_path(params, build, variant),
+        lambda lib: bind(lib, build == "probe", params.dtype, variant),
+        block=params)
 
 
 def bind(lib: ctypes.CDLL, probe: bool = False,
@@ -484,38 +466,36 @@ def bind(lib: ctypes.CDLL, probe: bool = False,
     """Set the C signatures of a loaded build of the source for ``dtype``
     and ``variant`` (``probe``: the ``-DK1_PROBE`` one) and check it against
     this module; returns it."""
-    if not getattr(lib, "_signatures_set", False):
-        _R = _build.c_scalar(dtype)
-        tail = [_I, _I, _I, _R, _R, _I, _I, _R, _R, _I, _R, _R, _R, _I, _P]
-        lib.column1m_step_unpacked.argtypes = [_P] * 14 + tail
-        lib.column1m_step_unpacked.restype = _I
-        lib.column1m_step_packed.argtypes = [_P, _P, ctypes.c_longlong] + tail
-        lib.column1m_step_packed.restype = _I
-        lib.column1m_num_params.restype = _I
-        lib.column1m_real_bytes.restype = _I
-        lib.column1m_variant.restype = ctypes.c_longlong
-        lib.column1m_threads_per_block.restype = _I
-        lib.column1m_blocks_per_sm.argtypes = [_I, _P]
-        lib.column1m_blocks_per_sm.restype = _I
-        lib.column1m_kernel_attrs.argtypes = [_P, _P]
-        lib.column1m_kernel_attrs.restype = _I
-        if probe:
-            lib.column1m_probe_set.argtypes = [_P, _I]
-            lib.column1m_probe_set.restype = _I
-            lib.column1m_probe_stages.restype = _I
-            if lib.column1m_probe_stages() != len(PROBE_STAGES):
-                raise RuntimeError("column1m probe built with another "
-                                   "stage list")
-        if lib.column1m_num_params() != len(PARAM_NAMES):
-            raise RuntimeError("column1m library built from another "
-                               "parameter list")
-        if lib.column1m_real_bytes() != dtype.itemsize:
-            raise RuntimeError(f"column1m library built for another dtype "
-                               f"than {dtype}")
-        if lib.column1m_variant() != int("".join(map(str, variant))):
-            raise RuntimeError(f"column1m library built for another variant "
-                               f"than {tuple(variant)}")
-        lib._signatures_set = True
+    _R = _build.c_scalar(dtype)
+    tail = [_I, _I, _I, _R, _R, _I, _I, _R, _R, _I, _R, _R, _R, _I, _P]
+    lib.column1m_step_unpacked.argtypes = [_P] * 14 + tail
+    lib.column1m_step_unpacked.restype = _I
+    lib.column1m_step_packed.argtypes = [_P, _P, ctypes.c_longlong] + tail
+    lib.column1m_step_packed.restype = _I
+    lib.column1m_num_params.restype = _I
+    lib.column1m_real_bytes.restype = _I
+    lib.column1m_variant.restype = ctypes.c_longlong
+    lib.column1m_threads_per_block.restype = _I
+    lib.column1m_blocks_per_sm.argtypes = [_I, _P]
+    lib.column1m_blocks_per_sm.restype = _I
+    lib.column1m_kernel_attrs.argtypes = [_P, _P]
+    lib.column1m_kernel_attrs.restype = _I
+    if probe:
+        lib.column1m_probe_set.argtypes = [_P, _I]
+        lib.column1m_probe_set.restype = _I
+        lib.column1m_probe_stages.restype = _I
+        if lib.column1m_probe_stages() != len(PROBE_STAGES):
+            raise RuntimeError("column1m probe built with another "
+                               "stage list")
+    if lib.column1m_num_params() != len(PARAM_NAMES):
+        raise RuntimeError("column1m library built from another "
+                           "parameter list")
+    if lib.column1m_real_bytes() != dtype.itemsize:
+        raise RuntimeError(f"column1m library built for another dtype "
+                           f"than {dtype}")
+    if lib.column1m_variant() != int("".join(map(str, variant))):
+        raise RuntimeError(f"column1m library built for another variant "
+                           f"than {tuple(variant)}")
     return lib
 
 
@@ -536,12 +516,6 @@ def _check_supported(mp, mode: str, nlev: int, dtype: torch.dtype,
     variant(mp, mode)
 
 
-def _check_tiling(ncol: int, block_cols: int) -> None:
-    if block_cols < 1 or ncol % block_cols:
-        raise ValueError(
-            f"ncol={ncol} not a multiple of block_cols={block_cols}")
-
-
 def host_params(params, mp, tps, tv,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The parameter block a launch's library is built for: ``params``
@@ -552,39 +526,6 @@ def host_params(params, mp, tps, tv,
     if params is None:
         return kernel_params(mp, tps, tv, dtype)
     return _build.host_block(params, len(PARAM_NAMES), dtype)
-
-
-def _check_cuda(tensors, where: str) -> torch.device | None:
-    """The CUDA device a launch's fields lie on, or None when they lie on
-    the CPU (the wrapper takes the plain version). Raises ``ValueError``
-    for a ``DTensor`` (its ``data_ptr`` is not its shard's storage: a
-    column-sharded state steps through the entry points of
-    ``models/column.py``, which hand each rank's shard to the wrapper), and
-    for CUDA fields that differ in device or dtype or are not contiguous;
-    ``NotImplementedError`` for another device type."""
-    if any(is_dtensor(t) for t in tensors):
-        raise ValueError(f"{where}: a DTensor cannot be launched on; pass "
-                         f"each rank's local shard (DTensor.to_local) or "
-                         f"step through models/column.py")
-    device = tensors[0].device
-    if device.type == "cpu":
-        return None
-    if device.type != "cuda":
-        raise NotImplementedError(
-            f"{where}: no kernel for device type {device.type!r}")
-    for t in tensors:
-        if t.device != device or t.dtype != tensors[0].dtype:
-            raise ValueError(f"{where}: fields differ in device or dtype")
-        if not t.is_contiguous():
-            raise ValueError(f"{where}: fields must be contiguous")
-    return device
-
-
-def _affine(q_tot_affine):
-    if q_tot_affine is None:
-        return 0, 0.0, 0.0
-    scale, bias = q_tot_affine
-    return 1, float(scale), float(bias)
 
 
 def _kernel_nsub(mode: str, nsub: int) -> int:
@@ -601,6 +542,25 @@ def _substeps(dt, nsub: int):
     return int(nsub), dt_sub, 1.0 / dt_sub, 1.0 / float(dt)
 
 
+def _prepare(mp, tps, tv, mode: str, nsub: int, nlev: int,
+             dtype: torch.dtype, params) -> ctypes.CDLL:
+    """The checks and the library of a launch of either entry point on
+    CUDA fields of ``dtype`` with ``nlev`` levels."""
+    _check_supported(mp, mode, nlev, dtype, nsub)
+    return _library(host_params(params, mp, tps, tv, dtype),
+                    variant=variant(mp, mode))
+
+
+def _args(dt, dz, block_cols: int, sediment_cloud: bool, q_tot_affine,
+          nsub: int, device: torch.device) -> tuple:
+    """The launch arguments both entry points take after ``ncol, nlev``:
+    the columns a block steps, the step, the options, the substeps, the
+    device and its current stream."""
+    return (block_cols, float(dt), float(dz), int(bool(sediment_cloud)),
+            *_build.affine(q_tot_affine), *_substeps(dt, nsub), device.index,
+            torch.cuda.current_stream(device).cuda_stream)
+
+
 def step_column_1m_fused(state: ColumnState, mp, tps, tv, dt, dz,
                          mode: str = "instantaneous", nsub: int = 1,
                          sediment_cloud: bool = True,
@@ -615,35 +575,23 @@ def step_column_1m_fused(state: ColumnState, mp, tps, tv, dt, dz,
     its values), built here when not given. CPU tensors take
     :func:`step_column_1m_plain`.
     """
-    ncol, nlev = state.rho.shape
-    _check_tiling(ncol, block_cols)
-    for t in state:
-        if t.shape != (ncol, nlev):
-            raise ValueError(f"every field must be {(ncol, nlev)}, "
-                             f"got {tuple(t.shape)}")
-    device = _check_cuda(list(state), "step_column_1m_fused")
+    device = _build.check_fields(state, block_cols, "step_column_1m_fused")
     if device is None:
         return step_column_1m_plain(state, mp, tps, tv, dt, dz, mode=mode,
                                     nsub=nsub, sediment_cloud=sediment_cloud,
                                     q_tot_affine=q_tot_affine)
+    ncol, nlev = state.rho.shape
     with trace.span("column.prepare"):
-        dtype = state.rho.dtype
-        _check_supported(mp, mode, nlev, dtype, nsub)
-        lib = _library(host_params(params, mp, tps, tv, dtype),
-                       variant=variant(mp, mode))
+        lib = _prepare(mp, tps, tv, mode, nsub, nlev, state.rho.dtype,
+                       params)
         out = ColumnState(*(torch.empty_like(t) for t in state))
-        has_affine, scale, bias = _affine(q_tot_affine)
-        stream = torch.cuda.current_stream(device).cuda_stream
-    with _build.launching(lib), trace.span("launch.k1"):
-        err = lib.column1m_step_unpacked(
-            *(t.data_ptr() for t in state), *(t.data_ptr() for t in out),
-            ncol, nlev, block_cols, float(dt), float(dz),
-            int(bool(sediment_cloud)), has_affine, scale, bias,
-            *_substeps(dt, _kernel_nsub(mode, nsub)), device.index, stream)
-    if err:
-        raise RuntimeError(f"column1m_step_unpacked launch failed: CUDA "
-                           f"error {err}")
-    trace.count("launches.step_column_1m_fused")
+        args = _args(dt, dz, block_cols, sediment_cloud, q_tot_affine,
+                     _kernel_nsub(mode, nsub), device)
+    with _build.launching(lib):
+        _build.launch(lib.column1m_step_unpacked,
+                      *(t.data_ptr() for t in state),
+                      *(t.data_ptr() for t in out), ncol, nlev, *args,
+                      span="launch.k1", counter="step_column_1m_fused")
     return out
 
 
@@ -657,19 +605,14 @@ def step_column_1m_fused_packed(packed: torch.Tensor, mp, tps, tv, dt, dz,
     one ``(7, ncol, nlev)`` tensor (see :func:`pack_state`) and maps to a
     like-shaped output. CPU tensors take
     :func:`step_column_1m_packed_plain`."""
-    if packed.dim() != 3 or packed.shape[0] != len(_FIELDS):
-        raise ValueError(f"packed state must be (7, ncol, nlev), got "
-                         f"{tuple(packed.shape)}")
-    _, ncol, nlev = packed.shape
-    _check_tiling(ncol, block_cols)
-    if _check_cuda([packed], "step_column_1m_fused_packed") is None:
+    if _build.check_packed(packed, len(_FIELDS), block_cols,
+                           "step_column_1m_fused_packed") is None:
         return step_column_1m_packed_plain(
             packed, mp, tps, tv, dt, dz, mode=mode, nsub=nsub,
             sediment_cloud=sediment_cloud, q_tot_affine=q_tot_affine)
     with trace.span("column.prepare"):
-        _check_supported(mp, mode, nlev, packed.dtype, nsub)
-        lib = _library(host_params(params, mp, tps, tv, packed.dtype),
-                       variant=variant(mp, mode))
+        lib = _prepare(mp, tps, tv, mode, nsub, packed.shape[2],
+                       packed.dtype, params)
         out = torch.empty_like(packed)
     with _build.launching(lib):
         launch_packed(lib, packed, dt, dz, block_cols, sediment_cloud,
@@ -687,18 +630,11 @@ def launch_packed(lib, packed, dt, dz, block_cols: int,
     ``launch.k1``; uncounted (the wrapper counts its own launches).
     ``nsub``: the substeps of a linearized_average build."""
     _, ncol, nlev = packed.shape
-    device = packed.device
     if out is None:
         out = torch.empty_like(packed)
-    has_affine, scale, bias = _affine(q_tot_affine)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with trace.span("launch.k1"):
-        err = lib.column1m_step_packed(
-            packed.data_ptr(), out.data_ptr(), ncol * nlev,
-            ncol, nlev, block_cols, float(dt), float(dz),
-            int(bool(sediment_cloud)), has_affine, scale, bias,
-            *_substeps(dt, nsub), device.index, stream)
-    if err:
-        raise RuntimeError(f"column1m_step_packed launch failed: CUDA "
-                           f"error {err}")
+    _build.launch(lib.column1m_step_packed, packed.data_ptr(),
+                  out.data_ptr(), ncol * nlev, ncol, nlev,
+                  *_args(dt, dz, block_cols, sediment_cloud, q_tot_affine,
+                         nsub, packed.device),
+                  span="launch.k1")
     return out

@@ -57,7 +57,6 @@ from ..parameters.terminal_velocity import Chen2022VelTypeRain, SB2006VelType
 from ..parameters.thermodynamics import ThermodynamicsParameters
 from ..utils.special import eps_numerics, machine_eps
 from . import _build
-from .column1m import _affine, _check_cuda, _check_tiling
 
 __all__ = [
     "PARAM_NAMES",
@@ -68,6 +67,7 @@ __all__ = [
     "step_column_2m_packed_plain",
     "step_column_2m_plain",
     "unpack_state_2m",
+    "warm_variant",
 ]
 
 _FIELDS = ColumnState2M._fields  # (rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai)
@@ -297,30 +297,14 @@ def library_path(params: torch.Tensor, variant, build: str = "kernel"):
                         BUILDS[build] + _build.dtype_flags(params.dtype))
 
 
-_LIBRARIES = {}
-
-
 def _library(params: torch.Tensor, variant,
              build: str = "kernel") -> ctypes.CDLL:
     """One of the kernel library's :data:`BUILDS` for the parameter block
-    ``params`` and ``variant``, loaded (built at its first launch, then
-    looked up by :func:`library_key`)."""
-    key = library_key(params, variant, build)
-    lib = _LIBRARIES.get(key)
-    if lib is None:
-        with _build.loading():
-            lib = _LIBRARIES[key] = bind(
-                _build.load(SOURCE, "column2m_params.h",
-                            header(params, variant),
-                            BUILDS[build] + _build.dtype_flags(params.dtype)),
-                variant, build == "probe", params.dtype)
-    return lib
-
-
-def library_key(params: torch.Tensor, variant, build: str = "kernel"):
-    """What tells two libraries apart: the block's dtype and bytes, the
-    variant and the build."""
-    return (str(params.dtype), params.numpy().tobytes(), tuple(variant), build)
+    ``params`` and ``variant``, loaded and bound (:func:`_build.library`)."""
+    return _build.library(
+        SOURCE, build, variant, lambda: library_path(params, variant, build),
+        lambda lib: bind(lib, variant, build == "probe", params.dtype),
+        block=params)
 
 
 def bind(lib: ctypes.CDLL, variant, probe: bool = False,
@@ -328,35 +312,33 @@ def bind(lib: ctypes.CDLL, variant, probe: bool = False,
     """Set the C signatures of a loaded build of the source for ``variant``
     and ``dtype`` (``probe``: the ``-DK3_PROBE`` one) and check it against
     this module; returns it."""
-    if not getattr(lib, "_signatures_set", False):
-        _F = _build.c_scalar(dtype)
-        tail = [_I, _I, _I, _F, _F, _I, _F, _F, _I, _P]
-        lib.column2m_step_unpacked.argtypes = [_P] * 14 + tail
-        lib.column2m_step_unpacked.restype = _I
-        lib.column2m_step_packed.argtypes = [_P, _P, ctypes.c_longlong] + tail
-        lib.column2m_step_packed.restype = _I
-        lib.column2m_num_params.restype = _I
-        lib.column2m_threads_per_block.restype = _I
-        lib.column2m_variant.restype = _I
-        lib.column2m_blocks_per_sm.argtypes = [_I, _P]
-        lib.column2m_blocks_per_sm.restype = _I
-        lib.column2m_kernel_attrs.argtypes = [_P, _P]
-        lib.column2m_kernel_attrs.restype = _I
-        if probe:
-            lib.column2m_probe_set.argtypes = [_P, _I]
-            lib.column2m_probe_set.restype = _I
-            lib.column2m_probe_stages.restype = _I
-            if lib.column2m_probe_stages() != len(PROBE_STAGES):
-                raise RuntimeError("column2m probe built with another "
-                                   "stage list")
-        if lib.column2m_num_params() != len(PARAM_NAMES):
-            raise RuntimeError("column2m library built from another "
-                               "parameter list")
-        lib.column2m_real_bytes.restype = _I
-        if lib.column2m_real_bytes() != dtype.itemsize:
-            raise RuntimeError(f"column2m library built for another dtype "
-                               f"than {dtype}")
-        lib._signatures_set = True
+    _F = _build.c_scalar(dtype)
+    tail = [_I, _I, _I, _F, _F, _I, _F, _F, _I, _P]
+    lib.column2m_step_unpacked.argtypes = [_P] * 14 + tail
+    lib.column2m_step_unpacked.restype = _I
+    lib.column2m_step_packed.argtypes = [_P, _P, ctypes.c_longlong] + tail
+    lib.column2m_step_packed.restype = _I
+    lib.column2m_num_params.restype = _I
+    lib.column2m_real_bytes.restype = _I
+    lib.column2m_threads_per_block.restype = _I
+    lib.column2m_variant.restype = _I
+    lib.column2m_blocks_per_sm.argtypes = [_I, _P]
+    lib.column2m_blocks_per_sm.restype = _I
+    lib.column2m_kernel_attrs.argtypes = [_P, _P]
+    lib.column2m_kernel_attrs.restype = _I
+    if probe:
+        lib.column2m_probe_set.argtypes = [_P, _I]
+        lib.column2m_probe_set.restype = _I
+        lib.column2m_probe_stages.restype = _I
+        if lib.column2m_probe_stages() != len(PROBE_STAGES):
+            raise RuntimeError("column2m probe built with another "
+                               "stage list")
+    if lib.column2m_num_params() != len(PARAM_NAMES):
+        raise RuntimeError("column2m library built from another "
+                           "parameter list")
+    if lib.column2m_real_bytes() != dtype.itemsize:
+        raise RuntimeError(f"column2m library built for another dtype "
+                           f"than {dtype}")
     limited, chen = variant
     if lib.column2m_variant() != 2 * limited + chen:
         raise RuntimeError(f"column2m library built for another variant "
@@ -364,12 +346,11 @@ def bind(lib: ctypes.CDLL, variant, probe: bool = False,
     return lib
 
 
-def _check_supported(mp, nlev: int, dtype: torch.dtype) -> None:
-    """Raise for what the kernel cannot step: P3 ice, another rain
-    velocity type, another dtype than float32 and float64, no levels."""
-    if getattr(mp, "ice", None) is not None:
-        raise NotImplementedError(
-            "the CUDA 2M column kernel supports warm rain only, not P3 ice")
+def check_warm_rain(mp, nlev: int, dtype: torch.dtype) -> None:
+    """Raise for what the kernel's warm rain (``mp.warm_rain``, all this
+    reads of ``mp``) cannot step: another rain velocity type than SB2006 and
+    Chen 2022, another dtype than float32 and float64
+    (``NotImplementedError``), no levels (``ValueError``)."""
     vel = _chen_or_sb(mp)
     if type(vel) not in (SB2006VelType, Chen2022VelTypeRain):
         raise NotImplementedError(
@@ -379,6 +360,15 @@ def _check_supported(mp, nlev: int, dtype: torch.dtype) -> None:
     if nlev < 1:
         raise ValueError(f"the CUDA 2M column kernel needs nlev >= 1, got "
                          f"{nlev}")
+
+
+def _check_supported(mp, nlev: int, dtype: torch.dtype) -> None:
+    """Raise for what the kernel cannot step: P3 ice, then
+    :func:`check_warm_rain`."""
+    if getattr(mp, "ice", None) is not None:
+        raise NotImplementedError(
+            "the CUDA 2M column kernel supports warm rain only, not P3 ice")
+    check_warm_rain(mp, nlev, dtype)
 
 
 def host_params(params, mp, tps,
@@ -393,10 +383,31 @@ def host_params(params, mp, tps,
     return _build.host_block(params, len(PARAM_NAMES), dtype)
 
 
-def _variant(mp):
-    """The kernel's compiled variant: (is_limited, Chen 2022 fall speeds)."""
+def warm_variant(mp) -> tuple:
+    """The kernel's compiled variant of the warm rain (``mp.warm_rain``,
+    all this reads of ``mp``): ``(is_limited, Chen 2022 fall speeds)``."""
     return (int(mp.warm_rain.seifert_beheng.pdf_r.is_limited),
             int(isinstance(_chen_or_sb(mp), Chen2022VelTypeRain)))
+
+
+# the name chip_smoke.py and bench_h100/tools/count_work_2m.py call
+_variant = warm_variant
+
+
+def _prepare(mp, tps, nlev: int, dtype: torch.dtype, params) -> ctypes.CDLL:
+    """The checks and the library of a launch of either entry point on
+    CUDA fields of ``dtype`` with ``nlev`` levels."""
+    _check_supported(mp, nlev, dtype)
+    return _library(host_params(params, mp, tps, dtype), warm_variant(mp))
+
+
+def _args(dt, dz, block_cols: int, q_tot_affine,
+          device: torch.device) -> tuple:
+    """The launch arguments both entry points take after ``ncol, nlev``:
+    the columns a block steps, the step, the ``q_tot`` affine, the device
+    and its current stream."""
+    return (block_cols, float(dt), float(dz), *_build.affine(q_tot_affine),
+            device.index, torch.cuda.current_stream(device).cuda_stream)
 
 
 def step_column_2m_fused(state: ColumnState2M, mp, tps, dt, dz,
@@ -409,30 +420,19 @@ def step_column_2m_fused(state: ColumnState2M, mp, tps, dt, dz,
     (the kernel is built for its values), built here when not given. CPU
     tensors take :func:`step_column_2m_plain`.
     """
-    ncol, nlev = state.rho.shape
-    _check_tiling(ncol, block_cols)
-    for t in state:
-        if t.shape != (ncol, nlev):
-            raise ValueError(f"every field must be {(ncol, nlev)}, "
-                             f"got {tuple(t.shape)}")
-    device = _check_cuda(list(state), "step_column_2m_fused")
+    device = _build.check_fields(state, block_cols, "step_column_2m_fused")
     if device is None:
         return step_column_2m_plain(state, mp, tps, dt, dz)
+    ncol, nlev = state.rho.shape
     with trace.span("column.prepare"):
-        dtype = state.rho.dtype
-        _check_supported(mp, nlev, dtype)
-        lib = _library(host_params(params, mp, tps, dtype), _variant(mp))
+        lib = _prepare(mp, tps, nlev, state.rho.dtype, params)
         out = ColumnState2M(*(torch.empty_like(t) for t in state))
-        stream = torch.cuda.current_stream(device).cuda_stream
-    with _build.launching(lib), trace.span("launch.k4"):
-        err = lib.column2m_step_unpacked(
-            *(t.data_ptr() for t in state), *(t.data_ptr() for t in out),
-            ncol, nlev, block_cols, float(dt), float(dz), 0, 0.0, 0.0,
-            device.index, stream)
-    if err:
-        raise RuntimeError(f"column2m_step_unpacked launch failed: CUDA "
-                           f"error {err}")
-    trace.count("launches.step_column_2m_fused")
+        args = _args(dt, dz, block_cols, None, device)
+    with _build.launching(lib):
+        _build.launch(lib.column2m_step_unpacked,
+                      *(t.data_ptr() for t in state),
+                      *(t.data_ptr() for t in out), ncol, nlev, *args,
+                      span="launch.k4", counter="step_column_2m_fused")
     return out
 
 
@@ -445,18 +445,12 @@ def step_column_2m_fused_packed(packed: torch.Tensor, mp, tps, dt, dz,
     like-shaped output. ``q_tot_affine``: optional ``(scale, bias)`` applied
     to ``q_tot`` on load (``q_tot*scale + bias``). CPU tensors take
     :func:`step_column_2m_packed_plain`."""
-    if packed.dim() != 3 or packed.shape[0] != len(_FIELDS):
-        raise ValueError(f"packed state must be (7, ncol, nlev), got "
-                         f"{tuple(packed.shape)}")
-    _, ncol, nlev = packed.shape
-    _check_tiling(ncol, block_cols)
-    if _check_cuda([packed], "step_column_2m_fused_packed") is None:
+    if _build.check_packed(packed, len(_FIELDS), block_cols,
+                           "step_column_2m_fused_packed") is None:
         return step_column_2m_packed_plain(packed, mp, tps, dt, dz,
                                            q_tot_affine=q_tot_affine)
     with trace.span("column.prepare"):
-        _check_supported(mp, nlev, packed.dtype)
-        lib = _library(host_params(params, mp, tps, packed.dtype),
-                       _variant(mp))
+        lib = _prepare(mp, tps, packed.shape[2], packed.dtype, params)
         out = torch.empty_like(packed)
     with _build.launching(lib):
         launch_packed(lib, packed, dt, dz, block_cols, q_tot_affine, out=out)
@@ -471,17 +465,10 @@ def launch_packed(lib, packed, dt, dz, block_cols: int, q_tot_affine=None,
     output (``out``, or a new tensor when None), in the span ``launch.k3``;
     uncounted (the wrapper counts its own launches)."""
     _, ncol, nlev = packed.shape
-    device = packed.device
     if out is None:
         out = torch.empty_like(packed)
-    has_affine, scale, bias = _affine(q_tot_affine)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with trace.span("launch.k3"):
-        err = lib.column2m_step_packed(
-            packed.data_ptr(), out.data_ptr(), ncol * nlev, ncol, nlev,
-            block_cols, float(dt), float(dz), has_affine, scale, bias,
-            device.index, stream)
-    if err:
-        raise RuntimeError(f"column2m_step_packed launch failed: CUDA "
-                           f"error {err}")
+    _build.launch(lib.column2m_step_packed, packed.data_ptr(),
+                  out.data_ptr(), ncol * nlev, ncol, nlev,
+                  *_args(dt, dz, block_cols, q_tot_affine, packed.device),
+                  span="launch.k3")
     return out

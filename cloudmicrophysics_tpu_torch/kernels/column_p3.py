@@ -84,7 +84,7 @@ from ..utils.quadrature import GaussLegendre
 from ..utils.special import machine_eps
 from . import _build
 from . import column2m as K2M
-from .column1m import _check_cuda, _check_tiling
+from .column2m import warm_variant
 
 __all__ = [
     "PARAM_NAMES",
@@ -366,6 +366,10 @@ class Variant(NamedTuple):
 
 DEFAULT_VARIANT = Variant()
 
+# Columns a step's blocks are planned for by default (launch_plan): K5c
+# steps the largest divisor that fits its block.
+BLOCK_COLS = 128
+
 
 def variant(mp, dtype: torch.dtype = torch.float32) -> Variant:
     """The build a step of ``mp`` on a state of ``dtype`` launches."""
@@ -492,7 +496,7 @@ def launch_plan(ncol: int, nlev: int, order: int, block_cols: int,
     fit in EPILOGUE_THREADS threads (so that the blocks fill the card
     however large ``block_cols`` is), each walked in chunks of at most
     EPILOGUE_THREADS levels."""
-    _check_tiling(ncol, block_cols)
+    _build.check_tiling(ncol, block_cols)
     if nlev < 1 or order < 1:
         raise ValueError(f"the CUDA P3 column kernel needs nlev >= 1 and a "
                          f"quadrature order >= 1, got {nlev} and {order}")
@@ -517,21 +521,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
-_LIBRARIES = {}
-
 
 def _library(build: str = "kernel", v: Variant = DEFAULT_VARIANT
              ) -> ctypes.CDLL:
     """One of the kernel library's :data:`BUILDS` for variant ``v``, loaded
-    (built at its first launch) and checked against this module."""
-    key = (build, v)
-    lib = _LIBRARIES.get(key)
-    if lib is None:
-        with _build.loading():
-            lib = _LIBRARIES[key] = _bind(
-                _build.load(SOURCE, "column_p3_params.h", header(v),
-                            _flags(v, build)), build, v)
-    return lib
+    and bound (:func:`_build.library`)."""
+    return _build.library(SOURCE, build, v, lambda: library_path(build, v),
+                          lambda lib: _bind(lib, build, v))
 
 
 def _bind(lib: ctypes.CDLL, build: str, v: Variant) -> ctypes.CDLL:
@@ -617,8 +613,7 @@ def _check_supported(mp, nlev: int, dtype: torch.dtype) -> None:
         raise NotImplementedError(
             "the CUDA P3 column kernel needs the P3 ice parameters (mp.ice)")
     _build.check_dtype(dtype, "P3")
-    K2M._check_supported(
-        type(mp)(warm_rain=mp.warm_rain, ice=None), nlev, dtype)
+    K2M.check_warm_rain(mp, nlev, dtype)
     if not isinstance(ice.ice_nucleation, Frostenberg2023):
         raise NotImplementedError(
             "the CUDA P3 column kernel supports Frostenberg2023 ice "
@@ -644,34 +639,24 @@ def _ptrs(tensors) -> ctypes.c_void_p:
     return ctypes.cast(arr, ctypes.c_void_p)
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
-
-
 def launch_solve(lib, state, guess, loglam, scratch, params, plan, device):
     """K5a on the current stream: ``loglam`` and the first rows of
     ``scratch`` from ``state`` (and the warm-start ``guess`` or None)."""
-    args = (_ptrs(state), None if guess is None else guess.data_ptr(),
-            loglam.data_ptr(), scratch.data_ptr(), params.data_ptr(),
-            state.rho.numel(), plan.solve_grid, device.index,
-            torch.cuda.current_stream(device).cuda_stream)
-    with trace.span("launch.k5a"):
-        err = lib.column_p3_solve(*args)
-    _raise_on(err, "column_p3_solve")
-    trace.count("launches.launch_solve")
+    _build.launch(lib.column_p3_solve, _ptrs(state),
+                  None if guess is None else guess.data_ptr(),
+                  loglam.data_ptr(), scratch.data_ptr(), params.data_ptr(),
+                  state.rho.numel(), plan.solve_grid, device.index,
+                  torch.cuda.current_stream(device).cuda_stream,
+                  span="launch.k5a", counter="launch_solve")
 
 
 def launch_nodes(lib, state, scratch, params, plan, device):
     """K5b on the current stream: the node-pass sums of ``scratch``."""
     cells = state.rho.numel()
-    args = (_ptrs(state), scratch.data_ptr(), params.data_ptr(), cells,
-            plan.nodes_grid, device.index,
-            torch.cuda.current_stream(device).cuda_stream)
-    with trace.span("launch.k5b"):
-        err = lib.column_p3_nodes(*args)
-    _raise_on(err, "column_p3_nodes")
-    trace.count("launches.launch_nodes")
+    _build.launch(lib.column_p3_nodes, _ptrs(state), scratch.data_ptr(),
+                  params.data_ptr(), cells, plan.nodes_grid, device.index,
+                  torch.cuda.current_stream(device).cuda_stream,
+                  span="launch.k5b", counter="launch_nodes")
     trace.count("k5b.node_evals",
                 cells * plan.lanes_per_cell * plan.node_passes)
     trace.count("k5b.nodes", cells * plan.ice_nodes)
@@ -683,31 +668,18 @@ def launch_epilogue(lib, state, out, scratch, params, plan, dt, dz, warm,
     the warm rain's ``(is_limited, chen)`` variant."""
     ncol, nlev = state.rho.shape
     limited, chen = warm
-    args = (_ptrs(state), _ptrs(out), scratch.data_ptr(), params.data_ptr(),
-            ncol, nlev, plan.epilogue_cols, plan.epilogue_levels,
-            plan.epilogue_grid, float(dt), float(dz), limited, chen,
-            device.index, torch.cuda.current_stream(device).cuda_stream)
-    with trace.span("launch.k5c"):
-        err = lib.column_p3_epilogue(*args)
-    _raise_on(err, "column_p3_epilogue")
-    trace.count("launches.launch_epilogue")
-
-
-def warm_variant(mp) -> tuple:
-    """K5c's template variant: the warm rain's ``(is_limited, chen)``."""
-    return K2M._variant(type(mp)(warm_rain=mp.warm_rain, ice=None))
+    _build.launch(lib.column_p3_epilogue, _ptrs(state), _ptrs(out),
+                  scratch.data_ptr(), params.data_ptr(), ncol, nlev,
+                  plan.epilogue_cols, plan.epilogue_levels,
+                  plan.epilogue_grid, float(dt), float(dz), limited, chen,
+                  device.index, torch.cuda.current_stream(device).cuda_stream,
+                  span="launch.k5c", counter="launch_epilogue")
 
 
 def _check_fields(state, loglambda_guess, block_cols, where):
-    ncol, nlev = state.rho.shape
-    _check_tiling(ncol, block_cols)
-    tensors = list(state) + ([] if loglambda_guess is None
-                             else [loglambda_guess])
-    for t in tensors:
-        if t.shape != (ncol, nlev):
-            raise ValueError(f"every field must be {(ncol, nlev)}, "
-                             f"got {tuple(t.shape)}")
-    return _check_cuda(tensors, where)
+    return _build.check_fields(
+        list(state) + ([] if loglambda_guess is None else [loglambda_guess]),
+        block_cols, where)
 
 
 def loglambda_p3_fused(state: ColumnStateP3, mp, tps, loglambda_guess=None,
@@ -734,8 +706,8 @@ def loglambda_p3_fused(state: ColumnStateP3, mp, tps, loglambda_guess=None,
 
 
 def step_column_p3_fused(state: ColumnStateP3, mp, tps, dt, dz,
-                         loglambda_guess=None, block_cols: int = 128,
-                         params=None):
+                         loglambda_guess=None,
+                         block_cols: int = BLOCK_COLS, params=None):
     """One 2M + P3 column step on eleven ``(ncol, nlev)`` fields; returns
     ``(new_state, loglambda)`` like :func:`step_column_p3`.
 

@@ -31,7 +31,6 @@ import ctypes
 
 import torch
 
-from .. import trace
 from . import _build
 
 __all__ = [
@@ -102,19 +101,11 @@ def library_path(build: str = "kernel"):
     return _build.build(SOURCE, *_HEADER, BUILDS[build])
 
 
-_LIBRARIES = {}
-
-
 def _library(build: str = "kernel") -> ctypes.CDLL:
-    """One of the kernel library's :data:`BUILDS`, loaded (built at the
-    first launch)."""
-    lib = _LIBRARIES.get(build)
-    if lib is not None:
-        return lib
-    with _build.loading():
-        lib = _LIBRARIES[build] = _bind(
-            _build.load(SOURCE, *_HEADER, BUILDS[build]))
-    return lib
+    """One of the kernel library's :data:`BUILDS`, loaded and bound
+    (:func:`_build.library`)."""
+    return _build.library(SOURCE, build, None, lambda: library_path(build),
+                          _bind)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -144,11 +135,6 @@ def _check(x: torch.Tensor, where: str) -> None:
                                   f"tensor")
 
 
-def _launched(err: int, name: str) -> None:
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def copy_step(x: torch.Tensor, s, out: torch.Tensor | None = None
               ) -> torch.Tensor:
     """``x * s + 1e-12`` into ``out`` (a new tensor when None), which must
@@ -173,11 +159,11 @@ def copy_step(x: torch.Tensor, s, out: torch.Tensor | None = None
     _check(out, "copy_step (out)")
     lib = _library()
     with _build.launching(lib):
-        err = lib.copy_scale(
-            x.data_ptr(), out.data_ptr(), x.numel(), float(s),
-            x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
-    _launched(err, "copy_scale")
-    trace.count("launches.copy_step")
+        _build.launch(
+            lib.copy_scale, x.data_ptr(), out.data_ptr(), x.numel(),
+            float(s), x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream,
+            counter="copy_step")
     return out
 
 
@@ -193,10 +179,9 @@ def exp_chain_step(x: torch.Tensor, s, chain: int = CHAIN) -> torch.Tensor:
     out = torch.empty_like(x)
     lib = _library()
     with _build.launching(lib):
-        err = lib.exp_chain(
-            x.data_ptr(), out.data_ptr(), x.numel(), float(scale_of(s)),
-            int(chain), x.device.index,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _launched(err, "exp_chain")
-    trace.count("launches.exp_chain_step")
+        _build.launch(
+            lib.exp_chain, x.data_ptr(), out.data_ptr(), x.numel(),
+            float(scale_of(s)), int(chain), x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream,
+            counter="exp_chain_step")
     return out

@@ -194,7 +194,27 @@ def step_column_1m(
     )
 
 
-class Column1MStep(nn.Module):
+class _HostBlockStep(nn.Module):
+    """A step module whose kernel is built for a parameter block held on
+    the host: ``params``, the float32 block, and one more block a dtype
+    (:meth:`block`), each built at its first use by the subclass's
+    ``_kernel_params(dtype)``."""
+
+    def _hold_params(self) -> None:
+        self.params = self._kernel_params(torch.float32)
+        self._blocks = {torch.float32: self.params}
+
+    def block(self, dtype: torch.dtype) -> torch.Tensor | None:
+        """The host parameter block for states of ``dtype`` (float32: the
+        module's ``params``); None for a dtype no kernel is built for."""
+        if dtype not in (torch.float32, torch.float64):
+            return None
+        if dtype not in self._blocks:
+            self._blocks[dtype] = self._kernel_params(dtype)
+        return self._blocks[dtype]
+
+
+class Column1MStep(_HostBlockStep):
     """One fused 1M column step (explicit Euler), in the whole scope of
     :func:`step_column_1m`: ``mode`` (``"instantaneous"`` or
     ``"linearized_average"`` with ``nsub`` substeps), ``sediment_cloud``,
@@ -215,9 +235,10 @@ class Column1MStep(nn.Module):
     CUDA tensors it launches the fused kernel; on CPU tensors it runs the
     plain version. A thread block steps the largest power of two of
     columns, up to :data:`..kernels.column1m.BLOCK_COLS`, that divides
-    ``ncol`` (a rank's ``ncol`` for a column-sharded :class:`ColumnState`,
-    which steps shard by shard; a packed state is never sharded). A call is
-    the span ``step.column1m`` (:mod:`..trace`).
+    ``ncol`` (:func:`..kernels._build.fit_block_cols`; a rank's ``ncol``
+    for a column-sharded :class:`ColumnState`, which steps shard by shard;
+    a packed state is never sharded). A call is the span ``step.column1m``
+    (:mod:`..trace`).
     """
 
     def __init__(self, mp: Microphysics1MParams, tps: ThermodynamicsParameters,
@@ -226,30 +247,21 @@ class Column1MStep(nn.Module):
                  mode: str = "instantaneous", nsub: int = 1,
                  sediment_cloud: bool = True):
         super().__init__()
-        from ..kernels.column1m import kernel_params
-
         if torch.device(device).type == "cuda":
             torch.cuda.get_device_properties(device)   # raises without a card
         self.mp, self.tps, self.tv = mp, tps, tv
         self.dt, self.dz = float(dt), float(dz)
         self.mode, self.nsub = mode, int(nsub)
         self.sediment_cloud = bool(sediment_cloud)
-        self.params = kernel_params(mp, tps, tv)
-        self._blocks = {torch.float32: self.params}
+        self._hold_params()
 
-    def block(self, dtype: torch.dtype) -> torch.Tensor | None:
-        """The host parameter block for states of ``dtype`` (float32: the
-        module's ``params``); None for a dtype no kernel is built for."""
+    def _kernel_params(self, dtype: torch.dtype) -> torch.Tensor:
         from ..kernels.column1m import kernel_params
 
-        if dtype not in (torch.float32, torch.float64):
-            return None
-        if dtype not in self._blocks:
-            self._blocks[dtype] = kernel_params(self.mp, self.tps, self.tv,
-                                                dtype)
-        return self._blocks[dtype]
+        return kernel_params(self.mp, self.tps, self.tv, dtype)
 
     def forward(self, state, q_tot_affine=None):
+        from ..kernels import _build
         from ..kernels import column1m as K
 
         with trace.span("step.column1m"):
@@ -265,14 +277,8 @@ class Column1MStep(nn.Module):
             return step(state, self.mp, self.tps, self.tv, self.dt, self.dz,
                         mode=self.mode, nsub=self.nsub,
                         sediment_cloud=self.sediment_cloud,
-                        block_cols=_block_cols(ncol, K.BLOCK_COLS),
+                        block_cols=_build.fit_block_cols(ncol, K.BLOCK_COLS),
                         q_tot_affine=q_tot_affine, params=self.block(dtype))
-
-
-def _block_cols(ncol: int, most: int = 128) -> int:
-    """Columns a thread block steps: ``most`` (a power of two), or the
-    largest power of two that divides ``ncol`` when ``most`` does not."""
-    return ncol & -ncol if ncol % most else most
 
 
 class ColumnState2M(NamedTuple):
@@ -303,9 +309,10 @@ def step_column_2m(state: ColumnState2M, mp, tps: ThermodynamicsParameters,
       (:func:`..kernels.column2m.step_column_2m_fused`), the JAX package's
       ``"pallas"``: one CUDA launch per step on CUDA tensors, the plain
       version on CPU tensors. ``block_cols`` is halved until it divides
-      ``ncol``. Fields of mixed float dtypes are promoted to their common
-      dtype, and non-contiguous fields are made contiguous. A call is the
-      span ``step.column2m`` (:mod:`..trace`).
+      ``ncol`` (:func:`..kernels._build.fit_block_cols`). Fields of mixed
+      float dtypes are promoted to their common dtype, and non-contiguous
+      fields are made contiguous. A call is the span ``step.column2m``
+      (:mod:`..trace`).
 
     A column-sharded state steps shard by shard, and ``ncol`` is the
     rank's.
@@ -316,20 +323,19 @@ def step_column_2m(state: ColumnState2M, mp, tps: ThermodynamicsParameters,
         return _per_shard(lambda s: step_column_2m(
             s, mp, tps, dt, dz, impl, block_cols), state)
     if impl == "fused":
+        from ..kernels import _build
         from ..kernels.column2m import step_column_2m_fused
 
         with trace.span("step.column2m"):
-            ncol = state.rho.shape[0]
-            bc = max(block_cols, 1)
-            while ncol % bc:
-                bc //= 2
             # the kernel's launch check takes one dtype and contiguous
             # fields; both calls return the field itself when it is so
             dtype = functools.reduce(torch.promote_types,
                                      (t.dtype for t in state))
             state = ColumnState2M(*(t.to(dtype).contiguous() for t in state))
-            return step_column_2m_fused(state, mp, tps, dt, dz,
-                                        block_cols=bc)
+            return step_column_2m_fused(
+                state, mp, tps, dt, dz,
+                block_cols=_build.fit_block_cols(state.rho.shape[0],
+                                                 block_cols))
     if impl != "eager":
         raise ValueError(f"unknown impl {impl!r} (expected 'eager'|'fused')")
 
@@ -371,7 +377,7 @@ def _chen_or_sb(mp):
     return SB2006VelType() if vel is None else vel
 
 
-class Column2MStep(nn.Module):
+class Column2MStep(_HostBlockStep):
     """One fused 2M warm-rain column step (SB2006, explicit Euler).
 
     Holds the parameters, ``dt``, ``dz`` and the kernel's float32 parameter
@@ -388,7 +394,8 @@ class Column2MStep(nn.Module):
     packed state only, as in the JAX package. On CUDA tensors it launches
     the fused kernel; on CPU tensors it runs the plain version. A thread
     block steps the largest power of two of columns, up to
-    :data:`..kernels.column2m.BLOCK_COLS`, that divides ``ncol`` (a rank's
+    :data:`..kernels.column2m.BLOCK_COLS`, that divides ``ncol``
+    (:func:`..kernels._build.fit_block_cols`; a rank's
     ``ncol`` for a column-sharded :class:`ColumnState2M`, which steps shard
     by shard; a packed state is never sharded). A call is the span
     ``step.column2m`` (:mod:`..trace`).
@@ -397,27 +404,19 @@ class Column2MStep(nn.Module):
     def __init__(self, mp, tps: ThermodynamicsParameters, dt: float,
                  dz: float, device: torch.device | str = "cuda"):
         super().__init__()
-        from ..kernels.column2m import kernel_params_2m
-
         if torch.device(device).type == "cuda":
             torch.cuda.get_device_properties(device)   # raises without a card
         self.mp, self.tps = mp, tps
         self.dt, self.dz = float(dt), float(dz)
-        self.params = kernel_params_2m(mp, tps)
-        self._blocks = {torch.float32: self.params}
+        self._hold_params()
 
-    def block(self, dtype: torch.dtype) -> torch.Tensor | None:
-        """The host parameter block for states of ``dtype`` (float32: the
-        module's ``params``); None for a dtype no kernel is built for."""
+    def _kernel_params(self, dtype: torch.dtype) -> torch.Tensor:
         from ..kernels.column2m import kernel_params_2m
 
-        if dtype not in (torch.float32, torch.float64):
-            return None
-        if dtype not in self._blocks:
-            self._blocks[dtype] = kernel_params_2m(self.mp, self.tps, dtype)
-        return self._blocks[dtype]
+        return kernel_params_2m(self.mp, self.tps, dtype)
 
     def forward(self, state, q_tot_affine=None):
+        from ..kernels import _build
         from ..kernels import column2m as K
 
         with trace.span("step.column2m"):
@@ -429,11 +428,12 @@ class Column2MStep(nn.Module):
                     raise ValueError("q_tot_affine needs the packed state")
                 return K.step_column_2m_fused(
                     state, self.mp, self.tps, self.dt, self.dz,
-                    block_cols=_block_cols(state.rho.shape[0], K.BLOCK_COLS),
+                    block_cols=_build.fit_block_cols(state.rho.shape[0],
+                                                     K.BLOCK_COLS),
                     params=self.block(state.rho.dtype))
             return K.step_column_2m_fused_packed(
                 state, self.mp, self.tps, self.dt, self.dz,
-                block_cols=_block_cols(state.shape[1], K.BLOCK_COLS),
+                block_cols=_build.fit_block_cols(state.shape[1], K.BLOCK_COLS),
                 q_tot_affine=q_tot_affine, params=self.block(state.dtype))
 
 
@@ -497,10 +497,12 @@ def step_column_p3(state: ColumnStateP3, mp, tps: ThermodynamicsParameters,
         raise ValueError(f"col_chunks={col_chunks} does not divide "
                          f"ncol={ncol}")
     if impl == "fused":
-        from ..kernels.column_p3 import step_column_p3_fused
+        from ..kernels import _build
+        from ..kernels import column_p3 as K
 
-        return step_column_p3_fused(state, mp, tps, dt, dz, loglambda_guess,
-                                    block_cols=_block_cols(ncol))
+        return K.step_column_p3_fused(
+            state, mp, tps, dt, dz, loglambda_guess,
+            block_cols=_build.fit_block_cols(ncol, K.BLOCK_COLS))
     if impl != "eager":
         raise ValueError(f"unknown impl {impl!r} (expected 'eager'|'fused')")
     if col_chunks and col_chunks > 1:
@@ -601,9 +603,10 @@ class ColumnP3Step(nn.Module):
     the shape solve. On CUDA tensors it launches the step's three kernels
     (:func:`..kernels.column_p3.step_column_p3_fused`); on CPU tensors it
     runs the plain version. ``block_cols`` is the largest power of two of
-    columns, up to 128, that divides ``ncol``. A column-sharded state (and
-    guess) steps shard by shard, with a rank's ``ncol``. A call is the span
-    ``step.column_p3`` (:mod:`..trace`).
+    columns, up to :data:`..kernels.column_p3.BLOCK_COLS`, that divides
+    ``ncol`` (:func:`..kernels._build.fit_block_cols`). A column-sharded
+    state (and guess) steps shard by shard, with a rank's ``ncol``. A call
+    is the span ``step.column_p3`` (:mod:`..trace`).
     """
 
     def __init__(self, mp, tps: ThermodynamicsParameters, dt: float,
@@ -633,7 +636,8 @@ class ColumnP3Step(nn.Module):
         return self._buffers[name]
 
     def forward(self, state: ColumnStateP3, loglambda_guess=None):
-        from ..kernels.column_p3 import step_column_p3_fused
+        from ..kernels import _build
+        from ..kernels import column_p3 as K
 
         with trace.span("step.column_p3"):
             if _sharded(state):
@@ -641,6 +645,8 @@ class ColumnP3Step(nn.Module):
             dtype = state.rho.dtype
             params = (self.block(dtype)
                       if dtype in (torch.float32, torch.float64) else None)
-            return step_column_p3_fused(
+            return K.step_column_p3_fused(
                 state, self.mp, self.tps, self.dt, self.dz, loglambda_guess,
-                block_cols=_block_cols(state.rho.shape[0]), params=params)
+                block_cols=_build.fit_block_cols(state.rho.shape[0],
+                                                 K.BLOCK_COLS),
+                params=params)

@@ -125,7 +125,6 @@ def main(argv):
 
     from chip_smoke import AFFINE, DT, DZ, NCOL, NLEV, _gpu_line, _time_ms
     from cloudmicrophysics_tpu_torch.kernels import _build, opcount
-    from cloudmicrophysics_tpu_torch.models.column import _block_cols
 
     print(f"gpu: {_gpu_line()}")
     device = torch.device("cuda", 0)
@@ -136,7 +135,7 @@ def main(argv):
         built = list(pool.map(
             lambda s: _build_variant(K, kern.header, _build, opcount, *s),
             SETTINGS))
-    bc = _block_cols(NCOL, K.BLOCK_COLS)
+    bc = _build.fit_block_cols(NCOL, K.BLOCK_COLS)
 
     def best_ms(lib, block_cols):
         def run():

@@ -377,29 +377,6 @@ def test_parameter_block_per_option_set(opts):
         assert values["FR_T_FREEZE"] == 0
 
 
-def test_library_key_tells_variants_apart():
-    # the library is looked up by the block's dtype and bytes, the mode and
-    # options and the build: each distinct one is its own library
-    keys = set()
-    for opts in [{}] + OPTION_SETS:
-        mp = TP.microphysics_1m_params(**opts)
-        for dtype in (torch.float32, torch.float64):
-            block = TK.kernel_params(mp, TPS_T, TV_T, dtype)
-            for mode in TK.MODES:
-                for build in TK.BUILDS:
-                    keys.add(TK.library_key(block, TK.variant(mp, mode),
-                                            build))
-    assert len(keys) == (1 + len(OPTION_SETS)) * 2 * 2 * len(TK.BUILDS)
-    # another value of one parameter is another block, so another library
-    mp = TP.microphysics_1m_params(
-        process_overrides={"RainSnowAccretion": {"e": 0.7}})
-    block = TK.kernel_params(mp, TPS_T, TV_T)
-    assert TK.library_key(block) not in keys
-    # and the same call twice is the same library
-    assert TK.library_key(block) == TK.library_key(
-        TK.kernel_params(mp, TPS_T, TV_T))
-
-
 def test_float64_header_round_trips_exactly():
     block = TK.kernel_params(MP_T, TPS_T, TV_T, torch.float64)
     assert block.dtype == torch.float64
@@ -619,38 +596,6 @@ def test_parameter_division_check_finds_each_form():
     for case in cases:
         assert _parameter_divisions(case), case
     assert _parameter_divisions("x = a / rho_dz; y = (1.0f / x) * c;") == []
-
-
-def test_host_params_is_the_block_the_kernel_is_built_for():
-    p = TK.host_params(None, MP_T, TPS_T, TV_T)
-    assert p.device.type == "cpu" and p.dtype == torch.float32
-    assert p.shape == (len(TK.PARAM_NAMES),) and p.is_contiguous()
-    values = TK._param_values(MP_T, TPS_T, TV_T)
-    assert p.tolist() == [float(np.float32(values[n]))
-                          for n in TK.PARAM_NAMES]
-    assert TK.header(p) == TK.header(TK.kernel_params(MP_T, TPS_T, TV_T))
-
-
-def test_host_params_makes_no_copy(monkeypatch):
-    # choosing a CUDA-bound call's library reads the host block in place:
-    # no transfer, no copy, no synchronising read of a device value
-    block = TK.kernel_params(MP_T, TPS_T, TV_T)
-
-    def refuse(*args, **kwargs):
-        raise AssertionError("a copy or transfer of the parameter block")
-
-    for name in ("to", "cpu", "cuda", "clone", "copy_", "item",
-                 "contiguous"):
-        monkeypatch.setattr(torch.Tensor, name, refuse)
-    assert TK.host_params(block, MP_T, TPS_T, TV_T) is block
-    assert "#define PC_EPS" in TK.header(block)
-    monkeypatch.undo()
-    # a block anywhere but on the host is refused, not copied back
-    with pytest.raises(ValueError, match="host parameter block"):
-        TK.host_params(torch.empty(len(TK.PARAM_NAMES), device="meta"),
-                       MP_T, TPS_T, TV_T)
-    with pytest.raises(ValueError, match="host parameter block"):
-        TK.host_params(block.double(), MP_T, TPS_T, TV_T)
 
 
 # ---------------------------------------------------------------------------

@@ -267,10 +267,6 @@ def test_float64_header_round_trips_exactly(options):
     assert block[i("TINY")] == torch.finfo(torch.float64).tiny
     f32 = TK.kernel_params_2m(mp, TPS_T)
     assert torch.equal(block[i("T_0"):].to(torch.float32), f32[i("T_0"):])
-    # dtype, block and variant tell the libraries apart
-    keys = {TK.library_key(b, TK._variant(mp), build)
-            for b in (block, f32) for build in TK.BUILDS}
-    assert len(keys) == 2 * len(TK.BUILDS)
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -279,7 +275,7 @@ def test_wrappers_raise_and_do_not_fall_back(monkeypatch, packed, case):
     # a tensor anywhere but on the CPU launches the kernel or raises: the
     # plain version and the library are never reached for what the kernel
     # lacks (meta tensors stand in for a card's; "device": no kernel there,
-    # the others: a CUDA device as _check_cuda would report it)
+    # the others: a CUDA device as _build.check_cuda would report it)
     def refuse(*args, **kwargs):
         raise AssertionError("fell back or reached the kernel library")
 
@@ -287,7 +283,7 @@ def test_wrappers_raise_and_do_not_fall_back(monkeypatch, packed, case):
                  "_library"):
         monkeypatch.setattr(TK, name, refuse)
     if case != "device":
-        monkeypatch.setattr(TK, "_check_cuda",
+        monkeypatch.setattr(_build, "check_cuda",
                             lambda *a: torch.device("cuda", 0))
     nlev = 0 if case == "nlev" else 8     # a layout without levels
     dtype = torch.bfloat16 if case == "bfloat16" else torch.float32
@@ -411,43 +407,6 @@ def test_cuda_source_divides_by_no_parameter(name):
     # a division by a parameter would round otherwise than the eager step's
     # multiply by its host-folded reciprocal
     assert _parameter_divisions(_source(name)) == []
-
-
-def test_host_params_is_the_block_the_kernel_is_built_for():
-    p = TK.host_params(None, MP_T, TPS_T)
-    assert p.device.type == "cpu" and p.dtype == torch.float32
-    assert p.shape == (len(TK.PARAM_NAMES),) and p.is_contiguous()
-    values = TK._param_values(MP_T, TPS_T)
-    assert p.tolist() == [float(np.float32(values[n]))
-                          for n in TK.PARAM_NAMES]
-    variant = TK._variant(MP_T)
-    assert TK.header(p, variant) == TK.header(
-        TK.kernel_params_2m(MP_T, TPS_T), variant)
-    model = TC.Column2MStep(MP_T, TPS_T, DT, DZ, device="cpu")
-    assert torch.equal(model.params, p)
-    assert model.to("cpu").params.device.type == "cpu"
-
-
-def test_host_params_makes_no_copy(monkeypatch):
-    # choosing a CUDA-bound call's library reads the host block in place:
-    # no transfer, no copy, no synchronising read of a device value
-    block = TK.kernel_params_2m(MP_T, TPS_T)
-
-    def refuse(*args, **kwargs):
-        raise AssertionError("a copy or transfer of the parameter block")
-
-    for name in ("to", "cpu", "cuda", "clone", "copy_", "item",
-                 "contiguous"):
-        monkeypatch.setattr(torch.Tensor, name, refuse)
-    assert TK.host_params(block, MP_T, TPS_T) is block
-    assert "#define PC_EM" in TK.header(block, TK._variant(MP_T))
-    monkeypatch.undo()
-    # a block anywhere but on the host is refused, not copied back
-    with pytest.raises(ValueError, match="host parameter block"):
-        TK.host_params(torch.empty(len(TK.PARAM_NAMES), device="meta"),
-                       MP_T, TPS_T)
-    with pytest.raises(ValueError, match="host parameter block"):
-        TK.host_params(block.double(), MP_T, TPS_T)
 
 
 # ---------------------------------------------------------------------------

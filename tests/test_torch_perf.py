@@ -75,8 +75,10 @@ def test_raises_when_a_repeat_call_loads_a_library(monkeypatch, tmp_path):
 
     def fn(x):
         calls.append(1)
-        _build.load("stand_in.cu", "stand_in.h", f"// call {len(calls)} "
-                    f"{tmp_path}\n")
+        text = f"// call {len(calls)} {tmp_path}\n"
+        _build.library("stand_in.cu", "kernel", text,
+                       lambda: _build.build("stand_in.cu", "stand_in.h", text),
+                       lambda lib: lib)
         return x * 2.0
 
     with pytest.raises(AssertionError, match="loaded 1 kernel libraries"):

@@ -231,9 +231,11 @@ def test_library_builds_loads_and_first_launch_are_counted(fake_nvcc):
     before = dict(zip(names, map(trace.counter, names)))
     text = f"// {fake_nvcc}\n"
     trace.reset()
+    look_up = (lambda: _build.library(
+        "roof.cu", "kernel", text,
+        lambda: _build.build("roof.cu", "stand_in.h", text), lambda l: l))
     with profile(activities=[ProfilerActivity.CPU]):
-        with _build.loading():
-            lib = _build.load("roof.cu", "stand_in.h", text)
+        lib = look_up()
     spans = trace.totals()
     assert spans["kernels.load"]["count"] == spans["kernels.build"]["count"]
     assert (spans["kernels.load"]["total_ns"]
@@ -247,8 +249,10 @@ def test_library_builds_loads_and_first_launch_are_counted(fake_nvcc):
     load_s = after["kernels.load_s"] - before["kernels.load_s"]
     assert 0 <= load_s < 0.05
     assert _build.loads() == after["kernels.loads"]
-    # built once: a second look-up and a new process's load reuse the file
-    assert _build.load("roof.cu", "stand_in.h", text) is lib
+    # built once: a second look-up returns the library, and a new
+    # process's build reuses the file
+    assert look_up() is lib
+    assert trace.counter("kernels.loads") == after["kernels.loads"]
     _build.build("roof.cu", "stand_in.h", text)
     assert trace.counter("kernels.builds") == after["kernels.builds"]
     # the first launch through the library adds to the load's seconds
@@ -292,7 +296,8 @@ def fake_k3(monkeypatch):
     a null one."""
     import types
 
-    monkeypatch.setattr(K2, "_check_cuda", lambda *a: torch.device("cuda", 0))
+    monkeypatch.setattr(_build, "check_cuda",
+                        lambda *a: torch.device("cuda", 0))
     monkeypatch.setattr(K2, "_library",
                         lambda *a, **k: _FakeK3Library())
     monkeypatch.setattr(torch.cuda, "current_stream",
