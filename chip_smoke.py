@@ -57,11 +57,13 @@ then, failing at the first phase that does not hold:
    share over 10 fused steps with ``torch.profiler``;
 7. compares both 2M warm-rain kernel entry points (packed, K3, and
    unpacked, K4) with their plain versions at (4096, 128), a ragged
-   (1000, 40), (64, 512), the in-kernel ``q_tot`` affine,
-   ``is_limited=False``, ``rain_velocity="chen2022"`` and the benchmark's
-   uniform 2M state, under the same tolerance, with two tilings agreeing
-   bit for bit, counts the comparisons that are bit-identical to the plain
-   step and fails unless all are;
+   (1000, 40), (64, 512), the ``2m_fields`` cell's (1048576, 100) at its
+   128 columns a block, (1000, 100) at 200 and 40 columns a block (warps
+   of uneven ranges), the in-kernel ``q_tot`` affine, ``is_limited=False``,
+   ``rain_velocity="chen2022"`` and the benchmark's uniform 2M state, under
+   the same tolerance, with two tilings agreeing bit for bit, counts the
+   comparisons that are bit-identical to the plain step and fails unless
+   all are;
 8. drives the 2M path at full width: ``Column2MStep`` over a packed
    (7, 524288, 128) float32 2M state, one step on the unpacked state and
    three timed 30-step rollouts with the same ``q_tot`` affine schedule,
@@ -69,7 +71,8 @@ then, failing at the first phase that does not hold:
    version bit for bit;
 9. times K3 and K4 and their plain versions at that size, holds one
    full-size packed step against the plain version bit for bit, prints
-   K3's stage split from its probe build (as K1's in phase 5), quotes K3
+   K3's stage split from its probe build (as K1's in phase 5), holding
+   its count of 32-cell windows to the launch's ``k3.lane_slots``, quotes K3
    against K6's rate of phase 6, counts the plain step's device
    kernels and measures the device's idle share over 10 K3 steps;
 10. holds K5a's log lambda against the plain shape solve on the ladder
@@ -577,14 +580,17 @@ def _k5_build_report(K5):
     return attrs
 
 
-def _stages(key, K, lib, packed):
+def _stages(key, K, lib, packed, pass_name="warp passes", slots=None):
     """A kernel's stage split from its probe build ``lib`` (``-DK1_PROBE``
     of ``kernels/column1m.py`` or ``-DK3_PROBE`` of ``column2m.py``, the
     module ``K``) on ``packed``: each stage's share of the warps'
-    ``clock64()`` cycles and its cycles per warp pass, from one launch
-    after a warm-up."""
+    ``clock64()`` cycles and its cycles per warp pass (``pass_name``: what
+    a pass is), from one launch after a warm-up. With ``slots``, the name
+    of the counter the launch adds its lane slots to, fails unless the
+    passes the device counted, 32 lanes each, are what it added."""
     import torch
 
+    from cloudmicrophysics_tpu_torch import trace
     from cloudmicrophysics_tpu_torch.kernels import _build
 
     probe_set = f"{Path(K.SOURCE).stem}_probe_set"
@@ -603,12 +609,17 @@ def _stages(key, K, lib, packed):
     run()
     torch.cuda.synchronize()
     sums.zero_()
+    before = trace.counter(slots) if slots else 0
     ms = _time_ms(run, reps=1, warmup=0)[0]
     *cycles, passes = sums.tolist()
+    if slots and 32 * passes != trace.counter(slots) - before:
+        raise AssertionError(
+            f"{key} probe: {passes} passes of 32 lanes, but the launch added "
+            f"{trace.counter(slots) - before} to {slots}")
     total = sum(cycles)
     print(f"  {key} probe build (clock64 per warp, one launch, {ms:.6g} ms): "
-          f"{passes} warp passes; per stage share of the cycles and cycles "
-          f"per warp pass: " + ", ".join(
+          f"{passes} {pass_name}; per stage share of the cycles and cycles "
+          f"per pass: " + ", ".join(
               f"{s} {c / total:.4f} ({c / passes:.6g})"
               for s, c in zip(K.PROBE_STAGES, cycles)))
     return dict(zip(K.PROBE_STAGES, cycles))
@@ -1211,6 +1222,12 @@ def _run_2m(device, K, Column2MStep, microphysics_2m_params, tps, copy_ms):
         ("(4096, 128)", "default", 4096, 128, (256, 128), None, False),
         ("ragged (1000, 40)", "default", 1000, 40, (8, 40), None, False),
         ("(64, 512)", "default", 64, 512, (16, 64), None, False),
+        # the 2m_fields cell: 8 columns of 100 levels a warp, 25 windows
+        # that cross columns; then uneven ranges at 100 levels, 13 and 12
+        # columns a warp at 200 a block, 3 and 2 at 40
+        ("2m_fields cell (1048576, 100)", "default", 1048576, 100,
+         (128, 16), None, False),
+        ("uneven (1000, 100)", "default", 1000, 100, (200, 40), None, False),
         ("affine (4096, 128)", "default", 4096, 128, (128, 64), AFFINE,
          False),
         ("is_limited=False", "is_limited=False", 4096, 128, (256, 64), None,
@@ -1293,7 +1310,7 @@ def _run_2m(device, K, Column2MStep, microphysics_2m_params, tps, copy_ms):
         raise AssertionError("K3 full-size step differs from the plain step")
     del out, ref
     _stages("K3", K, K._library(model.params, K._variant(mp), "probe"),
-            packed)
+            packed, "warp windows of 32 cells", slots="k3.lane_slots")
     nbytes = 2 * packed.numel() * packed.element_size()   # read + write
     print(f"  K3: {timing['K3'][0]:.6g} ms/step, "
           f"{nbytes / timing['K3'][0] / 1e6:.6g} GB/s, "

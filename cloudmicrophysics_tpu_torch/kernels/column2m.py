@@ -20,7 +20,7 @@ temperature update and the final clamp. Two entry points share it:
 
 A CPU tensor takes the plain version (:func:`step_column_2m_plain`,
 :func:`step_column_2m_packed_plain`). A CUDA tensor launches the kernel,
-float32 or float64, at any number of levels (a warp steps a column, so the
+float32 or float64, at any number of levels (warps are independent, so the
 layout has no bound of its own), or raises ``NotImplementedError`` for what
 the kernel does not cover: P3 ice (``mp.ice`` set), rain velocity types
 other than ``SB2006VelType`` and ``Chen2022VelTypeRain``, and other dtypes.
@@ -38,6 +38,17 @@ read the block on the host, never from the device. :data:`PARAM_NAMES` is
 the only definition of the block's order; the 2M + P3 kernel's list starts
 with it.
 
+Launch plan: a thread block's ``block_cols`` columns are split into as
+many contiguous ranges of whole columns as the build has warps (16 at
+float32, 8 at float64), their sizes differing by at most one; a warp steps
+its range, one run of consecutive cells in the ``(ncol, nlev)`` layout, in
+windows of 32 cells, a lane a cell, so a window may straddle columns and no
+lane idles at a column's top (:func:`lane_slots`). Each K3 or K4 launch adds
+the lane slots its plan steps to the counter ``k3.lane_slots`` and its
+cells to ``k3.cells``; their ratio is the share of busy lanes. The probe
+build (float32 only) counts the windows its warps step, which the card's
+tests hold to the slots over 32.
+
 Each launch adds one to the counter ``launches.<wrapper>``
 (:mod:`..trace`); under the profiler a wrapper's checks, parameter block,
 library and output are the span ``column.prepare``, and its launch the span
@@ -47,6 +58,7 @@ library and output are the span ``column.prepare``, and its launch the span
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -61,6 +73,7 @@ from . import _build
 __all__ = [
     "PARAM_NAMES",
     "kernel_params_2m",
+    "lane_slots",
     "pack_state_2m",
     "step_column_2m_fused",
     "step_column_2m_fused_packed",
@@ -401,6 +414,37 @@ def _prepare(mp, tps, nlev: int, dtype: torch.dtype, params) -> ctypes.CDLL:
     return _library(host_params(params, mp, tps, dtype), warm_variant(mp))
 
 
+def lane_slots(ncol: int, nlev: int, block_cols: int, warps: int) -> int:
+    """The lane slots a K3 or K4 launch steps on ``(ncol, nlev)`` at
+    ``block_cols`` columns a block with ``warps`` warps a block: the sum
+    over warps of their runs' cells rounded up to whole 32-cell windows.
+    A block's columns (the grid's last block may have fewer) are split into
+    ``warps`` ranges whose sizes differ by at most one."""
+    def block(cols: int) -> int:
+        share, extra = divmod(cols, warps)
+        return sum(n * -(-c * nlev // 32) * 32
+                   for n, c in ((extra, share + 1), (warps - extra, share)))
+
+    full, rest = divmod(ncol, block_cols)
+    return full * block(block_cols) + (block(rest) if rest else 0)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(lib, ncol: int, nlev: int, block_cols: int) -> tuple:
+    """A launch's lane slots and cells on the build ``lib``, whose warps a
+    block are its threads over 32; worked out once a library and shape."""
+    warps = lib.column2m_threads_per_block() // 32
+    return lane_slots(ncol, nlev, block_cols, warps), ncol * nlev
+
+
+def _count_plan(lib, ncol: int, nlev: int, block_cols: int) -> None:
+    """Add a launch's lane slots and cells to ``k3.lane_slots`` and
+    ``k3.cells``."""
+    slots, cells = _plan(lib, ncol, nlev, block_cols)
+    trace.count("k3.lane_slots", slots)
+    trace.count("k3.cells", cells)
+
+
 def _args(dt, dz, block_cols: int, q_tot_affine,
           device: torch.device) -> tuple:
     """The launch arguments both entry points take after ``ncol, nlev``:
@@ -433,6 +477,7 @@ def step_column_2m_fused(state: ColumnState2M, mp, tps, dt, dz,
                       *(t.data_ptr() for t in state),
                       *(t.data_ptr() for t in out), ncol, nlev, *args,
                       span="launch.k4", counter="step_column_2m_fused")
+    _count_plan(lib, ncol, nlev, block_cols)
     return out
 
 
@@ -462,8 +507,9 @@ def launch_packed(lib, packed, dt, dz, block_cols: int, q_tot_affine=None,
                   out=None):
     """Launch ``lib``'s packed entry point (K3, built for its parameter
     block and variant) on a checked CUDA ``packed`` state and return the
-    output (``out``, or a new tensor when None), in the span ``launch.k3``;
-    uncounted (the wrapper counts its own launches)."""
+    output (``out``, or a new tensor when None), in the span ``launch.k3``,
+    adding its plan to ``k3.lane_slots`` and ``k3.cells``; uncounted in
+    ``launches.*`` (the wrapper counts its own launches)."""
     _, ncol, nlev = packed.shape
     if out is None:
         out = torch.empty_like(packed)
@@ -471,4 +517,5 @@ def launch_packed(lib, packed, dt, dz, block_cols: int, q_tot_affine=None,
                   out.data_ptr(), ncol * nlev, ncol, nlev,
                   *_args(dt, dz, block_cols, q_tot_affine, packed.device),
                   span="launch.k3")
+    _count_plan(lib, ncol, nlev, block_cols)
     return out

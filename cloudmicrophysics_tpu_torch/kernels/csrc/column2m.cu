@@ -38,17 +38,25 @@
 // global load, no register to hold it) and tpow's exponent branches are
 // decided when the kernel is compiled.
 //
-// Layout: a warp steps whole columns, 32 levels at a time from the top chunk
-// down; lane l of chunk c owns level 32 c + l, so each field's load and store
-// of a warp is 128 contiguous bytes. A block's kWarps warps share its
-// `block_cols` columns (warp w takes columns w, w + kWarps, ...). The two
-// rain fluxes of level k + 1 come from the next lane by a shuffle; lane 31
-// takes lane 0's fluxes of the chunk above, carried from the previous
-// iteration; the top level gets no inflow (levels above nlev carry zero
-// flux). No barrier: warps are independent, so nlev has no bound of the
-// layout's own. Each warp's next chunk is copied into its own shared double
-// buffer by cp.async while it steps the current one; a lane reads back only
-// its own slots.
+// Layout: a block's `block_cols` columns are split into kWarps contiguous
+// ranges of whole columns whose sizes differ by at most one (the first ranges
+// the larger; a warp gets none when the block has fewer columns than warps).
+// In the (ncol, nlev) layout a warp's range is one run of cols * nlev
+// consecutive cells, which the warp steps in windows of 32 consecutive cells
+// from the run's top down: lane l of a window owns one cell, so each field's
+// load and store of a warp is 128 contiguous bytes, and only the window at
+// the run's low end may be partial. A window may straddle columns, so no lane
+// idles at the top of a column whose levels are not a multiple of 32 (at 100
+// levels, 8 columns a warp fill 25 windows): the kernel is bound by its
+// instruction stream, so a warp pays for its idle lanes. A lane's level k (its cell mod nlev) is kept
+// in 32-bit arithmetic and stepped down by 32 mod nlev a window. The two rain
+// fluxes of level k + 1, the next cell, come from the next lane by a shuffle;
+// lane 31 takes lane 0's fluxes of the window above, carried from the
+// previous iteration; a column's top level (k == nlev - 1) gets no inflow,
+// whichever lane holds the next cell. No barrier: warps are independent, so
+// nlev has no bound of the layout's own. Each warp's next window is copied
+// into its own shared double buffer by cp.async while it steps the current
+// one; a lane reads back only its own slots.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -124,13 +132,15 @@ __device__ __forceinline__ CellOut cell_step(real rho, real T, real q_tot,
   return o;
 }
 
-// Copy this lane's cell of one warp chunk (level k of column col) of the
-// seven fields into its slots of a shared buffer, asynchronously (cp.async,
-// one group); levels above nlev are filled with zeros.
-__device__ __forceinline__ void fetch_chunk(const Fields& f, int col, int k,
-                                            int nlev, real (*buf)[32], int lane) {
-  const bool active = k < nlev;
-  const int64_t idx = (int64_t)col * nlev + (active ? k : 0);
+// Copy this lane's cell `cell` of one window (inactive: past the run's low
+// end, at `lo`) of the seven fields into its slots of a shared buffer,
+// asynchronously (cp.async, one group); an inactive lane's slots are filled
+// with zeros.
+__device__ __forceinline__ void fetch_window(const Fields& f, int64_t cell,
+                                             int64_t lo, real (*buf)[32],
+                                             int lane) {
+  const bool active = cell >= lo;
+  const int64_t idx = active ? cell : lo;
 #pragma unroll
   for (int i = 0; i < kFields; ++i) {
     const unsigned dst = (unsigned)__cvta_generic_to_shared(&buf[i][lane]);
@@ -146,31 +156,38 @@ __global__ void __launch_bounds__(kBuildThreads, kMinBlocks)
 column2m_step_kernel(const __grid_constant__ Fields f, int ncol, int nlev,
                      int block_cols, real dt, real dz, int has_affine,
                      real scale, real bias) {
-  // per warp, two chunks' fields: the one being stepped and the next
+  // per warp, two windows' fields: the one being stepped and the next
   __shared__ real stage[kWarps][2][kFields][32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nchunks = (nlev + 31) >> 5;
-  const int block_end = (blockIdx.x + 1) * block_cols;
-  const int end = block_end < ncol ? block_end : ncol;
+  // this warp's range of the block's columns, as cells [lo, lo + len)
+  const int first = blockIdx.x * block_cols;
+  const int cols = block_cols < ncol - first ? block_cols : ncol - first;
+  const int share = cols / kWarps, extra = cols % kWarps;
+  const int64_t lo =
+      (int64_t)(first + warp * share + (warp < extra ? warp : extra)) * nlev;
+  const int64_t len = (int64_t)(share + (warp < extra)) * nlev;
   PROBE_START;
 
-  // iteration (col, c): chunk c of column col, top chunk first
-  int col = blockIdx.x * block_cols + warp;
-  int c = nchunks - 1;
+  // the top window: this lane's cell and its level, (lane - 32) mod nlev,
+  // as the run is whole columns; each window down is 32 cells lower, and
+  // its level 32 mod nlev lower, mod nlev (an integer division only where
+  // nlev < 32)
+  int64_t cell = lo + len - 32 + lane;
+  const int k_step = nlev > 32 ? 32 : 32 % nlev;
+  int k = (nlev > 32 ? lane : lane % nlev) - k_step;
+  if (k < 0) k += nlev;
+  int windows = (int)((len + 31) >> 5);
   int slot = 0;
-  if (col < end) fetch_chunk(f, col, 32 * c + lane, nlev, stage[warp][0], lane);
-  // lane 31: lane 0's fluxes of the chunk above; none above the top chunk
+  if (windows > 0) fetch_window(f, cell, lo, stage[warp][0], lane);
+  // lane 31: lane 0's fluxes of the window above
   real carry_q = 0, carry_n = 0;
-  while (col < end) {
+  for (; windows > 0; --windows) {
     PROBE_PASS;
-    const int k = 32 * c + lane;
-    const bool active = k < nlev;
-    const int next_col = c == 0 ? col + kWarps : col;
-    const int next_c = c == 0 ? nchunks - 1 : c - 1;
-    // the next chunk's copies are in flight while this one is stepped
-    if (next_col < end)
-      fetch_chunk(f, next_col, 32 * next_c + lane, nlev, stage[warp][slot ^ 1], lane);
+    const bool active = cell >= lo;
+    // the next window's copies are in flight while this one is stepped
+    if (windows > 1)
+      fetch_window(f, cell - 32, lo, stage[warp][slot ^ 1], lane);
     else
       asm volatile("cp.async.commit_group;\n" ::);
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
@@ -182,44 +199,44 @@ column2m_step_kernel(const __grid_constant__ Fields f, int ncol, int nlev,
 
     const real rho = q[0];
     const real q_tot = has_affine ? q[2] * scale + bias : q[2];
-    CellOut o = {};   // levels above nlev: zero flux
+    CellOut o = {};   // cells past the run's low end: zero flux
     if (active)
       o = cell_step<LIMITED, CHEN>(rho, q[1], q_tot, q[3], q[4], q[5], q[6], dt);
     PROBE_SINK(o.F_q + o.F_n + o.T_new + o.dq_lcl + o.dn_lcl + o.dq_rai + o.dn_rai);
     PROBE_STAGE(S_CELL);
 
-    // inflow from level k + 1: the next lane's fluxes, by a rotation that
-    // hands lane 31 lane 0's, which lane 31 keeps for the chunk below and
-    // takes from the chunk above
+    // inflow from level k + 1, the next cell: the next lane's fluxes, by a
+    // rotation that hands lane 31 lane 0's, which lane 31 keeps for the
+    // window below and takes from the window above; none at a column's top
     const int from = (lane + 1) & 31;
-    const bool bottom = c == 0;   // the next chunk starts a column's top
     real in_q = shfl(o.F_q, from);
     real in_n = shfl(o.F_n, from);
     if (lane == 31) {
       real t;
-      t = in_q, in_q = carry_q, carry_q = bottom ? real(0) : t;
-      t = in_n, in_n = carry_n, carry_n = bottom ? real(0) : t;
+      t = in_q, in_q = carry_q, carry_q = t;
+      t = in_n, in_n = carry_n, carry_n = t;
     }
+    if (k == nlev - 1) in_q = in_n = real(0);
     PROBE_SINK(in_q + in_n + carry_q + carry_n);
     PROBE_STAGE(S_EXCHANGE);
 
     if (active) {
-      const int64_t idx = (int64_t)col * nlev + k;
       const real rho_dz = rho * dz;
       const real sed_q = (in_q - o.F_q) / rho_dz;
       const real sed_n = (in_n - o.F_n) / rho_dz;
-      f.out[0][idx] = rho;
-      f.out[1][idx] = o.T_new;
-      f.out[2][idx] = maxf(q_tot + dt * sed_q, real(0));
-      f.out[3][idx] = maxf(q[3] + dt * o.dq_lcl, real(0));
-      f.out[4][idx] = maxf(q[4] + dt * o.dn_lcl, real(0));
-      f.out[5][idx] = maxf(q[5] + dt * (o.dq_rai + sed_q), real(0));
-      f.out[6][idx] = maxf(q[6] + dt * (o.dn_rai + sed_n), real(0));
+      f.out[0][cell] = rho;
+      f.out[1][cell] = o.T_new;
+      f.out[2][cell] = maxf(q_tot + dt * sed_q, real(0));
+      f.out[3][cell] = maxf(q[3] + dt * o.dq_lcl, real(0));
+      f.out[4][cell] = maxf(q[4] + dt * o.dn_lcl, real(0));
+      f.out[5][cell] = maxf(q[5] + dt * (o.dq_rai + sed_q), real(0));
+      f.out[6][cell] = maxf(q[6] + dt * (o.dn_rai + sed_n), real(0));
     }
     PROBE_STAGE(S_STORE);
 
-    col = next_col;
-    c = next_c;
+    cell -= 32;
+    k -= k_step;
+    if (k < 0) k += nlev;
     slot ^= 1;
   }
   PROBE_END;

@@ -16,7 +16,9 @@ A **counter** (:func:`count`, :func:`add_seconds`, :func:`counter`) is
 always on: a plain add under a lock, for events that happen once or a few
 times a step (kernel launches, library builds and loads), for the work a
 launch plan sets (``k5b.node_evals``, the lane-node evaluations of K5b,
-beside ``k5b.nodes``, the ice nodes it sums) and for set-up seconds
+beside ``k5b.nodes``, the ice nodes it sums; ``k3.lane_slots``, the lane
+slots of K3/K4's 32-cell windows, beside ``k3.cells``, the cells they
+step) and for set-up seconds
 (:func:`timed`). :func:`reset` clears the span totals; counters
 run for the life of the process.
 

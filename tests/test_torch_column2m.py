@@ -15,6 +15,7 @@ chip_smoke.py and tests/test_torch_cuda.py. Tolerances:
 """
 
 import dataclasses
+import math
 import re
 
 import jax.numpy as jnp
@@ -460,3 +461,46 @@ def test_column2m_step_module_float64_block():
     fused = TC.step_column_2m(st, MP_T, TPS_T, DT, DZ, impl="fused")
     for x, y in zip(fused, model(st)):
         assert torch.equal(x, y)
+
+
+# (ncol, nlev, block_cols, warps): the share of busy lanes, cells / lane
+# slots
+LANE_PLANS = {
+    # the 2m_fields cell: 8 columns of 100 levels a warp, 25 full windows
+    "cell": ((1048576, 100, 128, 16), 1.0),
+    # whole columns fill whole windows: a level chunk a column, as before
+    "nlev 32": ((4096, 32, 16, 16), 1.0),
+    "nlev 128": ((819200, 128, 128, 16), 1.0),
+    "nlev 512": ((131072, 512, 16, 16), 1.0),
+    # fewer columns a block than warps: eight warps idle, a column each
+    # for the other eight, two windows of 64 slots for 40 cells
+    "8 columns, 16 warps": ((1000, 40, 8, 16), 40 / 64),
+    # a window spans 32 columns of one level, or four and a half of seven
+    "nlev 1": ((64, 1, 16, 16), 1 / 32),
+    "nlev 1 wide": ((4096, 1, 512, 16), 1.0),
+    "nlev 7": ((96, 7, 32, 16), 14 / 32),
+    # float64's 8 warps: 16 columns a warp in the cell, two in Column2MStep
+    "float64 cell": ((1048576, 100, 128, 8), 1.0),
+    "float64 block 16": ((512, 100, 16, 8), 200 / 224),
+    # uneven ranges: 24 columns over 16 warps, 2 + ... + 2 + 1 + ... + 1
+    "uneven": ((48, 33, 24, 16), 24 * 33 / (8 * 96 + 8 * 64)),
+}
+
+
+@pytest.mark.parametrize("case", list(LANE_PLANS))
+def test_lane_slots_follow_the_window_plan(case):
+    (ncol, nlev, block_cols, warps), busy = LANE_PLANS[case]
+    slots = TK.lane_slots(ncol, nlev, block_cols, warps)
+    assert ncol * nlev / slots == pytest.approx(busy, rel=1e-15)
+    if nlev % 32 == 0:
+        # a level chunk a column: the count of the plan before windows
+        assert slots == ncol * math.ceil(nlev / 32) * 32
+    # no plan steps fewer slots than cells, nor more than a window a warp
+    # beyond them
+    blocks = math.ceil(ncol / block_cols)
+    assert ncol * nlev <= slots < ncol * nlev + 32 * warps * blocks
+
+
+def test_lane_slots_of_a_ragged_last_block():
+    # 40 columns at 16 a block: the last block's 8 columns as 8 warps' one
+    assert TK.lane_slots(40, 100, 16, 16) == 2 * 16 * 128 + 8 * 128

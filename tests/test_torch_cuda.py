@@ -235,10 +235,18 @@ def _state_2m(ncol, nlev, device, dtype=torch.float32, seed=7):
 @pytest.mark.parametrize("ncol,nlev,block_cols", [(512, 128, 64),
                                                   (1000, 40, 8),
                                                   (96, 256, 32),
-                                                  (64, 512, 16)])
+                                                  (64, 512, 16),
+                                                  (256, 100, 128),
+                                                  (96, 7, 32),
+                                                  (64, 1, 16),
+                                                  (48, 33, 24)])
 def test_2m_kernel_matches_plain(device, ncol, nlev, block_cols, is_limited,
                                  rain_velocity):
-    # nlev 40 leaves the top 32-level chunk of a column ragged
+    # a warp steps its columns' cells in 32-cell windows: (1000, 40, 8) a
+    # column a warp and a partial window at its foot; (256, 100, 128) the
+    # 2m_fields cell's 8 columns of 100 levels a warp, windows across
+    # columns; (96, 7, 32) and (64, 1, 16) windows over several columns;
+    # (48, 33, 24) warps of two columns and of one
     mp = microphysics_2m_params(is_limited=is_limited,
                                 rain_velocity=rain_velocity)
     st = _state_2m(ncol, nlev, device)
@@ -258,7 +266,8 @@ def test_2m_kernel_matches_plain(device, ncol, nlev, block_cols, is_limited,
 @pytest.mark.parametrize("rain_velocity", ["sb2006", "chen2022"])
 @pytest.mark.parametrize("ncol,nlev,block_cols", [(512, 64, 64),
                                                   (256, 333, 16),
-                                                  (64, 1024, 16)])
+                                                  (64, 1024, 16),
+                                                  (256, 100, 128)])
 def test_2m_float64_kernel_matches_plain(device, ncol, nlev, block_cols,
                                          is_limited, rain_velocity):
     mp = microphysics_2m_params(is_limited=is_limited,
@@ -273,6 +282,48 @@ def test_2m_float64_kernel_matches_plain(device, ncol, nlev, block_cols,
     assert torch.equal(packed, K2.pack_state_2m(ref))
     model = Column2MStep(mp, TPS, DT, DZ)
     assert torch.equal(model(K2.pack_state_2m(st)), packed)
+
+
+@pytest.mark.parametrize("dtype,warps", [(torch.float32, 16),
+                                         (torch.float64, 8)])
+@pytest.mark.parametrize("ncol,nlev,block_cols", [(256, 100, 128),
+                                                  (48, 33, 24),
+                                                  (96, 7, 32),
+                                                  (64, 1, 16)])
+def test_k3_lane_counters_follow_the_launch_plan(device, dtype, warps, ncol,
+                                                 nlev, block_cols):
+    """One K4 launch and one K3 launch each add to ``k3.lane_slots`` the
+    lane slots of their window plan (:func:`K2.lane_slots` at the build's
+    warps) and to ``k3.cells`` their cells, and at float32 the windows the
+    device steps, counted by the probe build (float32 only, as its stage
+    sinks), are those slots over 32: at the cell's 100 levels and 128
+    columns a block every lane is busy."""
+    mp = microphysics_2m_params()
+    st = _state_2m(ncol, nlev, device, dtype)
+    lib = K2._prepare(mp, TPS, nlev, dtype, None)
+    assert lib.column2m_threads_per_block() == 32 * warps
+    slots = K2.lane_slots(ncol, nlev, block_cols, warps)
+    names = ("k3.lane_slots", "k3.cells")
+    for step in (lambda: K2.step_column_2m_fused(st, mp, TPS, DT, DZ,
+                                                 block_cols=block_cols),
+                 lambda: K2.step_column_2m_fused_packed(
+                     K2.pack_state_2m(st), mp, TPS, DT, DZ,
+                     block_cols=block_cols)):
+        before = [trace.counter(n) for n in names]
+        step()
+        assert [trace.counter(n) - b for n, b in zip(names, before)] == [
+            slots, ncol * nlev]
+    if dtype == torch.float32:
+        probe = K2._library(K2.host_params(None, mp, TPS, dtype),
+                            K2.warm_variant(mp), "probe")
+        sums = torch.zeros(len(K2.PROBE_STAGES) + 1, dtype=torch.int64,
+                           device=device)
+        assert probe.column2m_probe_set(sums.data_ptr(), device.index) == 0
+        K2.launch_packed(probe, K2.pack_state_2m(st), DT, DZ, block_cols)
+        torch.cuda.synchronize()
+        assert 32 * sums[-1].item() == slots
+    if nlev == 100:
+        assert slots == ncol * nlev
 
 
 def test_column2m_step_module(device):

@@ -279,29 +279,39 @@ def test_parcel_step_looped_is_run_parcel_bit_for_bit(dtype):
 
 
 class _FakeK3Library:
-    """A stand-in for a loaded ``column2m.cu`` build: its entry points
-    return success and compute nothing."""
+    """A stand-in for a loaded float32 ``column2m.cu`` build: its entry
+    points return success, compute nothing and record each launch's
+    ``(ncol, nlev, block_cols)`` in :attr:`plans`."""
+
+    def __init__(self):
+        self.plans = []
 
     def column2m_step_packed(self, *args):
+        self.plans.append(args[3:6])
         return 0
 
     def column2m_step_unpacked(self, *args):
+        self.plans.append(args[14:17])
         return 0
+
+    def column2m_threads_per_block(self):
+        return 512
 
 
 @pytest.fixture
 def fake_k3(monkeypatch):
     """The 2M wrappers' launch path on CPU tensors: the fields report a
     CUDA device, the library is :class:`_FakeK3Library`, and the stream is
-    a null one."""
+    a null one; returns the library."""
     import types
 
+    lib = _FakeK3Library()
     monkeypatch.setattr(_build, "check_cuda",
                         lambda *a: torch.device("cuda", 0))
-    monkeypatch.setattr(K2, "_library",
-                        lambda *a, **k: _FakeK3Library())
+    monkeypatch.setattr(K2, "_library", lambda *a, **k: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda *a: types.SimpleNamespace(cuda_stream=0))
+    return lib
 
 
 def _spans_2m(prof):
@@ -357,8 +367,9 @@ def test_2m_launch_spans_nest_in_the_step_span(fake_k3):
     ``Column2MStep`` on the fields are ``step.column2m`` ⊃
     ``column.prepare``, ``launch.k4``, and ``Column2MStep`` on the packed
     state ``step.column2m`` ⊃ ``column.prepare``, ``launch.k3``; each
-    launch counted under its wrapper; without the profiler no span is
-    recorded."""
+    launch counted under its wrapper, and its launch plan (K4's on the
+    fields and K3's on the packed state alike) added to ``k3.lane_slots``
+    and ``k3.cells``; without the profiler no span is recorded."""
     n, k = 16, 5
     st = C.ColumnState2M(**_column_state(C.ColumnState2M._fields, n, k))
     mp = microphysics_2m_params()
@@ -376,6 +387,8 @@ def test_2m_launch_spans_nest_in_the_step_span(fake_k3):
         launches = {w: trace.counter(f"launches.{w}")
                     for w in ("step_column_2m_fused",
                               "step_column_2m_fused_packed")}
+        plan = [trace.counter(c) for c in ("k3.lane_slots", "k3.cells")]
+        fake_k3.plans.clear()
         trace.reset()
         fn()
         assert trace.totals() == {}
@@ -397,5 +410,12 @@ def test_2m_launch_spans_nest_in_the_step_span(fake_k3):
         for w, before in launches.items():
             assert (trace.counter(f"launches.{w}")
                     == before + 3 * (w == wrapper)), w
+        # 16 columns of 5 levels at 16 a block: a column a warp, each in
+        # one window of 32 slots
+        assert fake_k3.plans == 3 * [(n, k, 16)]
+        assert K2.lane_slots(n, k, 16, 16) == n * 32
+        assert [trace.counter(c) - b for c, b in
+                zip(("k3.lane_slots", "k3.cells"), plan)] == [
+            3 * K2.lane_slots(n, k, 16, 16), 3 * n * k]
     assert trace.counter("column2m.packed_bytes") == 0
     trace.reset()
