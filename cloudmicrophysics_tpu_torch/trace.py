@@ -3,7 +3,8 @@
 A **span** (:func:`span`) marks a layer boundary of the step path or of
 set-up: a step module's call (``step.*``), a kernel wrapper's preparation
 (``column.prepare``), a launch (``launch.*``), a library's build or load
-(``kernels.*``), a part of the parcel step (``parcel.*``). It records
+(``kernels.*``), a part of the parcel step (``parcel.*``), an entry of
+ARG2000's activation (``activation.*``). It records
 only while a ``torch.profiler`` is recording. Then it is a record function of
 the profiler (:data:`RECORD`), so that it lies in the profiler's trace, on
 the profiler's clock, beside the device's kernels and the CUDA runtime's
@@ -18,7 +19,9 @@ times a step (kernel launches, library builds and loads), for the work a
 launch plan sets (``k5b.node_evals``, the lane-node evaluations of K5b,
 beside ``k5b.nodes``, the ice nodes it sums; ``k3.lane_slots``, the lane
 slots of K3/K4's 32-cell windows, beside ``k3.cells``, the cells they
-step) and for set-up seconds
+step; ``activation.smax_points`` beside ``activation.points``, the
+points whose maximum supersaturation was computed and those activated)
+and for set-up seconds
 (:func:`timed`). :func:`reset` clears the span totals; counters
 run for the life of the process.
 

@@ -189,6 +189,51 @@ def test_activation_takes_per_member_mode_parameters():
                                    rtol=1e-12)
 
 
+def _per_point_modes(pa, sp, wrap, shape=(8, 8), seed=31):
+    """Two kappa modes whose N, r_dry and species fractions are fields of
+    the state's ``(ncol, nlev)`` shape (a host model's grid), stdev and the
+    species' constants scalars."""
+    rng = np.random.default_rng(seed)
+    ss, su = sp.Seasalt(), sp.Sulfate()
+    modes = []
+    for r_lo, r_hi, n_lo, n_hi, stdev in ((2e-8, 2e-7, 1e7, 1e9, 1.8),
+                                          (5e-7, 2e-6, 1e5, 1e7, 1.8)):
+        vol = rng.uniform(0.05, 1.0, shape)
+        mass = rng.uniform(0.05, 1.0, shape)
+        modes.append(pa.ModeKappa(
+            r_dry=wrap(np.exp(rng.uniform(np.log(r_lo), np.log(r_hi),
+                                          shape))),
+            stdev=stdev,
+            N=wrap(np.exp(rng.uniform(np.log(n_lo), np.log(n_hi), shape))),
+            vol_mix_ratio=(wrap(vol / (vol + 1)), wrap(1 / (vol + 1))),
+            mass_mix_ratio=(wrap(mass / (mass + 1)), wrap(1 / (mass + 1))),
+            molar_mass=(ss.M, su.M), kappa=(ss.kappa, su.kappa)))
+    return pa.AerosolDistribution(modes=tuple(modes))
+
+
+@pytest.mark.parametrize("name", ACTIVATION)
+def test_activation_takes_per_point_mode_fields(name):
+    """A mode's fields as tensors of the state's ``(ncol, nlev)`` shape, as
+    a host model's grid holds them, agree with the JAX package at float64,
+    and the port's answers keep the state's shape."""
+
+    def run(AA, pa, sp, ap, aip, tps, wrap):
+        x = {k: wrap(v.reshape(8, 8)) for k, v in AIR.items()}
+        args = [x[k] for k in ("T", "p", "w", "q_tot", "q_liq", "q_ice",
+                               "N_liq", "N_ice")]
+        return getattr(AA, name)(ap, _per_point_modes(pa, sp, wrap), aip,
+                                 tps, *args)
+
+    got = run(TAA, TPA, TSP, AP_T, AIP_T, TPS_T, torch.tensor)
+    want = run(JAA, JPA, JSP, AP_J, AIP_J, TPS_J, jnp.asarray)
+    if not isinstance(want, tuple):
+        got, want = (got,), (want,)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == (8, 8)
+        _close(g, w, f"{name}[{i}]")
+
+
 # ---------------------------------------------------------------------------
 # new-particle formation
 # ---------------------------------------------------------------------------
