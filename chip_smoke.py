@@ -239,12 +239,25 @@ then, failing at the first phase that does not hold:
     steps (ms/step, finite, every column bit-equal to column 0), the
     counters read just after; K5's launches in the kernels line are these.
 
+21. holds the ARG2000 kernels (``csrc/activation.cu``, replacing no TPU
+    kernel) bit for bit against their plain version (the eager code of
+    ``ops/aerosol_activation.py``) on the cell ``arg_mam4``'s seeded state
+    at float32 and float64 (4096 and a ragged 37 columns of 72 levels) and
+    at its full 777,602 x 72 at float32, with each build's registers, local
+    memory and resident blocks per SM; then times each kernel alone, each
+    entry point with its host side and the plain version at that size by
+    CUDA events beside each kernel's bytes bound. Each launch counter must
+    rise by exactly the entry-point calls made at full size; K7's launches
+    in the kernels line are that rise, its error the largest difference
+    the parity checks computed.
+
 Then it prints the ``expf`` probe's JSON object on a line of its own,
 phase 15's JSON object (``{"zero_d": ...}``, with the card's name and
 power limit) on another, phase 16's (``{"calibration": ...}``, likewise)
 on another, phase 17's (``{"sharded": ...}``, likewise) on another,
 phase 20's (``{"examples": ...}``, each example's steps, seconds, steps/s,
-largest relative error and verdict) on another, the
+largest relative error and verdict) on another, phase 21's
+(``{"activation": ...}``) on another, the
 card's name and power limit as
 ``nvidia-smi`` gives them, and, on the line before the last, a JSON object
 with one entry per kernel (K5's with its three kernels under
@@ -965,6 +978,7 @@ def main():
     variants["K5"] = _run_k5_scope(device, K5, ColumnP3Step,
                                    microphysics_2m_params, tps, timing)
     examples, ex_launches = _run_examples(device, K5, gpu_line)
+    activation = _run_activation(device, gpu_line)
     print(f"  K5's launches: {launches['K5']} on phase 11's path, "
           f"{ex_launches['K5']} on the examples' (the kernels line's)")
     launches["K5"] = ex_launches["K5"]
@@ -999,12 +1013,24 @@ def main():
         "ms": k6["ms"], "plain_ms": k6["plain_ms"],
         "bound_ms": k6["bound_ms"], "bound_by": "bytes",
         "library_ms": k6["library_ms"]})
+    rows = activation["rows"]
+    kernels.append({
+        "name": "arg2000_number_elementwise_kernel, "
+                "arg2000_mass_elementwise_kernel (K7)", "route": "cuda",
+        "source": f"{csrc}activation.cu", "replaces": None,
+        "launches": sum(activation["launches"].values()),
+        "max_abs_err": activation["max_abs_err"],
+        "ms": rows["number"]["ms"] + rows["mass"]["ms"],
+        "plain_ms": rows["number"]["plain_ms"] + rows["mass"]["plain_ms"],
+        "bound_ms": rows["number"]["bound_ms"] + rows["mass"]["bound_ms"],
+        "bound_by": "bytes", "library_ms": None})
     probe["launches"] = launches["probe"]
     print(json.dumps({"probes": [probe]}))
     print(json.dumps({"zero_d": zero_d}))
     print(json.dumps({"calibration": calibration}))
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"examples": examples}))
+    print(json.dumps({"activation": activation}))
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3888,6 +3914,178 @@ def _run_k5_scope(device, K, ColumnP3Step, microphysics_2m_params, tps,
     print(f"== phase 19: {time.perf_counter() - t0:.1f} s (by path: "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
     return variants
+
+
+# ---------------------------------------------------------------------------
+# ARG2000 activation (phase 21)
+# ---------------------------------------------------------------------------
+
+ARG_SEED = 2**33 + 21           # the seed of phase 21's states
+
+
+def _arg_state(cfg, ncol, device, dtype):
+    """The cell ``arg_mam4``'s seeded state at ``ncol`` columns: its
+    distribution and air (``bench_h100/drivers/activation.py``)."""
+    from bench_h100.drivers import activation as D
+    from bench_h100.reference import activation as R
+    from cloudmicrophysics_tpu_torch.parameters.aerosol import (
+        AerosolDistribution,
+        ModeKappa,
+    )
+
+    layout = R.Layout(cfg)
+    state = D.make_state(cfg, ncol, ARG_SEED, device, dtype)
+    return (layout.distribution(state, ModeKappa, AerosolDistribution),
+            layout.air(state))
+
+
+def _arg_same(label, entry, ad, air, params, bits):
+    """Hold both kernels' answers on ``(ad, air)`` to the plain version's
+    bit for bit, counting the comparisons in ``bits`` and keeping the
+    largest absolute difference in ``entry["max_abs_err"]``; raise on a
+    miss."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch.ops import aerosol_activation as AA
+
+    for name in ("N", "M"):
+        fn = getattr(AA, f"{name}_activated_per_mode")
+        plain = getattr(AA, f"{name}_activated_per_mode_plain")
+        got = fn(*params[:1], ad, *params[1:], *air)
+        want = plain(*params[:1], ad, *params[1:], *air)
+        for i, (a, b) in enumerate(zip(got, want)):
+            bits[1] += 1
+            entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0),
+                                       float((a - b).abs().max()))
+            if torch.equal(a, b):
+                bits[0] += 1
+                continue
+            off = int((a != b).sum())
+            rel = float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+            raise AssertionError(f"{label}: {name} mode {i} differs from "
+                                 f"the plain version at {off} points "
+                                 f"(largest {rel:.3e} of the mode's scale)")
+        del got, want
+    entry.setdefault("parity", []).append(label)
+
+
+def _run_activation(device, gpu_line):
+    """Phase 21: the ARG2000 kernels (csrc/activation.cu). Builds both
+    dtypes and prints each kernel's registers, local memory and resident
+    blocks per SM; holds both kernels bit for bit against the plain version
+    (the eager code of ops/aerosol_activation.py) on the cell ``arg_mam4``'s
+    seeded state at float32 and float64 (4096 and a ragged 37 columns) and
+    at the cell's full 777,602 x 72 at float32; then times, at that size by
+    CUDA events, each kernel alone (one launch of a built parameter block,
+    the best of 10), each entry point with its host side, and the plain
+    version, beside each kernel's bytes bound: each field it reads and each
+    answer it writes once, at the card's HBM rate. Each launch counter
+    must rise by exactly the entry-point calls made at full size. Returns
+    the phase's JSON object."""
+    import ctypes
+
+    import torch
+
+    from cloudmicrophysics_tpu_torch import trace
+    from cloudmicrophysics_tpu_torch.kernels import _build
+    from cloudmicrophysics_tpu_torch.kernels import activation as KA
+    from cloudmicrophysics_tpu_torch.ops import aerosol_activation as AA
+    from cloudmicrophysics_tpu_torch.parameters import (
+        AirProperties,
+        ThermodynamicsParameters,
+    )
+    from cloudmicrophysics_tpu_torch.parameters.aerosol import (
+        AerosolActivationParameters,
+    )
+
+    t_phase = time.perf_counter()
+    print("== phase 21: ARG2000 activation kernels")
+    params = (AerosolActivationParameters(), AirProperties(),
+              ThermodynamicsParameters())
+    cfg = json.loads((Path(__file__).resolve().parent / "bench_h100"
+                      / "configs" / "atmos_mam4.json").read_text())
+    result = {"gpu": gpu_line, "builds": {}}
+    for dtype in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        ad, air = _arg_state(cfg, 1, device, dtype)
+        layout = KA.launch_params(params[0], ad, params[1], params[2], air,
+                                  True).layout
+        attrs = {k: KA.kernel_attrs(dtype, layout, k == "mass")
+                 for k in ("number", "mass")}
+        result["builds"][str(dtype)] = {"s": time.perf_counter() - t0,
+                                        **attrs}
+        print(f"  the cell's layout at {str(dtype)[6:]}: built and loaded in "
+              f"{time.perf_counter() - t0:.1f} s; {attrs}")
+
+    bits = [0, 0]
+    for dtype in (torch.float32, torch.float64):
+        for ncol in (4096, 37):
+            ad, air = _arg_state(cfg, ncol, device, dtype)
+            _arg_same(f"arg_mam4 ({ncol}, {cfg['nlev']}) {str(dtype)[6:]}",
+                      result, ad, air, params, bits)
+            del ad, air
+    ad, air = _arg_state(cfg, cfg["ncol"], device, torch.float32)
+    n = cfg["ncol"] * cfg["nlev"]
+    counters = ("launches.arg_number", "launches.arg_mass")
+    before = [trace.counter(c) for c in counters]
+    calls = {"number": 1, "mass": 1}    # the full-size parity's calls
+    _arg_same(f"arg_mam4 ({cfg['ncol']}, {cfg['nlev']}) float32", result, ad,
+              air, params, bits)
+    print(f"  parity: {bits[0]} of {bits[1]} answers bit-identical to the "
+          f"plain version ({', '.join(result['parity'])})")
+
+    hbm = _rates().hbm
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rows = {}
+    for kind, mass in (("number", False), ("mass", True)):
+        block, layout, shape, keep = KA.launch_params(
+            params[0], ad, params[1], params[2], air, mass)
+        lib = KA._library(torch.float32, layout)
+        out = torch.empty((len(ad.modes),) + shape, device=device)
+        block.out = out.data_ptr()
+        reads = sum(1 for f, k in zip(block.f, layout[0])
+                    if f.ptr is not None and k == KA.KINDS["full"])
+        nbytes = 4 * n * (reads + len(ad.modes))
+
+        def kernel():
+            _build.launch(lib.arg2000_launch, int(mass), ctypes.byref(block),
+                          device.index, stream)
+
+        entry = getattr(AA, ("M" if mass else "N") + "_activated_per_mode")
+        plain = getattr(AA, ("M" if mass else "N")
+                        + "_activated_per_mode_plain")
+
+        def call():
+            calls[kind] += 1
+            entry(params[0], ad, params[1], params[2], *air)
+
+        ms = min(_time_ms(kernel, 10))
+        call_ms = min(_time_ms(call, 5))
+        plain_ms = min(_time_ms(lambda: plain(params[0], ad, params[1],
+                                              params[2], *air), 2))
+        bound_ms = nbytes / hbm * 1e3
+        rows[kind] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bytes_per_point": nbytes / n,
+                      "of_bound": bound_ms / ms}
+        print(f"  {kind} kernel at ({cfg['ncol']}, {cfg['nlev']}) float32: "
+              f"{ms:.4f} ms alone, {call_ms:.4f} ms through "
+              f"{entry.__name__}; bound {bound_ms:.4f} ms ({nbytes / n:g} B "
+              f"a point at {hbm:.4g} B/s), {bound_ms / ms:.3f} of it; plain "
+              f"version {plain_ms:.2f} ms")
+        del out, keep, block
+    launches = {kind: trace.counter(c) - b
+                for kind, c, b in zip(("number", "mass"), counters, before)}
+    if launches != calls:
+        raise AssertionError(f"launch counters rose by {launches}, the "
+                             f"entry points were called {calls} times")
+    print(f"  launches at full size: {launches} (one a call of an entry point)")
+    result["rows"] = rows
+    result["bits"] = bits
+    result["launches"] = launches
+    del ad, air
+    torch.cuda.empty_cache()
+    print(f"== phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return result
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The fused 1M, 2M and 2M + P3 column kernels on an NVIDIA GPU, against
-their plain versions.
+"""The fused 1M, 2M and 2M + P3 column kernels and the ARG2000 activation
+kernels on an NVIDIA GPU, against their plain versions.
 
 Needs a CUDA device (marker ``cuda``); without one every test skips. This
 file imports neither JAX nor the JAX package, so it also runs where JAX
@@ -21,7 +21,10 @@ column-sharded on a one-rank NCCL group are bit-identical to the
 unsharded steps. The examples run on the card by default: the liquid-only
 parcel within rtol 1e-6 of the JAX record
 (``cloudmicrophysics_tpu_torch/data/examples_f64.json``), and the squall
-through K5, bit for bit with the plain step.
+through K5, bit for bit with the plain step. The ARG2000 number and mass
+kernels are bit for bit the eager activation at float32 and float64 on
+the cell ``arg_mam4``'s state, the emulator's draw, ``chip_smoke.py``'s
+two-mode states, a ``ModeB`` mode and broadcast fields.
 """
 
 import json
@@ -1106,3 +1109,217 @@ def test_2m_fields_path_takes_what_the_stack_took(device, case):
     assert _launches(K2.step_column_2m_fused)[0] == before + 1
     for name, a, b in zip(ColumnState2M._fields, out, ref):
         assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+# ---------------------------------------------------------------------------
+# ARG2000 activation (csrc/activation.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+def _arg_params():
+    from cloudmicrophysics_tpu_torch.parameters import AirProperties
+    from cloudmicrophysics_tpu_torch.parameters.aerosol import (
+        AerosolActivationParameters,
+    )
+
+    return AerosolActivationParameters(), AirProperties(), TPS
+
+
+def _arg_cell(device, dtype, ncol):
+    """The cell ``arg_mam4``'s seeded state at ``ncol`` columns."""
+    import sys
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from bench_h100.drivers import activation as D
+    from bench_h100.reference import activation as R
+    from cloudmicrophysics_tpu_torch.parameters.aerosol import (
+        AerosolDistribution,
+        ModeKappa,
+    )
+
+    cfg = json.loads((Path(root) / "bench_h100" / "configs"
+                      / "atmos_mam4.json").read_text())
+    layout = R.Layout(cfg)
+    state = D.make_state(cfg, ncol, 2**35 + 89, device, dtype)
+    return (layout.distribution(state, ModeKappa, AerosolDistribution),
+            layout.air(state))
+
+
+def _arg_emulator(device, dtype, n=4096):
+    """The emulator's dataset draw (models/emulator.py
+    ``generate_training_data``): per-sample tensors, no condensate."""
+    from cloudmicrophysics_tpu_torch.models import emulator as EM
+    from cloudmicrophysics_tpu_torch.parameters.aerosol import (
+        AerosolDistribution,
+    )
+
+    rng = np.random.default_rng(5)
+
+    def A(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    r_dry = A(10 ** rng.uniform(-8.2, -6.5, (2, n)))
+    stdev = A(rng.uniform(1.4, 2.4, (2, n)))
+    N_m = A(10 ** rng.uniform(6.5, 9.5, (2, n)))
+    kappa = A(rng.uniform(0.1, 1.2, (2, n)))
+    w = A(10 ** rng.uniform(-1.5, 0.7, n))
+    T = A(rng.uniform(270.0, 300.0, n))
+    p = A(rng.uniform(7e4, 1.02e5, n))
+    ad = AerosolDistribution(modes=EM._kappa_modes(r_dry, stdev, N_m, kappa))
+    return ad, (T, p, w, EM._saturated_q_tot(TPS, T, p), 0.0, 0.0, 0.0, 0.0)
+
+
+def _arg_two_modes(device, dtype, zero_d=False, b_tensors=False):
+    """chip_smoke.py phase 15's two modes (kappa sulfate, B sea salt, Python
+    numbers) on a saturated (64, 40) state with no condensate; ``zero_d``:
+    phase 16's 0-d air; ``b_tensors``: the sea salt's fraction a tensor a
+    point."""
+    from cloudmicrophysics_tpu_torch.ops import thermo as TDI
+    from cloudmicrophysics_tpu_torch.parameters import aerosol_species as SP
+    from cloudmicrophysics_tpu_torch.parameters.aerosol import (
+        AerosolDistribution,
+        ModeB,
+        ModeKappa,
+    )
+
+    g = torch.Generator(device=device).manual_seed(1)
+    shape = () if zero_d else (64, 40)
+    T = 250.0 + 45.0 * torch.rand(shape, generator=g, device=device,
+                                  dtype=dtype)
+    p = 6e4 + 4e4 * torch.rand(shape, generator=g, device=device,
+                               dtype=dtype)
+    w = 10 ** (2 * torch.rand(shape, generator=g, device=device,
+                              dtype=dtype) - 1)
+    p_vs = TDI.saturation_vapor_pressure_over_liquid(TPS, T)
+    q_tot = 1 / (1 - TPS.Rv_over_Rd * (p_vs - p) / p_vs)
+    frac = (0.5 + 0.5 * torch.rand(shape, generator=g, device=device,
+                                   dtype=dtype)) if b_tensors else 1.0
+    su, ss = SP.Sulfate(), SP.Seasalt()
+    ad = AerosolDistribution(modes=(
+        ModeKappa(r_dry=0.05e-6, stdev=2.0, N=100e6, vol_mix_ratio=(1.0,),
+                  mass_mix_ratio=(1.0,), molar_mass=(su.M,),
+                  kappa=(su.kappa,)),
+        ModeB(r_dry=1.5e-6, stdev=2.1, N=1e6, mass_mix_ratio=(frac,),
+              soluble_mass_frac=(ss.epsilon,), osmotic_coeff=(ss.phi,),
+              molar_mass=(ss.M,), dissoc=(ss.nu,),
+              aerosol_density=(ss.rho,))))
+    z = 0.0 if zero_d else torch.zeros_like(T)
+    return ad, (T, p, w, q_tot, z, z, 0.0, 0.0)
+
+
+def _arg_broadcast(device, dtype):
+    """Fields of other shapes than the state's (64, 40): the air's T, p
+    and q_tot a column, w a level, a mode's N a level and its r_dry a
+    column, a kappa a 0-d tensor and a volume fraction transposed, each
+    expanded and made contiguous by the wrapper."""
+    from cloudmicrophysics_tpu_torch.parameters.aerosol import (
+        AerosolDistribution,
+        ModeKappa,
+    )
+
+    g = torch.Generator(device=device).manual_seed(2)
+
+    def u(lo, hi, shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=device,
+                                           dtype=dtype)
+
+    T, p = u(260.0, 295.0, (64, 1)), u(7e4, 1e5, (64, 1))
+    vol = u(0.2, 0.8, (40, 64)).t()
+    ad = AerosolDistribution(modes=(
+        ModeKappa(r_dry=u(3e-8, 1e-7, (64, 1)), stdev=1.8,
+                  N=u(1e8, 1e9, (40,)), vol_mix_ratio=(vol, 1 - vol),
+                  mass_mix_ratio=(vol, 1 - vol), molar_mass=(0.115, 0.25),
+                  kappa=(torch.tensor(0.507, device=device, dtype=dtype),
+                         0.14)),))
+    return ad, (T, p, u(0.2, 2.0, (40,)), u(5e-3, 1.2e-2, (64, 1)),
+                u(0.0, 1e-3, (64, 40)), 0.0, u(0.0, 1e8, (64, 40)), 0.0)
+
+
+ARG_CASES = {
+    "arg_mam4 (64, 72)": lambda d, t: _arg_cell(d, t, 64),
+    "arg_mam4 ragged (37, 72)": lambda d, t: _arg_cell(d, t, 37),
+    "emulator draw": _arg_emulator,
+    "phase 15 two modes": _arg_two_modes,
+    "ModeB fraction a point": lambda d, t: _arg_two_modes(d, t,
+                                                          b_tensors=True),
+    "phase 16 0-d air": lambda d, t: _arg_two_modes(d, t, zero_d=True),
+    "broadcast fields": _arg_broadcast,
+}
+
+
+def _bits_off(got, want):
+    """Entries of ``got`` not bit-equal to ``want``, and the largest
+    difference over ``want``'s largest magnitude."""
+    diff = got != want
+    scale = float(want.abs().max()) or 1.0
+    return int(diff.sum()), float((got - want).abs().max()) / scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(ARG_CASES))
+def test_arg2000_kernels_are_the_plain_version_bit_for_bit(device, case,
+                                                          dtype):
+    """N_activated_per_mode and M_activated_per_mode on the card: one launch
+    each, bit for bit the eager plain version, with the counters of a
+    kernel call."""
+    from cloudmicrophysics_tpu_torch.ops import aerosol_activation as AA
+
+    ap, aip, tps = _arg_params()
+    ad, air = ARG_CASES[case](device, dtype)
+    names = ("launches.arg_number", "launches.arg_mass",
+             "activation.kernel_points", "activation.points",
+             "activation.smax_points")
+    before = {n: trace.counter(n) for n in names}
+    n_act = AA.N_activated_per_mode(ap, ad, aip, tps, *air)
+    m_act = AA.M_activated_per_mode(ap, ad, aip, tps, *air)
+    points = n_act[0].numel()
+    assert {n: trace.counter(n) - before[n] for n in names} == {
+        "launches.arg_number": 1, "launches.arg_mass": 1,
+        "activation.kernel_points": points, "activation.points": points,
+        "activation.smax_points": 2 * points}
+    want = (AA.N_activated_per_mode_plain(ap, ad, aip, tps, *air)
+            + AA.M_activated_per_mode_plain(ap, ad, aip, tps, *air))
+    for i, (got, ref) in enumerate(zip(n_act + m_act, want)):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert torch.equal(got, ref), (i, _bits_off(got, ref))
+
+
+def test_arg2000_cuda_rejections(device):
+    from cloudmicrophysics_tpu_torch.ops import aerosol_activation as AA
+
+    ap, aip, tps = _arg_params()
+    ad, air = _arg_two_modes(device, torch.float32)
+    half = tuple(x.half() if isinstance(x, torch.Tensor) else x for x in air)
+    with pytest.raises(NotImplementedError, match="float32 and float64"):
+        AA.N_activated_per_mode(ap, ad, aip, tps, *half)
+    cpu_w = list(air)
+    cpu_w[2] = air[2].cpu()
+    with pytest.raises(ValueError, match="tensors on cuda"):
+        AA.M_activated_per_mode(ap, ad, aip, tps, *cpu_w)
+    # the path follows every field, not T alone: a 0-d CPU T (which eager
+    # code would mix with CUDA tensors), a Python-number T, or a CPU state
+    # with a mode field on the card all take the kernel's path and raise
+    zero_d_T = list(air)
+    zero_d_T[0] = torch.tensor(280.0, dtype=torch.float32)
+    for fn in (AA.N_activated_per_mode, AA.M_activated_per_mode):
+        with pytest.raises(ValueError, match="tensors on cuda"):
+            fn(ap, ad, aip, tps, *zero_d_T)
+        with pytest.raises(NotImplementedError, match="T as a tensor"):
+            fn(ap, ad, aip, tps, 280.0, *air[1:])
+    ad_b, air_b = _arg_two_modes(device, torch.float32, b_tensors=True)
+    cpu_air = tuple(x.cpu() if isinstance(x, torch.Tensor) else x
+                    for x in air_b)
+    with pytest.raises(ValueError, match="tensors on cuda"):
+        AA.N_activated_per_mode(ap, ad_b, aip, tps, *cpu_air)
+    # a field that requires a gradient: the kernel tracks none, so it
+    # raises while autograd records and launches under no_grad
+    grad_w = list(air)
+    grad_w[2] = air[2].clone().requires_grad_()
+    for fn in (AA.N_activated_per_mode, AA.M_activated_per_mode):
+        with pytest.raises(NotImplementedError, match="no gradient"):
+            fn(ap, ad, aip, tps, *grad_w)
+        with torch.no_grad():
+            got = fn(ap, ad, aip, tps, *grad_w)
+        want = fn(ap, ad, aip, tps, *air)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
