@@ -251,13 +251,27 @@ then, failing at the first phase that does not hold:
     in the kernels line are that rise, its error the largest difference
     the parity checks computed.
 
+22. holds the point-wise fused P3 tendencies (``bulk_microphysics_tendencies``
+    on CUDA fields: ``csrc/column_p3.cu`` built with ``-DK5_TEND``,
+    replacing no TPU kernel) bit for bit against the eager path on the
+    cell ``p3_tend_gl40``'s seeded state at float32 and float64 (4096 and a
+    ragged 37 columns of 63 levels) and, the route run on its full 86,400 x
+    63 at float32, on every eighth column of it; prints each kernel's
+    registers, local memory and shared memory; times the call, each of its
+    three kernels alone, the host's shape solve (K5a) and the plain version
+    (on the compared columns) by CUDA events. Read before the kernels are
+    timed alone, each launch counter must have risen by exactly the entry
+    point's calls at full size (a parity call, a warm-up, five timed), and
+    ``tendencies.points`` and ``tendencies.kernel_points`` by their points.
+
 Then it prints the ``expf`` probe's JSON object on a line of its own,
 phase 15's JSON object (``{"zero_d": ...}``, with the card's name and
 power limit) on another, phase 16's (``{"calibration": ...}``, likewise)
 on another, phase 17's (``{"sharded": ...}``, likewise) on another,
 phase 20's (``{"examples": ...}``, each example's steps, seconds, steps/s,
 largest relative error and verdict) on another, phase 21's
-(``{"activation": ...}``) on another, the
+(``{"activation": ...}``) on another, phase 22's (``{"tendencies": ...}``)
+on another, the
 card's name and power limit as
 ``nvidia-smi`` gives them, and, on the line before the last, a JSON object
 with one entry per kernel (K5's with its three kernels under
@@ -979,6 +993,7 @@ def main():
                                    microphysics_2m_params, tps, timing)
     examples, ex_launches = _run_examples(device, K5, gpu_line)
     activation = _run_activation(device, gpu_line)
+    tendencies = _run_tendencies(device, gpu_line)
     print(f"  K5's launches: {launches['K5']} on phase 11's path, "
           f"{ex_launches['K5']} on the examples' (the kernels line's)")
     launches["K5"] = ex_launches["K5"]
@@ -1024,6 +1039,15 @@ def main():
         "plain_ms": rows["number"]["plain_ms"] + rows["mass"]["plain_ms"],
         "bound_ms": rows["number"]["bound_ms"] + rows["mass"]["bound_ms"],
         "bound_by": "bytes", "library_ms": None})
+    kernels.append({
+        "name": "column_p3_bounds_kernel, column_p3_nodes_kernel, "
+                "column_p3_tend_rates_kernel (K8)", "route": "cuda",
+        "source": f"{csrc}column_p3.cu (-DK5_TEND)", "replaces": None,
+        "launches": sum(tendencies["launches"].values()),
+        "max_abs_err": tendencies["max_abs_err"],
+        "ms": tendencies["ms"], "plain_ms": tendencies["plain_ms"],
+        "bound_ms": None, "bound_by": None, "library_ms": None,
+        "subkernels": tendencies["subkernels"]})
     probe["launches"] = launches["probe"]
     print(json.dumps({"probes": [probe]}))
     print(json.dumps({"zero_d": zero_d}))
@@ -1031,6 +1055,7 @@ def main():
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"examples": examples}))
     print(json.dumps({"activation": activation}))
+    print(json.dumps({"tendencies": tendencies}))
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4085,6 +4110,157 @@ def _run_activation(device, gpu_line):
     del ad, air
     torch.cuda.empty_cache()
     print(f"== phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# The point-wise fused P3 tendencies (phase 22)
+# ---------------------------------------------------------------------------
+
+TEND_SEED = 2**33 + 22          # the seed of phase 22's states
+
+
+def _tend_state(device, dtype, ncol):
+    """The cell ``p3_tend_gl40``'s seeded host state at ``ncol`` columns
+    (``bench_h100/drivers/p3_tendencies.py``)."""
+    from bench_h100.drivers import p3_tendencies as D
+
+    cfg = json.loads((Path(__file__).resolve().parent / "bench_h100"
+                      / "configs" / "climaatmos_2mp3.json").read_text())
+    return D.make_state(cfg, ncol, TEND_SEED, device, dtype)
+
+
+def _run_tendencies(device, gpu_line):
+    """Phase 22: the point-wise fused P3 tendencies at the cell
+    ``p3_tend_gl40``'s GL-40 (see the module docstring). Returns the
+    phase's JSON object."""
+    import torch
+
+    from cloudmicrophysics_tpu_torch import trace
+    from cloudmicrophysics_tpu_torch.kernels import column_p3 as K5
+    from cloudmicrophysics_tpu_torch.models.column import ColumnStateP3
+    from cloudmicrophysics_tpu_torch.models.tendencies import (
+        bulk_microphysics_tendencies,
+        bulk_tendencies_2m_plain,
+    )
+    from cloudmicrophysics_tpu_torch.parameters import (
+        ThermodynamicsParameters,
+        microphysics_2m_params,
+    )
+
+    t_phase = time.perf_counter()
+    print("== phase 22: point-wise fused P3 tendencies (K8)")
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=40)
+    tps = ThermodynamicsParameters()
+    result = {"gpu": gpu_line, "builds": {}, "parity": [],
+              "max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        attrs = K5.kernel_attrs(K5._library("tend", K5.variant(mp, dtype)))
+        result["builds"][str(dtype)[6:]] = {"s": time.perf_counter() - t0,
+                                            **attrs}
+        print(f"  tendency build GL-40 {str(dtype)[6:]}: built and loaded "
+              f"in {time.perf_counter() - t0:.1f} s; {attrs}")
+
+    def args_of(state):
+        fields = ColumnStateP3(*state[:11])
+        return list(fields) + [K5.loglambda_p3_fused(fields, mp, tps),
+                               state.inpc_log_shift]
+
+    def same(label, got, args, cols=None):
+        # the plain version over 1024 columns at a time (its node and pair
+        # tensors bound the memory)
+        if cols is None:
+            cols = torch.arange(args[0].shape[0], device=device)
+        for lo in range(0, len(cols), 1024):
+            c = cols[lo:lo + 1024]
+            want = bulk_tendencies_2m_plain(mp, tps, *(a[c] for a in args))
+            for name, a, b in zip(got._fields, got, want):
+                a = a[c]
+                err = float((a - b).abs().max())
+                result["max_abs_err"] = max(result["max_abs_err"], err)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label}: {name} differs from the "
+                                         f"plain version at "
+                                         f"{int((a != b).sum())} points")
+            del want
+        result["parity"].append(label)
+
+    for dtype in (torch.float32, torch.float64):
+        for ncol in (4096, 37):
+            args = args_of(_tend_state(device, dtype, ncol))
+            same(f"p3_tend_gl40 ({ncol}, 63) {str(dtype)[6:]}",
+                 bulk_microphysics_tendencies(mp, tps, *args), args)
+            del args
+    torch.cuda.empty_cache()
+
+    ncol = 86400
+    args = args_of(_tend_state(device, torch.float32, ncol))
+    names = ("launches.p3_tendencies_fused", "launches.launch_tend_bounds",
+             "launches.launch_nodes", "launches.launch_tend_rates",
+             "tendencies.points", "tendencies.kernel_points")
+    before = [trace.counter(n) for n in names]
+    calls = 0
+
+    def call():
+        nonlocal calls
+        calls += 1
+        return bulk_microphysics_tendencies(mp, tps, *args)
+
+    n = args[0].numel()
+    got = call()
+    cols = torch.arange(0, ncol, 8, device=device)
+    t0 = time.perf_counter()
+    same(f"p3_tend_gl40 ({ncol}, 63) float32, every 8th column", got, args,
+         cols)
+    plain_s = time.perf_counter() - t0
+    del got
+    call_ms = min(_time_ms(call, 5))
+    # the entry point's calls alone: a parity call, a warm-up, five timed
+    counted = dict(zip(names, (trace.counter(c) - b
+                               for c, b in zip(names, before))))
+    want = {k: calls * (n if k.startswith("tendencies.") else 1)
+            for k in names}
+    if counted != want:
+        raise AssertionError(f"counters rose by {counted}, not {want}")
+    print(f"  parity: {len(result['parity'])} cases bit-identical to the "
+          f"plain version ({', '.join(result['parity'])}); largest "
+          f"difference {result['max_abs_err']:g}")
+
+    # each kernel alone, on one scratch record
+    lib = K5._library("tend", K5.variant(mp, torch.float32))
+    plan = K5.launch_plan(n, 1, mp.ice.quad.n, 1, torch.float32)
+    params = K5.kernel_params_p3(mp, tps, device=device)
+    flat = ColumnStateP3(*(a.reshape(-1) for a in args[:11]))
+    scratch = torch.empty(plan.scratch_shape, device=device)
+    out = torch.empty((len(K5.TEND_FIELDS), n), device=device)
+    parts = {
+        "bounds": lambda: K5.launch_tend_bounds(
+            lib, flat, args[11], scratch, params, plan, device),
+        "nodes": lambda: K5.launch_nodes(lib, flat, scratch, params, plan,
+                                         device),
+        "rates": lambda: K5.launch_tend_rates(
+            lib, flat, args[12], out, scratch, params, K5.warm_variant(mp),
+            device),
+    }
+    part_ms = {k: min(_time_ms(fn, 5)) for k, fn in parts.items()}
+    solve_ms = min(_time_ms(lambda: K5.loglambda_p3_fused(
+        ColumnStateP3(*args[:11]), mp, tps, args[11], params=params), 5))
+    result["launches"] = {k.split(".", 1)[1]: v for k, v in counted.items()
+                          if k.startswith("launches.launch_")}
+    result.update(ms=call_ms, plain_ms=plain_s * 1e3 * 8,
+                  solve_ms=solve_ms, points=n,
+                  subkernels=[{"name": k, "ms": v}
+                              for k, v in part_ms.items()])
+    print(f"  at ({ncol}, 63) float32: the call {call_ms:.3f} ms "
+          f"(bounds {part_ms['bounds']:.3f}, nodes {part_ms['nodes']:.3f}, "
+          f"rates {part_ms['rates']:.3f} ms alone); the host's shape solve "
+          f"(K5a, warm) {solve_ms:.3f} ms; the plain version {plain_s:.1f} s "
+          f"over an eighth of the columns; counters over the entry point's "
+          f"{calls} calls {counted}")
+    del args, flat, scratch, out
+    torch.cuda.empty_cache()
+    print(f"== phase 22: {time.perf_counter() - t_phase:.1f} s")
     return result
 
 

@@ -31,6 +31,15 @@ of :data:`SCRATCH_FIELDS` rows of ``ncol * nlev`` in the state's dtype
 :func:`step_column_p3_fused` runs the three and returns ``(new_state,
 loglambda)``.
 
+The same source built with ``-DK5_TEND`` (:data:`TEND_BUILDS`) is the
+point-wise fused tendencies of ``bulk_tendencies_2m`` with P3 ice
+(:func:`p3_tendencies_fused`, what :func:`..models.tendencies.
+bulk_tendencies_2m` launches on CUDA fields): K5a with log lambda an input
+rather than solved (:func:`launch_tend_bounds`), the same K5b, and a thread a
+point running K5c's rates with a per-point INP log shift, writing the eight
+:class:`..models.tendencies.Tendencies2M` fields (:func:`launch_tend_rates`):
+no column, no sedimentation, no update.
+
 A CPU tensor takes the plain version (:func:`step_column_p3_plain`, the eager
 step). A CUDA tensor launches the kernels, in the whole scope of the eager
 step: float32 and float64, any number of levels, any quadrature order
@@ -59,7 +68,10 @@ span ``column.prepare`` and its three launches the spans ``launch.k5a``,
 ``launch.k5b`` and ``launch.k5c``; each launch adds one to the counter
 ``launches.<launcher>`` and each step to ``launches.step_column_p3_fused``;
 K5b's launch adds the lane-node evaluations it runs to ``k5b.node_evals``
-and the ice nodes it sums to ``k5b.nodes`` (:mod:`..trace`).
+and the ice nodes it sums to ``k5b.nodes`` (:mod:`..trace`). A tendency call
+launches ``launch.p3tend_bounds``, ``launch.k5b`` and ``launch.p3tend_rates``
+(counters ``launches.launch_tend_bounds``, ``launches.launch_nodes``,
+``launches.launch_tend_rates``).
 """
 
 from __future__ import annotations
@@ -70,8 +82,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from .. import trace
+from ..models import tendencies as BMT
 from ..models.column import ColumnStateP3, step_column_p3
 from ..ops import common as CO
 from ..ops import p3 as P3
@@ -84,6 +99,7 @@ from ..utils.quadrature import GaussLegendre
 from ..utils.special import machine_eps
 from . import _build
 from . import column2m as K2M
+from .activation import broadcast_shape
 from .column2m import warm_variant
 
 __all__ = [
@@ -95,6 +111,7 @@ __all__ = [
     "loglambda_p3_fused",
     "loglambda_p3_plain",
     "node_passes",
+    "p3_tendencies_fused",
     "step_column_p3_fused",
     "step_column_p3_plain",
     "variant",
@@ -389,6 +406,12 @@ BUILDS = {
     "kernel": ("-lineinfo",),
     "probe": ("-lineinfo", "-DK5_PROBE"),
 }
+# the point-wise tendency builds of the source (-DK5_TEND) and their probe
+TEND_BUILDS = {
+    "tend": ("-lineinfo", "-DK5_TEND"),
+    "tend_probe": ("-lineinfo", "-DK5_TEND", "-DK5_PROBE"),
+}
+_ALL_BUILDS = {**BUILDS, **TEND_BUILDS}
 
 
 def header(v: Variant = DEFAULT_VARIANT) -> str:
@@ -407,12 +430,12 @@ def header(v: Variant = DEFAULT_VARIANT) -> str:
 
 
 def _flags(v: Variant, build: str) -> tuple:
-    return BUILDS[build] + _build.dtype_flags(v.torch_dtype)
+    return _ALL_BUILDS[build] + _build.dtype_flags(v.torch_dtype)
 
 
 def library_path(build: str = "kernel", v: Variant = DEFAULT_VARIANT):
-    """The file of one of the kernel library's :data:`BUILDS` for variant
-    ``v`` (built if needed)."""
+    """The file of one of the kernel library's :data:`BUILDS` or
+    :data:`TEND_BUILDS` for variant ``v`` (built if needed)."""
     return _build.build(SOURCE, "column_p3_params.h", header(v), _flags(v, build))
 
 
@@ -534,12 +557,19 @@ def _bind(lib: ctypes.CDLL, build: str, v: Variant) -> ctypes.CDLL:
     """Set the C signatures of a loaded build of the source for variant
     ``v`` and check it against this module; returns it."""
     _F = _build.c_scalar(v.torch_dtype)
-    lib.column_p3_solve.argtypes = [_P, _P, _P, _P, _P, _L, _I, _I, _P]
+    if build in TEND_BUILDS:
+        lib.column_p3_tend_bounds.argtypes = [_P, _P, _P, _P, _L, _I, _I, _P]
+        lib.column_p3_tend_rates.argtypes = [_P, _P, _P, _P, _P, _L, _I, _I,
+                                             _I, _I, _P]
+        launchers = (lib.column_p3_tend_bounds, lib.column_p3_tend_rates,
+                     lib.column_p3_tend_rates_count)
+    else:
+        lib.column_p3_solve.argtypes = [_P, _P, _P, _P, _P, _L, _I, _I, _P]
+        lib.column_p3_epilogue.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
+                                           _I, _F, _F, _I, _I, _I, _P]
+        launchers = (lib.column_p3_solve, lib.column_p3_epilogue)
     lib.column_p3_nodes.argtypes = [_P, _P, _P, _L, _I, _I, _P]
-    lib.column_p3_epilogue.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _F, _F, _I, _I, _I, _P]
-    for fn in (lib.column_p3_solve, lib.column_p3_nodes,
-               lib.column_p3_epilogue, lib.column_p3_num_params,
+    for fn in launchers + (lib.column_p3_nodes, lib.column_p3_num_params,
                lib.column_p3_scratch_fields, lib.column_p3_lanes_per_cell,
                lib.column_p3_node_chunk, lib.column_p3_node_chunks,
                lib.column_p3_node_passes, lib.column_p3_table_len):
@@ -548,7 +578,7 @@ def _bind(lib: ctypes.CDLL, build: str, v: Variant) -> ctypes.CDLL:
     lib.column_p3_kernel_attrs.argtypes = [_I, _P]
     lib.column_p3_kernel_attrs.restype = _I
     lib.column_p3_variant.argtypes, lib.column_p3_variant.restype = [_P], _I
-    if build == "probe":
+    if build in ("probe", "tend_probe"):
         lib.column_p3_probe_set.argtypes = [_P, _L, _I]
         lib.column_p3_probe_set.restype = _I
         lib.column_p3_probe_regions.restype = _I
@@ -577,6 +607,10 @@ def _bind(lib: ctypes.CDLL, build: str, v: Variant) -> ctypes.CDLL:
                                                           v.torch_dtype)):
         raise RuntimeError("column_p3 library built with other quadrature "
                            "tables or node chunks")
+    if build in TEND_BUILDS and (lib.column_p3_tend_rates_count()
+                                 != len(TEND_FIELDS)):
+        raise RuntimeError("column_p3 tendency library built with another "
+                           "list of rates")
     return lib
 
 
@@ -745,3 +779,165 @@ def step_column_p3_fused(state: ColumnStateP3, mp, tps, dt, dz,
                         warm, device)
     trace.count("launches.step_column_p3_fused")
     return out, loglam
+
+
+# ---------------------------------------------------------------------------
+# The point-wise fused tendencies: the -DK5_TEND builds
+# ---------------------------------------------------------------------------
+
+# the rates a tendency call writes, in Tendencies2M's order (kRates in
+# csrc/column_p3.cu)
+TEND_FIELDS = BMT.Tendencies2M._fields
+
+# the parameter buffers of the last few (mp, tps, device, dtype) a tendency
+# call met, so that a host calling every step builds its buffer once
+_TEND_PARAMS = {}
+_TEND_PARAMS_KEPT = 8
+
+
+def _tend_params(mp, tps, device, dtype) -> torch.Tensor:
+    key = (mp, tps, device, dtype)
+    buf = _TEND_PARAMS.get(key)
+    if buf is None:
+        if len(_TEND_PARAMS) >= _TEND_PARAMS_KEPT:
+            _TEND_PARAMS.pop(next(iter(_TEND_PARAMS)))
+        buf = _TEND_PARAMS[key] = kernel_params_p3(mp, tps, device=device,
+                                                   dtype=dtype)
+    return buf
+
+
+def tracked(t) -> bool:
+    """Whether autograd, forward-mode AD or a ``torch.func`` transform
+    tracks the tensor ``t`` (the tendency kernels track none)."""
+    return ((torch.is_grad_enabled() and t.requires_grad)
+            or is_functorch_wrapped_tensor(t)
+            or fwAD.unpack_dual(t).tangent is not None)
+
+
+def tend_inputs(fields):
+    """``(inputs, shift)``: the twelve tensors a tendency launch reads (the
+    eleven of ``ColumnStateP3`` and log lambda) and the INP log shift (or
+    None), from ``bulk_tendencies_2m``'s ``fields`` ``(rho, ..., b_rim,
+    log_lambda, inpc_log_shift)``, each a contiguous CUDA tensor of the
+    fields' broadcast shape, device and dtype: what the eager code makes
+    of them. A field None is zeros (a shift None stays None, a zero shift);
+    a Python number (which the eager code takes for log lambda and the
+    shift) is that value in the dtype; a tensor of another shape or layout
+    is expanded and made contiguous.
+
+    The device and dtype are those of the first CUDA tensor; every tensor
+    lies there in that dtype, 0-d ones too (eager arithmetic on a 0-d
+    tensor alone runs in its own dtype and on its own device, which the
+    kernels cannot repeat). Raises ``NotImplementedError`` for a
+    field that a derivative tracks (:func:`tracked`) and for a dtype the
+    kernels are not built for, ``ValueError`` when no field lies on a CUDA
+    device, for a tensor on another device or of another dtype and for
+    shapes that do not broadcast, ``TypeError`` for what is neither a
+    tensor nor a Python number."""
+    tensors = [t for t in fields if isinstance(t, torch.Tensor)]
+    if any(tracked(t) for t in tensors):
+        raise NotImplementedError(
+            "the CUDA P3 tendency kernels track no derivative: call "
+            "bulk_tendencies_2m_plain to differentiate (log lambda held "
+            "fixed), or launch under torch.no_grad()")
+    cuda = [t for t in tensors if t.is_cuda]
+    if not cuda:
+        raise ValueError("p3_tendencies_fused launches on CUDA fields; CPU "
+                         "fields take bulk_tendencies_2m_plain")
+    device, dtype = cuda[0].device, cuda[0].dtype
+    _build.check_dtype(dtype, "P3")
+    for t in tensors:
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(
+                f"p3_tendencies_fused: fields differ in device or dtype "
+                f"({t.device} {t.dtype}, not {device} {dtype})")
+    shape = broadcast_shape({tuple(t.shape) for t in tensors})
+    zero = None
+
+    def full(v):
+        nonlocal zero
+        if v is None:
+            if zero is None:
+                zero = torch.zeros(shape, dtype=dtype, device=device)
+            return zero
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            return torch.full(shape, float(v), dtype=dtype, device=device)
+        if not isinstance(v, torch.Tensor):
+            raise TypeError(f"p3_tendencies_fused: a field is a tensor, a "
+                            f"Python number or None, not {type(v).__name__}")
+        if tuple(v.shape) != shape or not v.is_contiguous():
+            v = v.expand(shape).contiguous()
+        return v
+
+    inputs = [full(v) for v in fields[:-1]]
+    shift = None if fields[-1] is None else full(fields[-1])
+    _build.check_cuda(inputs + ([] if shift is None else [shift]),
+                      "p3_tendencies_fused")
+    return inputs, shift
+
+
+def launch_tend_bounds(lib, fields, loglam, scratch, params, plan, device):
+    """K5a of a tendency build on the current stream: the first rows of
+    ``scratch`` from the flat ``fields`` and the input ``loglam``."""
+    _build.launch(lib.column_p3_tend_bounds, _ptrs(fields),
+                  loglam.data_ptr(), scratch.data_ptr(), params.data_ptr(),
+                  fields.rho.numel(), plan.solve_grid, device.index,
+                  torch.cuda.current_stream(device).cuda_stream,
+                  span="launch.p3tend_bounds", counter="launch_tend_bounds")
+
+
+def launch_tend_rates(lib, fields, shift, out, scratch, params, warm,
+                      device):
+    """K5c of a tendency build on the current stream: the rows of ``out``
+    (:data:`TEND_FIELDS`) from the flat ``fields``, the INP log ``shift``
+    (or None) and ``scratch``; ``warm``: the warm rain's ``(is_limited,
+    chen)`` variant."""
+    n = fields.rho.numel()
+    limited, chen = warm
+    _build.launch(lib.column_p3_tend_rates, _ptrs(fields),
+                  None if shift is None else shift.data_ptr(), _ptrs(out),
+                  scratch.data_ptr(), params.data_ptr(), n,
+                  -(-n // EPILOGUE_THREADS), limited, chen, device.index,
+                  torch.cuda.current_stream(device).cuda_stream,
+                  span="launch.p3tend_rates", counter="launch_tend_rates")
+
+
+def p3_tendencies_fused(mp, tps, rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai,
+                        q_ice=None, n_ice=None, q_rim=None, b_rim=None,
+                        log_lambda=None, inpc_log_shift=None):
+    """``bulk_tendencies_2m`` with P3 ice on CUDA fields: the eight rates as
+    a :class:`..models.tendencies.Tendencies2M` of the fields' broadcast
+    shape, for the given ``log_lambda`` (the host's shape solve, e.g.
+    :func:`loglambda_p3_fused`; None: 0) and per-point ``inpc_log_shift``
+    (None: 0), bit for bit what :func:`..models.tendencies.
+    bulk_tendencies_2m_plain` gives on them.
+
+    It launches K5a (sanitized state, bounds, factors; no solve), K5b and
+    the rates kernel of the tendency build of :func:`variant` on the
+    current stream, the fields viewed flat (:func:`tend_inputs` makes them
+    so), joined by a scratch record it allocates; the parameter buffer is
+    the one built at the first call with the same parameters, device and
+    dtype (the last few are kept)."""
+    inputs, shift = tend_inputs((rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai,
+                                 q_ice, n_ice, q_rim, b_rim, log_lambda,
+                                 inpc_log_shift))
+    shape, device, dtype = inputs[0].shape, inputs[0].device, inputs[0].dtype
+    n = inputs[0].numel()
+    _check_supported(mp, 1, dtype)
+    out = torch.empty((len(TEND_FIELDS), n), dtype=dtype, device=device)
+    if n:
+        plan = launch_plan(n, 1, mp.ice.quad.n, 1, dtype)
+        params = _tend_params(mp, tps, device, dtype)
+        lib = _library("tend", variant(mp, dtype))
+        flat = ColumnStateP3(*(t.reshape(-1) for t in inputs[:-1]))
+        loglam = inputs[-1].reshape(-1)
+        scratch = torch.empty(plan.scratch_shape, dtype=dtype, device=device)
+        with _build.launching(lib):
+            launch_tend_bounds(lib, flat, loglam, scratch, params, plan,
+                               device)
+            launch_nodes(lib, flat, scratch, params, plan, device)
+            launch_tend_rates(lib, flat, None if shift is None
+                              else shift.reshape(-1), out, scratch, params,
+                              warm_variant(mp), device)
+        trace.count("launches.p3_tendencies_fused")
+    return BMT.Tendencies2M(*(r.view(shape) for r in out))

@@ -82,6 +82,16 @@
 //     sedimentation (six fluxes of level k + 1 through shared memory),
 //     latent heating, the clamp and q_rim <= q_ice.
 //
+// Built with -DK5_TEND, the source is instead the point-wise fused
+// tendencies of models/tendencies.py:bulk_tendencies_2m with P3 ice (no
+// column, no sedimentation, no update): K5a as column_p3_bounds_kernel,
+// which takes log lambda as an input (the host's solve) and clamps rho as
+// bulk_tendencies_2m does before p3_step_aux, then the same K5b, then
+// column_p3_tend_rates_kernel<LIMITED, CHEN>, a thread per point running
+// K5c's cell_epilogue with a per-point INP log shift (none: 0) and writing
+// the eight rates. Without K5_TEND the source is the column step above,
+// token for token but the probe's region R_TEND.
+//
 // Rounding: a float32 build is built with --fmad=false, a float64 build
 // computes on real.cuh's uncontracted Dbl with --fmad=true (real.cuh says
 // why), neither with fast math, and each expression follows the eager
@@ -123,7 +133,7 @@ enum ProbeRegion {
   R_INV, R_INV_IT, R_STATE,
   R_NODE_LANE, R_LIQ, R_NODE, R_TRI_IT, R_TASK, R_SUM_IT, R_PREFIX, R_CROSS,
   R_CROSS_SUM, R_AGG,
-  R_EPI, R_EPI_OUT,
+  R_EPI, R_EPI_OUT, R_TEND,
   R_COUNT
 };
 
@@ -970,10 +980,17 @@ struct Fields {
 };
 
 // ---- K5a: shape solve, sanitized state, bounds, cloud window -------------
+// (with K5_TEND: no solve; log lambda is read from f.loglam)
 
 __global__ void __launch_bounds__(kSolveThreads, kSolveMinBlocks)
+#ifdef K5_TEND
+column_p3_bounds_kernel(Fields f, const scalar* __restrict__ P, real* __restrict__ scr,
+                        int64_t ncells)
+#else
 column_p3_solve_kernel(Fields f, const scalar* __restrict__ P, real* __restrict__ scr,
-                       int64_t ncells) {
+                       int64_t ncells)
+#endif
+{
   // The cloud window's two inverse incomplete gammas take only parameters:
   // the block's first thread evaluates them before its own cell, and every
   // thread reads them after a barrier that it reaches after its shape solve.
@@ -989,15 +1006,24 @@ column_p3_solve_kernel(Fields f, const scalar* __restrict__ P, real* __restrict_
   // thread of the block reaches the barrier
   const int64_t i = active ? cell : ncells - 1;
   const real em = PV(EM), en = PV(EN), tiny = PV(TINY);
+#ifdef K5_TEND
+  // bulk_tendencies_2m hands p3_step_aux the clamped rho
+  const real x_rho = maxf(f.in[0][i], real(0));
+#else
   const real x_rho = f.in[0][i];
+#endif
   const real x_q_ice = f.in[7][i], x_n_ice = f.in[8][i];
   const real x_q_rim = f.in[9][i], x_b_rim = f.in[10][i];
 
+#ifdef K5_TEND
+  const real loglam = f.loglam[i];
+#else
   // shape solve on the raw state (models/column.py)
   const P3S raw = state_from_prognostic(P, x_q_ice * x_rho, x_n_ice * x_rho,
                                         x_q_rim * x_rho, x_b_rim * x_rho);
   const bool warm_start = f.guess != nullptr;
   const real loglam = shape_solve(P, raw, warm_start, warm_start ? f.guess[i] : real(0));
+#endif
 
   // p3_step_aux: the sanitized state and its bounds
   const real q_ice = maxf(x_q_ice, real(0));
@@ -1027,7 +1053,9 @@ column_p3_solve_kernel(Fields f, const scalar* __restrict__ P, real* __restrict_
   const real c_hi = tpow(cloud_x[1] / lam_safe, PV(CB_INV_MU));
   if (!active) return;
 
+#ifndef K5_TEND
   f.loglam[i] = loglam;
+#endif
   real* __restrict__ o = scr + i;
   o[S_L * ncells] = s.L;
   o[S_N * ncells] = s.N;
@@ -1536,6 +1564,9 @@ column_p3_nodes_kernel(Fields f, const scalar* __restrict__ P, real* __restrict_
 
 struct CellIn {
   real rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai, q_ice, n_ice, q_rim, b_rim;
+#ifdef K5_TEND
+  real inpc_log_shift;  // added to the F23 INP log concentration
+#endif
 };
 
 struct CellOut {
@@ -1627,7 +1658,11 @@ __device__ __forceinline__ CellOut cell_epilogue(const scalar* __restrict__ P,
   const real q_liq = q_lcl + q_rai;
   const real q_sat_ice = e_si / (rho * PV(R_V) * T);
   const real q_vap = maxf(q_tot - q_liq - q_ice, real(0));
+#ifdef K5_TEND
+  const real inpc_per_kg = exp_(inp_mean(P, T) + x.inpc_log_shift) / rho;
+#else
   const real inpc_per_kg = exp_(inp_mean(P, T) + real(0)) / rho;
+#endif
   {
     const real S_i = q_vap / q_sat_ice - real(1);
     const bool cond = T < PV(F23_T_THRESH) && S_i > PV(S_I_THRESH);
@@ -1870,6 +1905,56 @@ int launch_epilogue(const Fields& f, const scalar* params, const real* scratch, 
   return (int)cudaGetLastError();
 }
 
+#ifdef K5_TEND
+// ---- K5c with K5_TEND: the point-wise rates ------------------------------
+
+// The rates a point writes, in Tendencies2M's order: dq_lcl, dn_lcl, dq_rai,
+// dn_rai, dq_ice, dn_ice, dq_rim, db_rim
+constexpr int kRates = 8;
+
+// A thread a point of the flat grid: K5c's rates of the point (no fluxes,
+// no update), with the point's INP log shift (none given: 0).
+template <bool LIMITED, bool CHEN>
+__global__ void __launch_bounds__(kEpiThreads, kEpiMinBlocks)
+column_p3_tend_rates_kernel(Fields f, const real* __restrict__ shift,
+                            const scalar* __restrict__ P, const real* __restrict__ scr,
+                            int64_t ncells) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= ncells) return;
+  K5_COUNT(R_TEND);
+  CellIn x;
+  x.rho = f.in[0][i];
+  x.T = f.in[1][i];
+  x.q_tot = f.in[2][i];
+  x.q_lcl = f.in[3][i];
+  x.n_lcl = f.in[4][i];
+  x.q_rai = f.in[5][i];
+  x.n_rai = f.in[6][i];
+  x.q_ice = f.in[7][i];
+  x.n_ice = f.in[8][i];
+  x.q_rim = f.in[9][i];
+  x.b_rim = f.in[10][i];
+  x.inpc_log_shift = shift != nullptr ? shift[i] : real(0);
+  const CellOut o = cell_epilogue<LIMITED, CHEN>(P, x, scr + i, ncells, real(0));
+  f.out[0][i] = o.dq_lcl;
+  f.out[1][i] = o.dn_lcl;
+  f.out[2][i] = o.dq_rai;
+  f.out[3][i] = o.dn_rai;
+  f.out[4][i] = o.dq_ice;
+  f.out[5][i] = o.dn_ice;
+  f.out[6][i] = o.dq_rim;
+  f.out[7][i] = o.db_rim;
+}
+
+template <bool LIMITED, bool CHEN>
+int launch_tend_rates(const Fields& f, const real* shift, const scalar* params,
+                      const real* scratch, int64_t ncells, int grid, cudaStream_t s) {
+  column_p3_tend_rates_kernel<LIMITED, CHEN><<<grid, kEpiThreads, 0, s>>>(
+      f, shift, params, scratch, ncells);
+  return (int)cudaGetLastError();
+}
+#endif
+
 template <typename K>
 int attrs(K kernel, int* out) {
   cudaFuncAttributes a;
@@ -1925,16 +2010,61 @@ int column_p3_table_len() { return Orders<kOrder>::LEN; }
 
 // Registers, local memory bytes, static shared memory bytes and the largest
 // block of kernel 0 (K5a), 1 (K5b) or 2 (K5c, limited rain PSD, SB2006 rain
-// fall speeds, one chunk of levels: the variant of the default parameters).
+// fall speeds, one chunk of levels: the variant of the default parameters;
+// with K5_TEND the rates kernel of that variant).
 int column_p3_kernel_attrs(int kernel, int* out) {
   switch (kernel) {
+#ifdef K5_TEND
+    case 0: return attrs(column_p3_bounds_kernel, out);
+    case 1: return attrs(column_p3_nodes_kernel<kOrder>, out);
+    case 2: return attrs(column_p3_tend_rates_kernel<true, false>, out);
+#else
     case 0: return attrs(column_p3_solve_kernel, out);
     case 1: return attrs(column_p3_nodes_kernel<kOrder>, out);
     case 2: return attrs(column_p3_epilogue_kernel<true, false, false>, out);
+#endif
   }
   return (int)cudaErrorInvalidValue;
 }
 
+#ifdef K5_TEND
+// K5a with K5_TEND: the scratch record's first rows from eleven (ncells)
+// inputs in ColumnStateP3 order and the input log lambda; `grid` blocks of
+// kSolveThreads.
+int column_p3_tend_bounds(const scalar* const* in, const scalar* loglam, scalar* scratch,
+                          const scalar* params, long long ncells, int grid, int device,
+                          void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Fields f = make_fields(in, nullptr, nullptr, const_cast<scalar*>(loglam));
+  column_p3_bounds_kernel<<<grid, kSolveThreads, 0, (cudaStream_t)stream>>>(
+      f, params, reinterpret_cast<real*>(scratch), ncells);
+  return (int)cudaGetLastError();
+}
+
+// K5c with K5_TEND: the eight rates (kRates outputs) from the inputs, the
+// INP log shift (null: none) and the scratch record; `grid` blocks of
+// kEpiThreads, a thread a point.
+int column_p3_tend_rates(const scalar* const* in, const scalar* shift, scalar* const* out,
+                         const scalar* scratch, const scalar* params, long long ncells,
+                         int grid, int limited, int chen, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Fields f = make_fields(in, nullptr, nullptr, nullptr);
+  for (int k = 0; k < kRates; ++k) f.out[k] = reinterpret_cast<real*>(out[k]);
+  const real* s = reinterpret_cast<const real*>(shift);
+  const real* scr = reinterpret_cast<const real*>(scratch);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (limited)
+    return chen ? launch_tend_rates<true, true>(f, s, params, scr, ncells, grid, st)
+                : launch_tend_rates<true, false>(f, s, params, scr, ncells, grid, st);
+  return chen ? launch_tend_rates<false, true>(f, s, params, scr, ncells, grid, st)
+              : launch_tend_rates<false, false>(f, s, params, scr, ncells, grid, st);
+}
+
+// the number of rates column_p3_tend_rates writes
+int column_p3_tend_rates_count() { return kRates; }
+#else
 // K5a: eleven (ncol, nlev) inputs in ColumnStateP3 order, an optional
 // warm-start guess (null for a cold start), the log lambda output and the
 // (kScratch, ncells) scratch record; `grid` blocks of kSolveThreads.
@@ -1949,6 +2079,7 @@ int column_p3_solve(const scalar* const* in, const scalar* guess, scalar* loglam
       f, params, reinterpret_cast<real*>(scratch), ncells);
   return (int)cudaGetLastError();
 }
+#endif
 
 // K5b: the node pass over the scratch record; `grid` blocks of
 // kNodeThreads, column_p3_lanes_per_cell() lanes per cell.
@@ -1962,6 +2093,7 @@ int column_p3_nodes(const scalar* const* in, scalar* scratch, const scalar* para
   return (int)cudaGetLastError();
 }
 
+#ifndef K5_TEND
 // K5c: the eleven outputs from the inputs and the scratch record; `grid`
 // blocks of `cols` whole columns walked in chunks of `chunk` levels
 // (cols * chunk <= kEpiThreads threads, chunk <= nlev).
@@ -1986,6 +2118,7 @@ int column_p3_epilogue(const scalar* const* in, scalar* const* out, const scalar
               : launch_epilogue<false, false>(f, params, scr, ncol, nlev, cols, chunk, grid,
                                               dt, dz, s);
 }
+#endif
 
 #ifdef K5_PROBE
 int column_p3_probe_regions() { return R_COUNT; }

@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..ops import m0 as CM0
 from ..ops import m1 as CM1
 from ..ops import noneq as CMNonEq
@@ -43,6 +44,7 @@ __all__ = [
     "bulk_tendencies_0m",
     "bulk_tendencies_1m",
     "bulk_tendencies_2m",
+    "bulk_tendencies_2m_plain",
     "bulk_microphysics_tendencies",
     "warm_rain_tendencies_2m",
 ]
@@ -495,6 +497,12 @@ def warm_rain_tendencies_2m(warm_rain, tps: TPS, T, q_tot, q_lcl, q_rai,
     return dq_lcl_dt, dq_rai_dt, dn_lcl_dt, dn_rai_dt
 
 
+def p3_on_card(fields) -> bool:
+    """Whether a P3 tendency call on ``fields`` takes the kernel route: a
+    field is a tensor on a CUDA device."""
+    return any(isinstance(t, torch.Tensor) and t.is_cuda for t in fields)
+
+
 def bulk_tendencies_2m(mp: Microphysics2MParams, tps: TPS, rho, T, q_tot,
                        q_lcl, n_lcl, q_rai, n_rai, q_ice=None, n_ice=None,
                        q_rim=None, b_rim=None, log_lambda=None,
@@ -506,7 +514,45 @@ def bulk_tendencies_2m(mp: Microphysics2MParams, tps: TPS, rho, T, q_tot,
     :class:`.p3_tendencies.P3StepAux` (sanitized state + ice quadrature
     nodes) so a column step can reuse the same node tables for its
     sedimentation velocities.
+
+    With P3 ice, no ``p3_aux`` and a field on a CUDA device
+    (:func:`p3_on_card`), the call launches the fused tendency kernels
+    (:func:`..kernels.column_p3.p3_tendencies_fused`, bit for bit this
+    function's eager code) in the span ``tendencies.p3``. They take the
+    fields as the eager code does (None, Python numbers, broadcast shapes;
+    :func:`..kernels.column_p3.tend_inputs`), in one dtype, and track no
+    derivative: a field that autograd, forward-mode AD or ``torch.func``
+    tracks raises ``NotImplementedError`` there, and
+    :func:`bulk_tendencies_2m_plain` differentiates. Otherwise the call
+    runs the eager code. Every P3 call adds its points to the counter
+    ``tendencies.points``, a kernel call to ``tendencies.kernel_points``
+    too.
     """
+    if getattr(mp, "ice", None) is None:
+        return bulk_tendencies_2m_plain(
+            mp, tps, rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai, q_ice,
+            n_ice, q_rim, b_rim, log_lambda, inpc_log_shift, p3_aux)
+    fields = (rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai, q_ice, n_ice,
+              q_rim, b_rim, log_lambda, inpc_log_shift)
+    if p3_aux is None and p3_on_card(fields):
+        from ..kernels.column_p3 import p3_tendencies_fused
+
+        with trace.span("tendencies.p3"):
+            out = p3_tendencies_fused(mp, tps, *fields)
+        trace.count("tendencies.kernel_points", out.dq_lcl_dt.numel())
+    else:
+        out = bulk_tendencies_2m_plain(mp, tps, *fields, p3_aux)
+    trace.count("tendencies.points", out.dq_lcl_dt.numel())
+    return out
+
+
+def bulk_tendencies_2m_plain(mp: Microphysics2MParams, tps: TPS, rho, T,
+                             q_tot, q_lcl, n_lcl, q_rai, n_rai, q_ice=None,
+                             n_ice=None, q_rim=None, b_rim=None,
+                             log_lambda=None, inpc_log_shift=None,
+                             p3_aux=None) -> Tendencies2M:
+    """:func:`bulk_tendencies_2m` in eager PyTorch on any device: the plain
+    version."""
     rho = clamp_to_nonneg(rho)
     q_tot = clamp_to_nonneg(q_tot)
     q_lcl = clamp_to_nonneg(q_lcl)

@@ -1323,3 +1323,302 @@ def test_arg2000_cuda_rejections(device):
             got = fn(ap, ad, aip, tps, *grad_w)
         want = fn(ap, ad, aip, tps, *air)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# The point-wise fused P3 tendencies (column_p3.cu built with -DK5_TEND)
+# ---------------------------------------------------------------------------
+
+def _tend_args(state, loglam, seed=2**33 + 26):
+    """The tendency call's arguments from a P3 state of any shape: its
+    eleven fields, log lambda and a per-point INP log shift drawn from
+    N(0, 1.37^2), the spread of the cell ``p3_tend_gl40``."""
+    rho = state[0]
+    g = torch.Generator(device=rho.device)
+    g.manual_seed(seed)
+    shift = torch.randn(rho.shape, generator=g, device=rho.device,
+                        dtype=rho.dtype) * 1.37
+    return list(state) + [loglam, shift]
+
+
+def _tend_same(got, want):
+    for name, a, b in zip(got._fields, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.equal(a, b), name
+
+
+def _tend_cell_state(device, dtype, ncol):
+    """The cell ``p3_tend_gl40``'s seeded host state at ``ncol`` columns."""
+    import sys
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from bench_h100.drivers import p3_tendencies as D
+
+    cfg = json.loads((Path(root) / "bench_h100" / "configs"
+                      / "climaatmos_2mp3.json").read_text())
+    return D.make_state(cfg, ncol, 2**35 + 26, device, dtype)
+
+
+# every K5 variant (kernels/column_p3.variant: order, slope law, aspect
+# ratio, ice rain PSD, dtype) and both warm-rain templates of the rates
+# kernel, on a ragged (37, 19) state with warm ice-free cells
+TEND_SCOPE = {
+    "GL-16": (dict(), torch.float32),
+    "GL-40": (dict(order=40), torch.float32),
+    "GL-40 float64": (dict(order=40), torch.float64),
+    "CG-100": (dict(order=100), torch.float32),
+    "CG-5 float64": (dict(order=5), torch.float64),
+    "GL-4": (dict(order=4), torch.float32),
+    "SlopeConstant": (dict(slope_law="constant"), torch.float32),
+    "NoAspectRatio": (dict(aspect_ratio="NoAspectRatio"), torch.float32),
+    "unlimited ice rain PSD": (dict(ice_rain_limited=False), torch.float32),
+    "float64 options": (dict(slope_law="constant",
+                             aspect_ratio="NoAspectRatio",
+                             ice_rain_limited=False, is_limited=False,
+                             rain_velocity="chen2022"), torch.float64),
+    "unlimited rain, Chen 2022": (dict(is_limited=False,
+                                       rain_velocity="chen2022"),
+                                  torch.float32),
+}
+
+
+@pytest.mark.parametrize("name", list(TEND_SCOPE))
+def test_p3_tendency_route_is_the_eager_path_bit_for_bit(device, name):
+    from cloudmicrophysics_tpu_torch.models.tendencies import (
+        bulk_microphysics_tendencies,
+        bulk_tendencies_2m_plain,
+    )
+
+    opts, dtype = TEND_SCOPE[name]
+    mp = _p3_scope(**opts)
+    st = _state_p3(37, 19, device, dtype)
+    loglam = K5.loglambda_p3_fused(st, mp, TPS)
+    args = _tend_args(st, loglam)
+    names = ("tendencies.points", "tendencies.kernel_points",
+             "launches.launch_tend_bounds", "launches.launch_nodes",
+             "launches.launch_tend_rates")
+    before = [trace.counter(n) for n in names]
+    got = bulk_microphysics_tendencies(mp, TPS, *args)
+    counted = [trace.counter(n) - b for n, b in zip(names, before)]
+    assert counted == [37 * 19, 37 * 19, 1, 1, 1]
+    _tend_same(got, bulk_tendencies_2m_plain(mp, TPS, *args))
+    # no shift is a zero shift; a flat or 3-D view steps the same points
+    _tend_same(bulk_microphysics_tendencies(mp, TPS, *args[:-1]),
+               bulk_tendencies_2m_plain(mp, TPS, *args[:-1]))
+    flat = bulk_microphysics_tendencies(mp, TPS,
+                                        *(a.reshape(-1) for a in args))
+    _tend_same(type(got)(*(t.reshape(37, 19) for t in flat)), got)
+    cube = bulk_microphysics_tendencies(
+        mp, TPS, *(a.reshape(37, 19, 1) for a in args))
+    assert cube.dq_ice_dt.shape == (37, 19, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_p3_tendency_route_at_the_cells_size(device, dtype):
+    """The cell ``p3_tend_gl40``'s whole (86400, 63) grid through the route,
+    held bit for bit to the eager path on 512 columns spread over it (the
+    call is point-wise: a column's rates depend on that column alone)."""
+    from cloudmicrophysics_tpu_torch.models.tendencies import (
+        bulk_microphysics_tendencies,
+        bulk_tendencies_2m_plain,
+    )
+
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=40)
+    state = _tend_cell_state(device, dtype, 86400)
+    fields = ColumnStateP3(*state[:11])
+    loglam = K5.loglambda_p3_fused(fields, mp, TPS)
+    args = list(fields) + [loglam, state.inpc_log_shift]
+    before = [trace.counter(n) for n in ("tendencies.points",
+                                         "tendencies.kernel_points")]
+    got = bulk_microphysics_tendencies(mp, TPS, *args)
+    points, kernel_points = (trace.counter(n) - b for n, b in zip(
+        ("tendencies.points", "tendencies.kernel_points"), before))
+    assert points == kernel_points == 86400 * 63
+    cols = torch.linspace(0, 86399, 512, device=device).long()
+    want = bulk_tendencies_2m_plain(mp, TPS, *(a[cols] for a in args))
+    _tend_same(type(got)(*(t[cols] for t in got)), want)
+    del got, want, state, args
+
+
+def test_p3_tendency_route_refuses_tracked_fields(device):
+    """A field that requires a gradient raises on the card (the kernels
+    track none) and launches nothing; the plain version differentiates, and
+    under no_grad the same fields launch, bit for bit the eager answer."""
+    from cloudmicrophysics_tpu_torch.models.tendencies import (
+        bulk_microphysics_tendencies,
+        bulk_tendencies_2m_plain,
+    )
+
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=8)
+    st = _state_p3(64, 16, device)
+    args = _tend_args(st, K5.loglambda_p3_fused(st, mp, TPS))
+    args[1] = args[1].clone().requires_grad_()
+    before = _launches(K5.p3_tendencies_fused)
+    with pytest.raises(NotImplementedError, match="track no derivative"):
+        bulk_microphysics_tendencies(mp, TPS, *args)
+    assert _launches(K5.p3_tendencies_fused) == before
+    eager = bulk_tendencies_2m_plain(mp, TPS, *args)
+    (g,) = torch.autograd.grad(eager.dq_ice_dt.sum(), args[1])
+    assert bool(torch.isfinite(g).all())
+    with torch.no_grad():
+        fused = bulk_microphysics_tendencies(mp, TPS, *args)
+    assert _launches(K5.p3_tendencies_fused) == [before[0] + 1]
+    _tend_same(fused, type(eager)(*(t.detach() for t in eager)))
+
+
+# fields as a host may hand them (index in the call: value from the state
+# ``st`` and log lambda ``ll``), each held bit for bit to the eager code on
+# the same call
+TEND_FORMS = {
+    "ice, log lambda and shift None": lambda st, ll: {
+        k: None for k in range(7, 13)},
+    "numbers": lambda st, ll: {11: 9.5, 12: -0.75},
+    "broadcast profile and columns": lambda st, ll: {
+        1: st[1][:1], 2: st[2][:, :1].contiguous(), 11: ll[:1, :1]},
+    "0-d tensors": lambda st, ll: {
+        6: st[6].new_tensor(2.5e5), 12: st[0].new_tensor(0.3)},
+    "strided": lambda st, ll: {
+        3: st[3].t().contiguous().t(), 11: ll.t().contiguous().t()},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("form", list(TEND_FORMS))
+def test_p3_tendency_route_takes_the_fields_as_the_eager_code(device, form,
+                                                              dtype):
+    """None fields, Python numbers, 0-d tensors, broadcast shapes and
+    strided fields: the route (one launch) gives the eager code's answer to
+    the same call bit for bit, in the broadcast shape."""
+    from cloudmicrophysics_tpu_torch.models.tendencies import (
+        bulk_microphysics_tendencies,
+        bulk_tendencies_2m_plain,
+    )
+
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=16)
+    st = _state_p3(37, 19, device, dtype)
+    ll = K5.loglambda_p3_fused(st, mp, TPS)
+    args = _tend_args(st, ll)
+    for k, v in TEND_FORMS[form](st, ll).items():
+        args[k] = v
+    before = _launches(K5.p3_tendencies_fused)
+    got = bulk_microphysics_tendencies(mp, TPS, *args)
+    assert _launches(K5.p3_tendencies_fused) == [before[0] + 1]
+    want = bulk_tendencies_2m_plain(mp, TPS, *args)
+    for name, a, b in zip(got._fields, got, want):
+        assert a.shape == (37, 19) and a.dtype == dtype, name
+        assert torch.equal(a, b.expand_as(a)), name
+
+
+def test_p3_tendency_cuda_rejections(device):
+    from cloudmicrophysics_tpu_torch.models.tendencies import (
+        bulk_microphysics_tendencies,
+    )
+
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=8)
+    st = _state_p3(64, 16, device)
+    args = _tend_args(st, K5.loglambda_p3_fused(st, mp, TPS))
+    cpu_T = list(args)
+    cpu_T[1] = args[1].cpu()
+    with pytest.raises(ValueError, match="differ in device or dtype"):
+        bulk_microphysics_tendencies(mp, TPS, *cpu_T)
+    with pytest.raises(ValueError, match="differ in device or dtype"):
+        bulk_microphysics_tendencies(mp, TPS, *args[:-1], args[-1].double())
+    with pytest.raises(ValueError, match="differ in device or dtype"):
+        bulk_microphysics_tendencies(mp, TPS, *args[:-1],
+                                     torch.tensor(0.3, dtype=torch.float32))
+    with pytest.raises(ValueError, match="do not broadcast"):
+        bulk_microphysics_tendencies(mp, TPS, *args[:-2], args[-2][:, :3])
+    with pytest.raises(TypeError, match="not str"):
+        bulk_microphysics_tendencies(mp, TPS, *args[:-2], "9")
+    with pytest.raises(NotImplementedError, match="float32 and float64"):
+        bulk_microphysics_tendencies(mp, TPS, *(a.half() for a in args))
+
+
+def _tend_spans_probe(steps=3):
+    """Three tendency calls under a CPU and CUDA profiler: the trace's
+    totals, the device's kernels and, for each launch span, the runtime
+    launch calls inside each of its ranges and whether ``tendencies.p3``
+    holds the range."""
+    from cloudmicrophysics_tpu_torch.models.tendencies import (
+        bulk_microphysics_tendencies,
+    )
+
+    device = torch.device("cuda", 0)
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=8)
+    st = _state_p3(256, 64, device)
+    args = _tend_args(st, K5.loglambda_p3_fused(st, mp, TPS))
+    trace.reset()
+    prof = _profiled(lambda: bulk_microphysics_tendencies(mp, TPS, *args),
+                     steps)
+    totals = trace.totals()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    runtime = [e.time_range for e in events
+               if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
+    outer = [e.time_range for e in events if e.name == "tendencies.p3"]
+    spans = {}
+    for name in ("launch.p3tend_bounds", "launch.k5b", "launch.p3tend_rates"):
+        ranges = [e.time_range for e in events if e.name == name]
+        spans[name] = {
+            "count": totals[name]["count"],
+            "inside": [sum(r.start <= x.start and x.end <= r.end
+                           for x in runtime) for r in ranges],
+            "held": [any(o.start <= r.start and r.end <= o.end
+                         for o in outer) for r in ranges]}
+    trace.reset()
+    return {"outer": totals["tendencies.p3"]["count"], "spans": spans,
+            "kernels": [e.name for e in events if e.device_type == cuda
+                        and not e.name.startswith(("Memcpy", "Memset"))]}
+
+
+def test_p3_tendency_spans_hold_their_launches_on_the_profiler_clock(device):
+    """Under the profiler, a tendency call's three launches each lie in
+    their span (``launch.p3tend_bounds``, ``launch.k5b``,
+    ``launch.p3tend_rates``) inside ``tendencies.p3``, and the device ran
+    the three kernels a call, the tendency build's by name. The profile is
+    taken in a fresh process: run after the whole file's earlier tests,
+    this process's profiler recorded the spans but no device kernel."""
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parents[1]
+    code = (f"import sys, json; sys.path[:0] = [{str(root)!r}, "
+            f"{str(root / 'tests')!r}]; import test_torch_cuda as T; "
+            "print(json.dumps(T._tend_spans_probe(3)))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=root, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    steps = 3
+    assert got["outer"] == steps
+    kernels = got["kernels"]
+    assert len(kernels) == 3 * steps
+    for part in ("column_p3_bounds_kernel", "column_p3_nodes_kernel",
+                 "column_p3_tend_rates_kernel"):
+        assert sum(part in k for k in kernels) == steps, part
+    for name, span in got["spans"].items():
+        assert span["count"] == steps, name
+        assert span["inside"] == [1] * steps, name
+        assert span["held"] == [True] * steps, name
+
+
+def test_k5b_is_one_code_in_the_column_and_tendency_builds(device):
+    """The node pass the tendency build launches is the column build's K5b,
+    instruction for instruction (the K5_TEND switch leaves it alone)."""
+    from cloudmicrophysics_tpu_torch.kernels import opcount
+
+    v = K5.Variant(order=40)
+
+    def node_pass(build):
+        # each branch target as the place of the instruction it names (the
+        # labels are numbered across the library)
+        sass = opcount.disassemble(K5.library_path(build, v))
+        body = [i for i in opcount.parse_sass(sass)
+                if "column_p3_nodes_kernel" in i.function]
+        at = {lab: k for k, i in enumerate(body) for lab in i.labels}
+        return [(i.opcode, i.predicated, at.get(i.target)) for i in body]
+
+    column, tend = node_pass("kernel"), node_pass("tend")
+    assert column and column == tend
