@@ -261,8 +261,15 @@ then, failing at the first phase that does not hold:
     three kernels alone, the host's shape solve (K5a) and the plain version
     (on the compared columns) by CUDA events. Read before the kernels are
     timed alone, each launch counter must have risen by exactly the entry
-    point's calls at full size (a parity call, a warm-up, five timed), and
-    ``tendencies.points`` and ``tendencies.kernel_points`` by their points.
+    point's calls at full size (a parity call, a warm-up, five timed),
+    ``tendencies.points`` and ``tendencies.kernel_points`` by their points
+    and ``tendencies.ice_points`` by the points of the K5b warps that hold
+    ice (at GL-40 a warp a point: the host's count of points with ice).
+    K5b alone is timed at ice in none, the cell's share, every other and
+    every point of the grid (the tendency build skips a warp without ice).
+    With ``K5_PARENT_TREE`` naming a checkout of another commit, the
+    column build's SASS at GL-16 and GL-40 must be that checkout's, text
+    for text.
 
 Then it prints the ``expf`` probe's JSON object on a line of its own,
 phase 15's JSON object (``{"zero_d": ...}``, with the card's name and
@@ -283,6 +290,7 @@ Without a CUDA device it exits with a non-zero code and prints no result.
 
 import json
 import functools
+import os
 import subprocess
 import sys
 import time
@@ -4208,6 +4216,10 @@ def _run_tendencies(device, gpu_line):
         return bulk_microphysics_tendencies(mp, tps, *args)
 
     n = args[0].numel()
+    eps = torch.finfo(torch.float32).eps
+    icy = int(((args[7].clamp_min(0) > eps)
+               & (args[8].clamp_min(0) > eps)).sum())
+    ice_before = trace.counter("tendencies.ice_points")
     got = call()
     cols = torch.arange(0, ncol, 8, device=device)
     t0 = time.perf_counter()
@@ -4223,6 +4235,10 @@ def _run_tendencies(device, gpu_line):
             for k in names}
     if counted != want:
         raise AssertionError(f"counters rose by {counted}, not {want}")
+    ice_points = trace.counter("tendencies.ice_points") - ice_before
+    if ice_points != calls * icy:
+        raise AssertionError(f"tendencies.ice_points rose by {ice_points}, "
+                             f"not {calls} x {icy}")
     print(f"  parity: {len(result['parity'])} cases bit-identical to the "
           f"plain version ({', '.join(result['parity'])}); largest "
           f"difference {result['max_abs_err']:g}")
@@ -4234,16 +4250,40 @@ def _run_tendencies(device, gpu_line):
     flat = ColumnStateP3(*(a.reshape(-1) for a in args[:11]))
     scratch = torch.empty(plan.scratch_shape, device=device)
     out = torch.empty((len(K5.TEND_FIELDS), n), device=device)
+    sink = torch.zeros((), dtype=torch.int64, device=device)  # read by none
     parts = {
         "bounds": lambda: K5.launch_tend_bounds(
             lib, flat, args[11], scratch, params, plan, device),
         "nodes": lambda: K5.launch_nodes(lib, flat, scratch, params, plan,
-                                         device),
+                                         device, sink),
         "rates": lambda: K5.launch_tend_rates(
             lib, flat, args[12], out, scratch, params, K5.warm_variant(mp),
             device),
     }
     part_ms = {k: min(_time_ms(fn, 5)) for k, fn in parts.items()}
+    # K5b alone at other ice layouts of the same grid (the bounds kernel
+    # first, on each layout's fields)
+    nodes_ms = {"cell": part_ms["nodes"]}
+    flat_idx = torch.arange(n, device=device)
+    for label, where in (("none", flat_idx < 0),
+                         ("every other point", flat_idx % 2 == 0),
+                         ("every point", flat_idx >= 0)):
+        has = (flat.q_ice > 0) & (flat.n_ice > 0)
+        zero = torch.zeros((), device=device)
+        lay = flat._replace(
+            q_ice=torch.where(where, torch.where(has, flat.q_ice, 1e-4),
+                              zero),
+            n_ice=torch.where(where, torch.where(has, flat.n_ice, 1e5),
+                              zero),
+            q_rim=torch.where(where & has, flat.q_rim, zero),
+            b_rim=torch.where(where & has, flat.b_rim, zero))
+        K5.launch_tend_bounds(lib, lay, args[11].reshape(-1), scratch,
+                              params, plan, device)
+        nodes_ms[label] = min(_time_ms(lambda: K5.launch_nodes(
+            lib, lay, scratch, params, plan, device, sink), 5))
+        del lay
+    result["nodes_ms_by_ice"] = nodes_ms
+    result["ice_share"] = icy / n
     solve_ms = min(_time_ms(lambda: K5.loglambda_p3_fused(
         ColumnStateP3(*args[:11]), mp, tps, args[11], params=params), 5))
     result["launches"] = {k.split(".", 1)[1]: v for k, v in counted.items()
@@ -4257,11 +4297,57 @@ def _run_tendencies(device, gpu_line):
           f"rates {part_ms['rates']:.3f} ms alone); the host's shape solve "
           f"(K5a, warm) {solve_ms:.3f} ms; the plain version {plain_s:.1f} s "
           f"over an eighth of the columns; counters over the entry point's "
-          f"{calls} calls {counted}")
+          f"{calls} calls {counted}, tendencies.ice_points {ice_points} "
+          f"(share {icy / n:.6f})")
+    print(f"  K5b alone by ice layout (ms): {nodes_ms}")
     del args, flat, scratch, out
     torch.cuda.empty_cache()
+    if os.environ.get("K5_PARENT_TREE"):
+        result["column_sass"] = _column_sass_ab(os.environ["K5_PARENT_TREE"])
     print(f"== phase 22: {time.perf_counter() - t_phase:.1f} s")
     return result
+
+
+def _column_sass(root, order):
+    """The SASS of the column build (no ``-DK5_TEND``) of ``column_p3.cu``
+    at ``order`` in the checkout ``root``, built there by a process of its
+    own (``opcount.disassemble``), without what names the source rather
+    than the code: the line table's ``//##`` lines and the hash of the
+    source's text that nvcc writes into the names of its anonymous
+    namespace (``_GLOBAL__N__<hash>_``, ``_INTERNAL_<hash>_``)."""
+    import re
+
+    from cloudmicrophysics_tpu_torch.kernels import opcount
+
+    code = ("import sys; sys.path.insert(0, '.'); "
+            "from cloudmicrophysics_tpu_torch.kernels import column_p3 as K; "
+            f"print(K.library_path('kernel', K.Variant(order={order})))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
+                         capture_output=True, text=True, timeout=900)
+    sass = opcount.disassemble(Path(root) / out.stdout.strip().splitlines()[-1])
+    sass = "\n".join(line for line in sass.splitlines() if "//##" not in line)
+    return re.sub(r"(_GLOBAL__N__|_INTERNAL_)[0-9a-f]{8}_", r"\1", sass)
+
+
+def _column_sass_ab(parent):
+    """Whether the column build's SASS at GL-16 and GL-40 is, text for
+    text, that of the checkout ``parent``; raises where it is not."""
+    here = Path(__file__).resolve().parent
+    out = {}
+    for order in (16, 40):
+        mine = _column_sass(here, order)
+        theirs = _column_sass(Path(parent).resolve(), order)
+        row = {"lines": mine.count("\n"), "same_as_parent": mine == theirs}
+        if mine != theirs:
+            pairs = [(a, b) for a, b in zip(mine.splitlines(),
+                                            theirs.splitlines()) if a != b]
+            row["lines_differing"] = len(pairs), pairs[:4]
+        print(f"  column build GL-{order} SASS against {parent}'s: {row}")
+        out[f"GL-{order}"] = row
+    if not all(r["same_as_parent"] for r in out.values()):
+        raise AssertionError(f"the column build's SASS differs from "
+                             f"{parent}'s: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------

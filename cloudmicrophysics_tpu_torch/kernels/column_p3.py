@@ -35,7 +35,8 @@ The same source built with ``-DK5_TEND`` (:data:`TEND_BUILDS`) is the
 point-wise fused tendencies of ``bulk_tendencies_2m`` with P3 ice
 (:func:`p3_tendencies_fused`, what :func:`..models.tendencies.
 bulk_tendencies_2m` launches on CUDA fields): K5a with log lambda an input
-rather than solved (:func:`launch_tend_bounds`), the same K5b, and a thread a
+rather than solved (:func:`launch_tend_bounds`), K5b without the node pass
+of warps that hold no ice, and a thread a
 point running K5c's rates with a per-point INP log shift, writing the eight
 :class:`..models.tendencies.Tendencies2M` fields (:func:`launch_tend_rates`):
 no column, no sedimentation, no update.
@@ -67,11 +68,16 @@ parameter buffer, the library, the outputs and the scratch record) is the
 span ``column.prepare`` and its three launches the spans ``launch.k5a``,
 ``launch.k5b`` and ``launch.k5c``; each launch adds one to the counter
 ``launches.<launcher>`` and each step to ``launches.step_column_p3_fused``;
-K5b's launch adds the lane-node evaluations it runs to ``k5b.node_evals``
-and the ice nodes it sums to ``k5b.nodes`` (:mod:`..trace`). A tendency call
-launches ``launch.p3tend_bounds``, ``launch.k5b`` and ``launch.p3tend_rates``
-(counters ``launches.launch_tend_bounds``, ``launches.launch_nodes``,
-``launches.launch_tend_rates``).
+K5b's launch adds the lane-node evaluations of its launch plan to
+``k5b.node_evals`` and the ice nodes it sums to ``k5b.nodes``
+(:mod:`..trace`). A tendency call launches ``launch.p3tend_bounds``,
+``launch.k5b`` and ``launch.p3tend_rates`` (counters
+``launches.launch_tend_bounds``, ``launches.launch_nodes``,
+``launches.launch_tend_rates``); its K5b skips a warp none of whose cells
+holds ice (the rates kernel discards such a cell's sums by select) and
+adds the cells it ran to the device counter :data:`ICE_POINTS`, so there
+``k5b.node_evals`` and ``k5b.nodes`` count the launch plan, not the nodes
+run.
 """
 
 from __future__ import annotations
@@ -561,14 +567,17 @@ def _bind(lib: ctypes.CDLL, build: str, v: Variant) -> ctypes.CDLL:
         lib.column_p3_tend_bounds.argtypes = [_P, _P, _P, _P, _L, _I, _I, _P]
         lib.column_p3_tend_rates.argtypes = [_P, _P, _P, _P, _P, _L, _I, _I,
                                              _I, _I, _P]
+        lib.column_p3_nodes.argtypes = [_P, _P, _P, _P, _L, _I, _I, _P]
         launchers = (lib.column_p3_tend_bounds, lib.column_p3_tend_rates,
                      lib.column_p3_tend_rates_count)
     else:
         lib.column_p3_solve.argtypes = [_P, _P, _P, _P, _P, _L, _I, _I, _P]
         lib.column_p3_epilogue.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
                                            _I, _F, _F, _I, _I, _I, _P]
+        lib.column_p3_nodes.argtypes = [_P, _P, _P, _L, _I, _I, _P]
         launchers = (lib.column_p3_solve, lib.column_p3_epilogue)
-    lib.column_p3_nodes.argtypes = [_P, _P, _P, _L, _I, _I, _P]
+    # whether its K5b takes the int64 it adds the cells it ran to
+    lib.counts_node_cells = build in TEND_BUILDS
     for fn in launchers + (lib.column_p3_nodes, lib.column_p3_num_params,
                lib.column_p3_scratch_fields, lib.column_p3_lanes_per_cell,
                lib.column_p3_node_chunk, lib.column_p3_node_chunks,
@@ -684,12 +693,21 @@ def launch_solve(lib, state, guess, loglam, scratch, params, plan, device):
                   span="launch.k5a", counter="launch_solve")
 
 
-def launch_nodes(lib, state, scratch, params, plan, device):
-    """K5b on the current stream: the node-pass sums of ``scratch``."""
+def launch_nodes(lib, state, scratch, params, plan, device, ran=None):
+    """K5b on the current stream: the node-pass sums of ``scratch``. A
+    tendency build's skips the warps whose cells hold no ice, leaving their
+    rows of sums unwritten, and adds the cells whose node pass ran to
+    ``ran``, an int64 0-d tensor on ``device`` (None: a fresh one, which
+    nothing reads); the column build's takes no ``ran``."""
     cells = state.rho.numel()
+    counted = ()
+    if lib.counts_node_cells:
+        if ran is None:
+            ran = torch.zeros((), dtype=torch.int64, device=device)
+        counted = (ran.data_ptr(),)
     _build.launch(lib.column_p3_nodes, _ptrs(state), scratch.data_ptr(),
-                  params.data_ptr(), cells, plan.nodes_grid, device.index,
-                  torch.cuda.current_stream(device).cuda_stream,
+                  params.data_ptr(), *counted, cells, plan.nodes_grid,
+                  device.index, torch.cuda.current_stream(device).cuda_stream,
                   span="launch.k5b", counter="launch_nodes")
     trace.count("k5b.node_evals",
                 cells * plan.lanes_per_cell * plan.node_passes)
@@ -788,6 +806,9 @@ def step_column_p3_fused(state: ColumnStateP3, mp, tps, dt, dz,
 # the rates a tendency call writes, in Tendencies2M's order (kRates in
 # csrc/column_p3.cu)
 TEND_FIELDS = BMT.Tendencies2M._fields
+# the counter of the points whose node pass a tendency call ran: every
+# point of a K5b warp that holds ice (trace.device_counter)
+ICE_POINTS = "tendencies.ice_points"
 
 # the parameter buffers of the last few (mp, tps, device, dtype) a tendency
 # call met, so that a host calling every step builds its buffer once
@@ -935,7 +956,8 @@ def p3_tendencies_fused(mp, tps, rho, T, q_tot, q_lcl, n_lcl, q_rai, n_rai,
         with _build.launching(lib):
             launch_tend_bounds(lib, flat, loglam, scratch, params, plan,
                                device)
-            launch_nodes(lib, flat, scratch, params, plan, device)
+            launch_nodes(lib, flat, scratch, params, plan, device,
+                         trace.device_counter(ICE_POINTS, device))
             launch_tend_rates(lib, flat, None if shift is None
                               else shift.reshape(-1), out, scratch, params,
                               warm_variant(mp), device)

@@ -86,7 +86,8 @@
 // tendencies of models/tendencies.py:bulk_tendencies_2m with P3 ice (no
 // column, no sedimentation, no update): K5a as column_p3_bounds_kernel,
 // which takes log lambda as an input (the host's solve) and clamps rho as
-// bulk_tendencies_2m does before p3_step_aux, then the same K5b, then
+// bulk_tendencies_2m does before p3_step_aux, then K5b (skipping a warp
+// whose cells hold no ice, and counting the cells it ran), then
 // column_p3_tend_rates_kernel<LIMITED, CHEN>, a thread per point running
 // K5c's cell_epilogue with a per-point INP log shift (none: 0) and writing
 // the eight rates. Without K5_TEND the source is the column step above,
@@ -109,7 +110,9 @@
 // Infinities: D_gr and D_cr are +inf for unrimed ice, collapsed segments
 // carry zero weight and -inf log moments (excluded from the logsumexp), and
 // cells without ice run the node pass on the placeholder state of
-// p3_step_aux and are masked, as in the eager step.
+// p3_step_aux and are masked, as in the eager step; with K5_TEND a warp
+// whose cells all lack ice skips the node pass, whose sums the rates
+// kernel would discard.
 //
 // Operation counts: built with -DK5_PROBE, every K5_COUNT(region) adds one to
 // a per-thread counter of that region and, once per warp, to a per-warp one
@@ -1299,6 +1302,9 @@ __device__ __forceinline__ void liquid_factors(const scalar* __restrict__ P,
 template <int N>
 __global__ void __launch_bounds__(kNodeThreads, NodePass<N>::MIN_BLOCKS)
 column_p3_nodes_kernel(Fields f, const scalar* __restrict__ P, real* __restrict__ scr,
+#ifdef K5_TEND
+                       unsigned long long* __restrict__ ran,
+#endif
                        int64_t ncells) {
   using O = Orders<N>;
   using L = NodePass<N>;
@@ -1313,6 +1319,24 @@ column_p3_nodes_kernel(Fields f, const scalar* __restrict__ P, real* __restrict_
   // a slot past the last cell repeats the last cell and stores nothing, so
   // that every lane of the warp reaches each __syncwarp
   const int64_t c = active ? cell : ncells - 1;
+#if defined(K5_TEND) && !defined(K5_TEND_NO_SKIP)
+  {
+    // The rates kernel keeps a cell's node sums only where it holds ice,
+    // by this test on the same inputs, and discards them by select
+    // elsewhere: a warp none of whose cells holds ice does no node work
+    // and writes nothing. The decision is the warp's, so every lane of a
+    // warp that runs reaches each __syncwarp. The block adds its cells
+    // whose node pass runs to *ran, once. (-DK5_TEND_NO_SKIP leaves the
+    // skip and its count out, so that a test can hold the rest of this
+    // K5b to the column build's, instruction for instruction.)
+    const real q_ice = f.in[7][c], n_ice = f.in[8][c];
+    const bool has_ice = maxf(q_ice, real(0)) > PV(EM) && maxf(n_ice, real(0)) > PV(EN);
+    const bool run = __any_sync(0xffffffffu, has_ice);
+    const int runs = __syncthreads_count(run && active && lane == 0);
+    if (threadIdx.x == 0 && runs > 0) atomicAdd(ran, (unsigned long long)runs);
+    if (!run) return;
+  }
+#endif
   NodeShared<N>& sh = smem[slot];
   const real tiny = PV(TINY);
   const real* __restrict__ rec = scr + c;
@@ -2082,14 +2106,22 @@ int column_p3_solve(const scalar* const* in, const scalar* guess, scalar* loglam
 #endif
 
 // K5b: the node pass over the scratch record; `grid` blocks of
-// kNodeThreads, column_p3_lanes_per_cell() lanes per cell.
+// kNodeThreads, column_p3_lanes_per_cell() lanes per cell. With K5_TEND it
+// adds the cells whose node pass ran to the device's int64 *ran.
 int column_p3_nodes(const scalar* const* in, scalar* scratch, const scalar* params,
+#ifdef K5_TEND
+                    long long* ran,
+#endif
                     long long ncells, int grid, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Fields f = make_fields(in, nullptr, nullptr, nullptr);
   column_p3_nodes_kernel<kOrder><<<grid, kNodeThreads, 0, (cudaStream_t)stream>>>(
-      f, params, reinterpret_cast<real*>(scratch), ncells);
+      f, params, reinterpret_cast<real*>(scratch),
+#ifdef K5_TEND
+      reinterpret_cast<unsigned long long*>(ran),
+#endif
+      ncells);
   return (int)cudaGetLastError();
 }
 

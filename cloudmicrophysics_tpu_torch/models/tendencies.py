@@ -526,7 +526,9 @@ def bulk_tendencies_2m(mp: Microphysics2MParams, tps: TPS, rho, T, q_tot,
     :func:`bulk_tendencies_2m_plain` differentiates. Otherwise the call
     runs the eager code. Every P3 call adds its points to the counter
     ``tendencies.points``, a kernel call to ``tendencies.kernel_points``
-    too.
+    too, and its points whose ice node pass ran (those of a node-pass warp
+    with ice) to ``tendencies.ice_points`` on the device, which
+    :func:`..trace.counter` reads.
     """
     if getattr(mp, "ice", None) is None:
         return bulk_tendencies_2m_plain(

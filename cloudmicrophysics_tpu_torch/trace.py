@@ -22,8 +22,12 @@ slots of K3/K4's 32-cell windows, beside ``k3.cells``, the cells they
 step; ``activation.smax_points`` beside ``activation.points``, the
 points whose maximum supersaturation was computed and those activated)
 and for set-up seconds
-(:func:`timed`). :func:`reset` clears the span totals; counters
-run for the life of the process.
+(:func:`timed`). A counter that a kernel adds to on the device
+(:func:`device_counter`: ``tendencies.ice_points``, the points whose P3
+node pass ran) is a tensor there, which the step path never reads: it is
+folded into the counter only when :func:`counter` reads it, which then
+waits for the device. :func:`reset` clears the span totals; counters run
+for the life of the process.
 
 Span totals are per process; the open spans are kept per thread.
 """
@@ -37,8 +41,8 @@ import time
 import torch
 from torch.autograd import profiler as _profiler
 
-__all__ = ["add_seconds", "count", "counter", "recording", "reset", "span",
-           "timed", "totals"]
+__all__ = ["add_seconds", "count", "counter", "device_counter", "recording",
+           "reset", "span", "timed", "totals"]
 
 # The profiler's record function a recording span enters: torch's fast one,
 # of function scope. torch.profiler.record_function is of user scope, and
@@ -51,6 +55,7 @@ _NULL = contextlib.nullcontext()
 _LOCK = threading.Lock()
 _COUNTERS: dict = {}
 _TOTALS: dict = {}           # name -> [count, total_ns, self_ns]
+_DEVICE: dict = {}           # (name, device) -> int64 accumulator tensor
 _LOCAL = threading.local()   # .open: this thread's open spans
 
 
@@ -138,9 +143,31 @@ def add_seconds(name: str, seconds: float) -> None:
 
 
 def counter(name: str):
-    """The counter ``name``: 0 until something has been added to it."""
+    """The counter ``name``: 0 until something has been added to it. Its
+    device accumulators (:func:`device_counter`) are read here, after
+    their devices finish what they were given."""
     with _LOCK:
-        return _COUNTERS.get(name, 0)
+        value = _COUNTERS.get(name, 0)
+        kept = [t for (n, _), t in _DEVICE.items() if n == name]
+    for t in kept:
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        value += int(t.item())
+    return value
+
+
+def device_counter(name: str, device) -> torch.Tensor:
+    """The int64 0-d tensor on ``device`` that kernels add to for the
+    counter ``name`` (zero when first asked for; the same tensor after
+    that). Adding to it costs the step no host sync: :func:`counter` reads
+    it."""
+    key = (name, torch.device(device))
+    with _LOCK:
+        t = _DEVICE.get(key)
+        if t is None:
+            t = _DEVICE[key] = torch.zeros((), dtype=torch.int64,
+                                           device=key[1])
+        return t
 
 
 @contextlib.contextmanager

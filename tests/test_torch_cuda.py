@@ -24,7 +24,10 @@ parcel within rtol 1e-6 of the JAX record
 through K5, bit for bit with the plain step. The ARG2000 number and mass
 kernels are bit for bit the eager activation at float32 and float64 on
 the cell ``arg_mam4``'s state, the emulator's draw, ``chip_smoke.py``'s
-two-mode states, a ``ModeB`` mode and broadcast fields.
+two-mode states, a ``ModeB`` mode and broadcast fields. The point-wise P3
+tendencies are bit for bit the eager code at every K5 variant and at ice
+layouts from none to every point, also where K5b skips warps without ice
+and its scratch record holds NaN.
 """
 
 import json
@@ -1536,6 +1539,132 @@ def test_p3_tendency_cuda_rejections(device):
         bulk_microphysics_tendencies(mp, TPS, *(a.half() for a in args))
 
 
+def _with_ice(fields, where, q_ice=1e-4, n_ice=1e5):
+    """``fields`` (a P3 state's eleven) with ice at every point of the mask
+    ``where`` (of their shape) and none elsewhere: a point keeps its own ice
+    where it has some, else gets unrimed ice of ``q_ice`` and ``n_ice``."""
+    has = (fields[7] > 0) & (fields[8] > 0)
+    zero = torch.zeros((), dtype=fields[0].dtype, device=fields[0].device)
+    out = list(fields)
+    out[7] = torch.where(where, torch.where(has, fields[7], q_ice), zero)
+    out[8] = torch.where(where, torch.where(has, fields[8], n_ice), zero)
+    for k in (9, 10):
+        out[k] = torch.where(where & has, fields[k], zero)
+    return ColumnStateP3(*out)
+
+
+def _node_pass_points(fields, order):
+    """The points whose K5b node pass a tendency call runs: every point of
+    a warp (32 // G cells, G K5b's lanes a cell) with a point that holds
+    ice, the test of bulk_tendencies_2m's has_ice."""
+    from cloudmicrophysics_tpu_torch.utils.special import machine_eps
+
+    eps = machine_eps(fields[0].dtype)
+    has = ((fields[7].reshape(-1).clamp_min(0) > eps)
+           & (fields[8].reshape(-1).clamp_min(0) > eps))
+    per_warp = 32 // K5.lanes_per_cell(order)
+    pad = -has.numel() % per_warp
+    warps = torch.cat([has, has.new_zeros(pad)]).view(-1, per_warp)
+    runs = warps.any(dim=1, keepdim=True).expand_as(warps).reshape(-1)
+    return int(runs[:has.numel()].sum()), int(has.sum())
+
+
+def _tend_layout(name, device, dtype):
+    """``(fields, order)`` of a named ice layout: none, at every point, the
+    cell ``p3_tend_gl40``'s contiguous third, every other point, and at
+    GL-4 (several cells a K5b warp) in one point of each pair of every
+    other pair, so that a warp of two cells runs with one icy cell and
+    warps without ice skip."""
+    if name == "cell":
+        return ColumnStateP3(*_tend_cell_state(device, dtype, 256)[:11]), 40
+    base = _state_p3(64, 63, device, dtype)
+    flat = torch.arange(base.rho.numel(), device=device).view_as(base.rho)
+    masks = {"no ice": flat < 0, "all ice": flat >= 0,
+             "every other point": flat % 2 == 0,
+             "GL-4, two cells a warp": flat % 4 == 0}
+    order = 4 if name.startswith("GL-4") else 40
+    return _with_ice(base, masks[name]), order
+
+
+TEND_ICE_LAYOUTS = ("no ice", "all ice", "cell", "every other point",
+                    "GL-4, two cells a warp")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", TEND_ICE_LAYOUTS)
+def test_p3_tendency_node_pass_skips_warps_without_ice(device, layout,
+                                                        dtype):
+    """K5b of the tendency build runs the node pass only in warps that hold
+    ice. The route stays bit for bit the eager code at every ice layout,
+    also with its three kernels run on a scratch record filled with NaN
+    (no row a skipped warp leaves unwritten reaches a rate), and
+    ``tendencies.ice_points`` rises by the points of the warps that ran: the
+    host's count of points with ice where a warp is one cell (GL-40), 0
+    and every point at the extremes."""
+    from cloudmicrophysics_tpu_torch.models.tendencies import (
+        bulk_microphysics_tendencies,
+        bulk_tendencies_2m_plain,
+    )
+
+    fields, order = _tend_layout(layout, device, dtype)
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=order)
+    args = _tend_args(fields, K5.loglambda_p3_fused(fields, mp, TPS))
+    ran, icy = _node_pass_points(fields, order)
+    n = fields.rho.numel()
+    if layout == "no ice":
+        assert ran == icy == 0
+    elif layout == "all ice":
+        assert ran == icy == n
+    elif order == 40:
+        assert ran == icy and 0 < icy < n
+    else:
+        assert icy < ran < n
+    before = trace.counter("tendencies.ice_points")
+    got = bulk_microphysics_tendencies(mp, TPS, *args)
+    assert trace.counter("tendencies.ice_points") - before == ran
+    want = bulk_tendencies_2m_plain(mp, TPS, *args)
+    _tend_same(got, want)
+
+    lib = K5._library("tend", K5.variant(mp, dtype))
+    plan = K5.launch_plan(n, 1, order, 1, dtype)
+    params = K5.kernel_params_p3(mp, TPS, device=device, dtype=dtype)
+    flat = ColumnStateP3(*(a.reshape(-1) for a in args[:11]))
+    scratch = torch.full(plan.scratch_shape, float("nan"), dtype=dtype,
+                         device=device)
+    out = torch.empty((len(K5.TEND_FIELDS), n), dtype=dtype, device=device)
+    count = torch.zeros((), dtype=torch.int64, device=device)
+    K5.launch_tend_bounds(lib, flat, args[11].reshape(-1), scratch, params,
+                          plan, device)
+    K5.launch_nodes(lib, flat, scratch, params, plan, device, count)
+    K5.launch_tend_rates(lib, flat, args[12].reshape(-1), out, scratch,
+                         params, K5.warm_variant(mp), device)
+    assert int(count) == ran
+    _tend_same(type(want)(*(r.view_as(fields.rho) for r in out)), want)
+
+
+def test_p3_tendency_call_makes_no_host_sync(device):
+    """A tendency call (after its first, which builds and loads) queues its
+    kernels and adds to ``tendencies.ice_points`` on the device without a
+    host sync; reading the counter waits for the device."""
+    from cloudmicrophysics_tpu_torch.models.tendencies import (
+        bulk_microphysics_tendencies,
+    )
+
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=40)
+    fields = ColumnStateP3(*_tend_cell_state(device, torch.float32, 64)[:11])
+    args = _tend_args(fields, K5.loglambda_p3_fused(fields, mp, TPS))
+    bulk_microphysics_tendencies(mp, TPS, *args)
+    before = trace.counter("tendencies.ice_points")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            bulk_microphysics_tendencies(mp, TPS, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ran, _ = _node_pass_points(fields, 40)
+    assert trace.counter("tendencies.ice_points") - before == 2 * ran > 0
+
+
 def _tend_spans_probe(steps=3):
     """Three tendency calls under a CPU and CUDA profiler: the trace's
     totals, the device's kernels and, for each launch span, the runtime
@@ -1605,20 +1734,47 @@ def test_p3_tendency_spans_hold_their_launches_on_the_profiler_clock(device):
 
 
 def test_k5b_is_one_code_in_the_column_and_tendency_builds(device):
-    """The node pass the tendency build launches is the column build's K5b,
-    instruction for instruction (the K5_TEND switch leaves it alone)."""
-    from cloudmicrophysics_tpu_torch.kernels import opcount
+    """The node pass the tendency build launches is the column build's K5b
+    behind the tendency build's skip. Built without the skip
+    (``-DK5_TEND_NO_SKIP``), the tendency build's K5b is the column
+    build's instruction for instruction: opcode, guard and branch target,
+    in order. With it, it holds the same floating-point arithmetic and the
+    same stores, opcode for opcode (the compiler orders them differently
+    around the skip), plus the warp's vote, the block's count of its
+    running cells and its one atomic add."""
+    from collections import Counter
+
+    from cloudmicrophysics_tpu_torch.kernels import _build, opcount
 
     v = K5.Variant(order=40)
+    no_skip = _build.build(K5.SOURCE, "column_p3_params.h", K5.header(v),
+                           K5._flags(v, "tend") + ("-DK5_TEND_NO_SKIP",))
 
-    def node_pass(build):
+    def node_pass(library):
+        sass = opcount.disassemble(library)
+        return [i for i in opcount.parse_sass(sass)
+                if "column_p3_nodes_kernel" in i.function]
+
+    def in_order(body):
         # each branch target as the place of the instruction it names (the
         # labels are numbered across the library)
-        sass = opcount.disassemble(K5.library_path(build, v))
-        body = [i for i in opcount.parse_sass(sass)
-                if "column_p3_nodes_kernel" in i.function]
         at = {lab: k for k, i in enumerate(body) for lab in i.labels}
         return [(i.opcode, i.predicated, at.get(i.target)) for i in body]
 
-    column, tend = node_pass("kernel"), node_pass("tend")
-    assert column and column == tend
+    def kept(body):
+        return Counter(i.opcode for i in body
+                       if i.opcode.split(".")[0] in (
+                           "FADD", "FMUL", "FFMA", "MUFU", "DADD", "DMUL",
+                           "DFMA", "STG", "STS", "ST"))
+
+    def skip(body):
+        ops = Counter(i.opcode for i in body)
+        return [sum(n for k, n in ops.items() if k.startswith(prefix))
+                for prefix in ("VOTE.ANY", "BAR.RED.POPC", "REDG.E.ADD")]
+
+    column = node_pass(K5.library_path("kernel", v))
+    tend = node_pass(K5.library_path("tend", v))
+    assert column and in_order(column) == in_order(node_pass(no_skip))
+    assert kept(column) and kept(column) == kept(tend)
+    assert skip(column) == [0, 0, 0]
+    assert skip(tend) == [1, 1, 1]

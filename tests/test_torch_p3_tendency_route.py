@@ -16,6 +16,9 @@ benchmark's frozen host step (``bench_h100/reference/tendencies_p3.py``):
   the eager path and its gradients (the reference's AD contract: log
   lambda an input, held fixed); a gradient through a CPU call is finite;
 * the counters ``tendencies.points`` and ``tendencies.kernel_points``;
+  ``tendencies.ice_points``, which the card adds to and ``trace.counter``
+  reads (a CPU call adds nothing), and the benchmark's reader of their
+  share, ``tendencies.ice_share``;
 * the kernel entry's fields (``kernels/column_p3.tend_inputs``): None,
   Python numbers, 0-d tensors, broadcast shapes and strided fields made
   into full contiguous fields
@@ -267,3 +270,85 @@ def test_the_kernel_entry_takes_the_fields_as_the_eager_code(form):
     got = TT.bulk_tendencies_2m_plain(mp, TPS, *map(_plain, inputs), shift)
     for name, a, b in zip(TT.Tendencies2M._fields, got, want):
         assert torch.equal(a, b.expand_as(a)), name
+
+
+def test_a_device_counter_is_folded_in_when_read():
+    """``trace.device_counter``: one int64 0-d tensor a name and device,
+    zero when first asked for, that kernels add to where it lies; the step
+    path never reads it, and ``trace.counter`` adds its value to the host's
+    adds each time the counter is read (reading adds nothing). The P3
+    tendency route's is ``tendencies.ice_points``."""
+    name = "test.device_counter_fold"
+    acc = trace.device_counter(name, "cpu")
+    assert acc.dtype == torch.int64 and acc.shape == () and int(acc) == 0
+    assert trace.device_counter(name, torch.device("cpu")) is acc
+    assert trace.counter(name) == 0
+    acc += 5                      # what a launch adds on its device
+    trace.count(name, 2)
+    assert trace.counter(name) == 7
+    assert trace.counter(name) == 7
+    acc += 1
+    assert trace.counter(name) == 8
+    assert K5.ICE_POINTS == "tendencies.ice_points"
+
+
+def test_a_cpu_call_runs_no_node_pass_on_the_card():
+    # the eager path counts its points, never the kernel's ice points
+    state = _state(torch.float32)
+    mp = microphysics_2m_params(with_ice=True, quadrature_order=8)
+    fields = state[:len(R.PROGNOSTIC)]
+    ll = K5.loglambda_p3_plain(K5.ColumnStateP3(*fields), mp)
+    names = ("tendencies.points", "tendencies.ice_points")
+    before = [trace.counter(n) for n in names]
+    TT.bulk_microphysics_tendencies(mp, TPS, *fields, ll,
+                                    state.inpc_log_shift)
+    after = [trace.counter(n) for n in names]
+    assert [a - b for a, b in zip(after, before)] == [NCOL * NLEV, 0]
+
+
+class _Registry:
+    """A program's counters as the benchmark's readers see them, with or
+    without device counters (``trace.device_counter``)."""
+
+    def __init__(self, counters, device_counters=True):
+        self.counters = counters
+        if device_counters:
+            self.device_counter = trace.device_counter
+
+    def counter(self, name):
+        return self.counters.get(name, 0)
+
+
+@pytest.mark.parametrize("counters,device_counters,want", [
+    (None, True, None),                                     # no registry
+    ({"tendencies.kernel_points": 5443200}, False, None),   # no counter
+    ({}, True, None),                                       # no kernel call
+    ({"tendencies.kernel_points": 200, "tendencies.ice_points": 70}, True,
+     0.35),
+    ({"tendencies.kernel_points": 200, "tendencies.ice_points": 200}, True,
+     1.0),
+    ({"tendencies.kernel_points": 200}, True, 0.0),         # no ice
+])
+def test_the_ice_share_reader(monkeypatch, counters, device_counters, want):
+    """``bench_h100/metrics/tendencies.ice_share.py``: the points whose node
+    pass ran over the route's points, 0.0 where none ran, None for a
+    program without the counter (a checkout before it) or without a kernel
+    call."""
+    reader = harness.load_metric("tendencies.ice_share")
+    monkeypatch.setattr(reader, "registry", lambda: (
+        None if counters is None else _Registry(counters, device_counters)))
+    assert reader.read(None) == want
+
+
+def test_the_ice_share_is_a_metric_of_the_tendency_cell():
+    import json
+
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    (entry,) = [m for m in bench["per_layer"]
+                if m["name"] == "tendencies.ice_share"]
+    assert entry["source"] == "program_counter"
+    assert entry["layer"] == "P3 point-wise tendency route"
+    assert entry["moves"] == "points_per_s"
+    assert entry["workloads"] == ["p3_tend_gl40"]
+    assert [m["name"] for m in harness.cell_metrics(
+        bench, "p3_tend_gl40", "per_layer")][-1] == "tendencies.ice_share"
